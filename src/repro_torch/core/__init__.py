@@ -1,0 +1,35 @@
+"""Core: integral histograms and their O(1) queries, in torch.
+
+The engine and HSource names are re-exported lazily, as in ``repro.core``:
+``core.engine`` imports ``kernels.ops``, which imports this package.
+"""
+
+from repro_torch.core.binning import PAD_BIN, bin_indices, one_hot_bins
+from repro_torch.core.scans import (
+    METHODS, apply_carry, cw_b, cw_sts, cw_tis, wf_tis,
+)
+
+_ENGINE_EXPORTS = {
+    "WorkloadSpec", "ExecutionPlan", "plan", "HistogramEngine",
+    "EngineResult", "RegionQuery", "SlidingWindowQuery", "LikelihoodQuery",
+    "MultiScaleQuery",
+}
+_HSOURCE_EXPORTS = {"HSource", "DenseH", "FusedRowsH", "as_hsource"}
+
+__all__ = [
+    "PAD_BIN", "bin_indices", "one_hot_bins",
+    "METHODS", "apply_carry", "cw_b", "cw_sts", "cw_tis", "wf_tis",
+    *sorted(_ENGINE_EXPORTS), *sorted(_HSOURCE_EXPORTS),
+]
+
+
+def __getattr__(name):
+    if name in _ENGINE_EXPORTS:
+        from repro_torch.core import engine
+
+        return getattr(engine, name)
+    if name in _HSOURCE_EXPORTS:
+        from repro_torch.core import hsource
+
+        return getattr(hsource, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,539 @@
+"""Plan/execute engine for the dense and query-fused representations.
+
+Port of ``repro/core/engine.py``:
+
+    spec = WorkloadSpec(height=480, width=640, num_bins=32)
+    p = plan(spec)            # deterministic, inspectable, testable
+    print(p.explain())        # why this representation
+
+``HistogramEngine`` composes plan -> compute -> query: ``engine.run``
+returns an ``HSource`` (core/hsource.py) plus the results of its queries.
+Two of the reference's decisions are ported: decision 0 (fuse the queries
+into the scan when their corner-row union is at most ``height // 4``
+rows; K2) and decision 4 (dense H; K1).  Memory budgets, storage
+policies, meshes and incremental updates raise ``NotImplementedError``
+naming the ROADMAP item that ports them.  No priors file is read: tiles
+tuned on a TPU do not transfer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable
+
+import numpy as np
+
+from repro_torch.core.hsource import (
+    DenseH,
+    FusedRowsH,
+    HSource,
+    PrefetchedRowsH,
+)
+from repro_torch.device import dtype_name, resolve_device
+
+REPRESENTATIONS = ("dense", "fused")
+
+# Fuse the queries into the scan (never store H) when the request's
+# corner-row union is at most 1/_FUSE_ROW_FRACTION of the frame height.
+_FUSE_ROW_FRACTION = 4
+
+# Auto microbatching targets this per-dispatch output footprint.
+_AUTO_BATCH_BYTES = 4 << 20
+
+# fp32 counts are exact below this; a query reading a larger region is
+# refused before any dispatch (the reference's plancheck query-validity).
+FP32_EXACT_COUNT = 1 << 24
+
+# Spec fields whose execution paths come with later ROADMAP items.
+_UNPORTED = (
+    ("memory_budget_bytes", "banded H under a memory budget (ROADMAP 1.2)"),
+    ("storage", "host spill storage policies (ROADMAP 1.2)"),
+    ("mesh", "multi-GPU sharding (ROADMAP 1.7)"),
+    ("dirty_fraction", "incremental video updates (ROADMAP 1.3)"),
+)
+
+
+class PlanValidationError(ValueError):
+    """A plan failed static validation: the dispatch would have produced
+    counts fp32 cannot hold exactly."""
+
+
+def auto_batch_size(num_bins: int, h: int, w: int) -> int:
+    """Frames per dispatch from the per-frame (num_bins, h, w) fp32 H
+    footprint: small frames batch deep, full frames stay near 1."""
+    per_frame_bytes = 4 * num_bins * h * w
+    return max(1, min(16, _AUTO_BATCH_BYTES // per_frame_bytes))
+
+
+# ---------------------------------------------------------------------------
+# spec
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class WorkloadSpec:
+    """Everything the planner needs to know about a request.
+
+    ``num_frames`` is frames per call, ``None`` for an open stream.
+    ``query_rows`` is the corner-row union of the request's queries
+    (``engine.run`` fills it).  ``device`` is where the request runs
+    (``None`` = the GPU); it decides what backend ``"auto"`` means."""
+
+    height: int
+    width: int
+    num_bins: int = 32
+    num_frames: int | None = 1
+    dtype: str = "uint8"
+    value_range: int | None = 256
+    method: str = "wf_tis"
+    backend: str = "auto"
+    tile: int = 128
+    bin_block: int | None = None
+    memory_budget_bytes: int | None = None
+    storage: str | None = None
+    mesh: object | None = None
+    query_rows: tuple[int, ...] | None = None
+    dirty_fraction: float | None = None
+    device: str | None = None
+
+    @property
+    def per_frame_h_bytes(self) -> int:
+        """The (num_bins, h, w) fp32 H footprint of one frame."""
+        return 4 * self.num_bins * self.height * self.width
+
+
+# ---------------------------------------------------------------------------
+# plan
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """The planner's resolved decisions; equal specs give equal plans."""
+
+    spec: WorkloadSpec
+    representation: str                 # dense | fused
+    method: str
+    backend: str                        # resolved: "cuda" | "torch"
+    tile: int
+    bin_block: int | None
+    microbatch: int
+
+    def explain(self) -> str:
+        """Human-readable plan rationale."""
+        s = self.spec
+        per_frame = s.per_frame_h_bytes
+        lines = [
+            "ExecutionPlan",
+            f"  workload        : {s.height}x{s.width} {s.dtype} frames, "
+            f"{s.num_bins} bins, "
+            + ("open stream" if s.num_frames is None
+               else f"{s.num_frames} frame(s)/request"),
+            f"  full H          : {per_frame} B/frame "
+            f"({per_frame / 2**20:.1f} MiB fp32)",
+            f"  representation  : {self.representation}",
+        ]
+        if s.query_rows is not None:
+            k = len(s.query_rows)
+            nf = 1 if s.num_frames is None else s.num_frames
+            if self.representation == "fused":
+                rows_b = 4 * nf * s.num_bins * k * s.width
+                lines.append(
+                    f"  query fusion    : fuse — {k} corner row(s) "
+                    f"({rows_b} B) << full H {per_frame} B; H never stored")
+            else:
+                bound = s.height // _FUSE_ROW_FRACTION
+                lines.append(
+                    f"  query fusion    : store — {k} corner row(s) exceed "
+                    f"the fuse bound ({bound} rows); fall back to "
+                    f"{self.representation}")
+        bb = "auto" if self.bin_block is None else self.bin_block
+        lines += [
+            f"  method/backend  : {self.method} / {self.backend}",
+            f"  tile/bin_block  : {self.tile} / {bb}",
+            f"  microbatch      : {self.microbatch} frame(s)/dispatch",
+            "  bands           : none (no memory budget)",
+            "  storage         : device fp32",
+            "  sharding        : none",
+        ]
+        return "\n".join(lines)
+
+
+def _check_ported(spec: WorkloadSpec) -> None:
+    for field, what in _UNPORTED:
+        if getattr(spec, field) is not None:
+            raise NotImplementedError(
+                f"WorkloadSpec.{field} is set, but {what} is not ported "
+                "to repro_torch yet")
+
+
+def plan(spec: WorkloadSpec) -> ExecutionPlan:
+    """Deterministically map a workload onto an execution path.
+
+      0. query_rows known and small (at most height/4 rows) -> fused:
+         compute only those corner rows straight out of the scan (K2),
+         never store H.
+      4. otherwise -> dense (K1).
+
+    Microbatch comes from the per-frame H footprint (auto_batch_size),
+    capped by ``num_frames``; a fused plan takes the whole request.
+
+    >>> p = plan(WorkloadSpec(height=64, width=64, num_bins=8,
+    ...                       device="cpu"))
+    >>> p.representation, p.method, p.backend
+    ('dense', 'wf_tis', 'torch')
+    """
+    from repro_torch.core import scans
+    from repro_torch.kernels.ops import resolve_backend
+
+    _check_ported(spec)
+    if spec.method not in scans.METHODS:
+        raise ValueError(f"unknown method {spec.method!r}")
+    backend = resolve_backend(spec.backend, spec.method,
+                              resolve_device(spec.device))
+    nf = spec.num_frames
+    microbatch = auto_batch_size(spec.num_bins, spec.height, spec.width)
+    if nf is not None:
+        microbatch = max(1, min(microbatch, nf))
+
+    if spec.query_rows is not None:
+        rows = spec.query_rows
+        if not all(
+            0 <= r < spec.height for r in rows
+        ) or list(rows) != sorted(set(rows)):
+            raise ValueError(
+                f"query_rows must be sorted unique within "
+                f"[0, {spec.height}), got {rows[:8]}")
+        if 0 < len(rows) <= spec.height // _FUSE_ROW_FRACTION:
+            return ExecutionPlan(
+                spec=spec, representation="fused", method=spec.method,
+                backend=backend, tile=spec.tile, bin_block=spec.bin_block,
+                microbatch=(microbatch if nf is None else nf))
+
+    return ExecutionPlan(
+        spec=spec, representation="dense", method=spec.method,
+        backend=backend, tile=spec.tile, bin_block=spec.bin_block,
+        microbatch=microbatch)
+
+
+# ---------------------------------------------------------------------------
+# queries
+# ---------------------------------------------------------------------------
+def _window_rows(source, window, stride) -> np.ndarray:
+    """The corner rows a sliding-window field reads (empty if no fit)."""
+    n_r, n_c, bot, top = source._window_lattices(window, stride)
+    if n_r <= 0 or n_c <= 0:
+        return np.zeros((0,), np.int64)
+    return np.unique(np.concatenate([bot, top[top >= 0]]))
+
+
+class _GeomView:
+    """Just enough HSource surface for ``needed_rows`` to run before any
+    H exists: the planner asks the queries for their rows."""
+
+    def __init__(self, height: int, width: int):
+        self.height = height
+        self.width = width
+
+    _window_lattices = HSource._window_lattices
+
+
+def _declared_rows(queries, height: int, width: int) -> tuple[int, ...] | None:
+    """The corner-row union the request will read, or ``None`` when a
+    query cannot declare its rows up front."""
+    view = _GeomView(height, width)
+    needs = []
+    for q in queries:
+        declare = getattr(q, "needed_rows", None)
+        if declare is None:
+            return None
+        rows = declare(view)
+        if rows is None:
+            return None
+        needs.append(np.asarray(rows))
+    if not needs:
+        return None
+    rows = np.unique(np.concatenate(needs))
+    rows = rows[(rows >= 0) & (rows < height)]
+    if rows.size == 0:
+        return None
+    return tuple(int(r) for r in rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class RegionQuery:
+    """O(1) region histograms of ``rects`` (Eq. 2)."""
+
+    rects: object
+
+    def apply(self, source: HSource):
+        return source.region_histogram(self.rects)
+
+    def needed_rows(self, source) -> np.ndarray:
+        from repro_torch.core.region_query import corner_rows
+
+        return corner_rows(np.asarray(self.rects))
+
+
+@dataclasses.dataclass(frozen=True)
+class SlidingWindowQuery:
+    """Histograms of every (wh, ww) window at ``stride``."""
+
+    window: tuple[int, int]
+    stride: int = 1
+
+    def apply(self, source: HSource):
+        return source.sliding_window_histograms(self.window, self.stride)
+
+    def needed_rows(self, source) -> np.ndarray:
+        return _window_rows(source, self.window, self.stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class LikelihoodQuery:
+    """Per-position similarity of window histograms to ``target``."""
+
+    target: object
+    window: tuple[int, int]
+    metric: object = None
+    stride: int = 1
+
+    def apply(self, source: HSource):
+        from repro_torch.core import distances
+
+        metric = self.metric or distances.intersection
+        return source.likelihood_map(self.target, self.window, metric,
+                                     self.stride)
+
+    def needed_rows(self, source) -> np.ndarray:
+        return _window_rows(source, self.window, self.stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiScaleQuery:
+    """Best-matching window across scales (rect, score, per-scale maps)."""
+
+    target: object
+    windows: tuple[tuple[int, int], ...]
+    metric: object = None
+    stride: int = 1
+
+    def apply(self, source: HSource):
+        from repro_torch.core import distances
+
+        metric = self.metric or distances.intersection
+        return source.multi_scale_search(self.target, self.windows, metric,
+                                         self.stride)
+
+    def needed_rows(self, source) -> np.ndarray:
+        rows = [_window_rows(source, wnd, self.stride)
+                for wnd in self.windows]
+        return (np.unique(np.concatenate(rows))
+                if rows else np.zeros((0,), np.int64))
+
+
+def _query_area(query) -> int | None:
+    """Largest region/window pixel area a query touches, else None."""
+    rects = getattr(query, "rects", None)
+    if rects is not None:
+        r = np.asarray(rects).reshape(-1, 4)
+        if r.size == 0:
+            return 0
+        return int(((r[:, 2] - r[:, 0] + 1)
+                    * (r[:, 3] - r[:, 1] + 1)).max())
+    windows = getattr(query, "windows", None)
+    if windows is not None:
+        return max((int(wh) * int(ww) for wh, ww in windows), default=0)
+    window = getattr(query, "window", None)
+    if window is not None:
+        wh, ww = window
+        return int(wh) * int(ww)
+    return None
+
+
+def validate_queries(queries) -> None:
+    """Refuse a query that reads a region of 2^24 pixels or more: its
+    fp32 counts would not be exact.  The rest of the reference's static
+    plan checks come with ROADMAP 1.8."""
+    bound = FP32_EXACT_COUNT - 1
+    for q in queries:
+        area = _query_area(q)
+        if area is not None and area > bound:
+            raise PlanValidationError(
+                f"{type(q).__name__} touches a {area}-px region, beyond "
+                f"the exact-count bound {bound} px (fp32 exactness)")
+
+
+@dataclasses.dataclass
+class EngineResult:
+    """What ``HistogramEngine.run`` hands back."""
+
+    plan: ExecutionPlan
+    source: HSource
+    results: list
+
+
+def prefetch_rows(source: HSource, queries) -> PrefetchedRowsH | None:
+    """Union the corner rows every query needs and fetch them in ONE
+    ``rows()`` pass; ``None`` when a query cannot declare its rows or
+    none are needed."""
+    needs = []
+    for q in queries:
+        declare = getattr(q, "needed_rows", None)
+        if declare is None:
+            return None
+        rows = declare(source)
+        if rows is None:
+            return None
+        needs.append(np.asarray(rows))
+    needed = (np.unique(np.concatenate(needs))
+              if needs else np.zeros((0,), np.int64))
+    if needed.size == 0:
+        return None
+    return PrefetchedRowsH(source, needed, source.rows(needed))
+
+
+# ---------------------------------------------------------------------------
+# engine
+# ---------------------------------------------------------------------------
+class HistogramEngine:
+    """Plan -> compute -> query facade.
+
+        engine = HistogramEngine(num_bins=32)
+        out = engine.run(frames, [RegionQuery(rects),
+                                  LikelihoodQuery(target, (48, 48))])
+        out.plan.explain()       # why this path
+        out.results              # one entry per query
+
+    ``device=None`` runs on the GPU; ``device="cpu"`` runs the plain
+    torch versions.  ``engine.last_plan`` keeps the most recent plan.
+    """
+
+    def __init__(
+        self,
+        num_bins: int = 32,
+        *,
+        method: str = "wf_tis",
+        backend: str = "auto",
+        tile: int = 128,
+        bin_block: int | None = None,
+        value_range: int | None = 256,
+        memory_budget_bytes: int | None = None,
+        storage: str | None = None,
+        mesh=None,
+        device=None,
+    ):
+        self.num_bins = num_bins
+        self.method = method
+        self.backend = backend
+        self.tile = tile
+        self.bin_block = bin_block
+        self.value_range = value_range
+        self.memory_budget_bytes = memory_budget_bytes
+        self.storage = storage
+        self.mesh = mesh
+        self.device = None if device is None else str(device)
+        self.last_plan: ExecutionPlan | None = None
+
+    # -- planning -----------------------------------------------------------
+    def spec_for(
+        self, shape, dtype="uint8", *, num_frames: int | None = "infer"
+    ) -> WorkloadSpec:
+        """The WorkloadSpec for an (h, w) / (n, h, w) request."""
+        shape = tuple(shape)
+        if len(shape) == 2:
+            nf = 1 if num_frames == "infer" else num_frames
+        elif len(shape) == 3:
+            nf = shape[0]
+        else:
+            raise ValueError(f"expected (h, w) or (n, h, w), got {shape}")
+        return WorkloadSpec(
+            height=shape[-2], width=shape[-1], num_bins=self.num_bins,
+            num_frames=nf, dtype=dtype_name(dtype),
+            value_range=self.value_range, method=self.method,
+            backend=self.backend, tile=self.tile, bin_block=self.bin_block,
+            memory_budget_bytes=self.memory_budget_bytes,
+            storage=self.storage, mesh=self.mesh, device=self.device,
+        )
+
+    def plan_for(self, frames) -> ExecutionPlan:
+        p = plan(self.spec_for(np.shape(frames),
+                               getattr(frames, "dtype", "uint8")))
+        self.last_plan = p
+        return p
+
+    def explain(self) -> str:
+        """``last_plan.explain()``."""
+        if self.last_plan is None:
+            raise ValueError("no plan yet — run plan_for()/run() first")
+        return self.last_plan.explain()
+
+    # -- execution ----------------------------------------------------------
+    def _kernel_kwargs(self, p: ExecutionPlan) -> dict:
+        return dict(
+            method=p.method, backend=p.backend, tile=p.tile,
+            bin_block=p.bin_block, value_range=p.spec.value_range,
+            device=self.device,
+        )
+
+    def compute_dense(self, frames):
+        """The raw (..., b, h, w) H tensor, no HSource wrapper."""
+        from repro_torch.kernels.ops import integral_histogram
+
+        return integral_histogram(
+            frames, self.num_bins, method=self.method, backend=self.backend,
+            tile=self.tile, bin_block=self.bin_block,
+            value_range=self.value_range, device=self.device,
+        )
+
+    def compute(self, frames, p: ExecutionPlan | None = None) -> HSource:
+        """Execute the plan: frames -> the planned H representation."""
+        from repro_torch.kernels.ops import (
+            fused_corner_rows,
+            integral_histogram,
+        )
+
+        if p is None:
+            p = self.plan_for(frames)
+        kw = self._kernel_kwargs(p)
+        if p.representation == "fused":
+            rows = np.asarray(p.spec.query_rows, np.int64)
+            stats: dict = {}
+            R = fused_corner_rows(frames, self.num_bins, rows, stats=stats,
+                                  **kw)
+            source = FusedRowsH(rows, R, height=p.spec.height,
+                                width=p.spec.width)
+            source.last_fused_stats = stats
+            return source
+        return DenseH(integral_histogram(frames, self.num_bins, **kw))
+
+    def run(self, frames, queries: Iterable = (), *,
+            prev=None) -> EngineResult:
+        """Plan, compute, and answer ``queries`` in order.
+
+        The queries' declared corner-row union goes into the spec as
+        ``query_rows``; when it is small the plan fuses the queries into
+        the scan (``representation == "fused"``) and H is never stored.
+
+        >>> import numpy as np
+        >>> frame = np.arange(64, dtype=np.uint8).reshape(8, 8) % 4
+        >>> eng = HistogramEngine(num_bins=4, value_range=4, device="cpu")
+        >>> out = eng.run(frame, [RegionQuery([[0, 0, 7, 7]])])
+        >>> out.plan.representation      # 1 corner row -> query-fused
+        'fused'
+        >>> [float(v) for v in out.results[0].ravel()]
+        [16.0, 16.0, 16.0, 16.0]
+        """
+        if prev is not None:
+            raise NotImplementedError(
+                "run(prev=...) updates a cached H incrementally; "
+                "incremental video updates are not ported to repro_torch "
+                "yet (ROADMAP 1.3)")
+        queries = list(queries)
+        spec = self.spec_for(np.shape(frames),
+                             getattr(frames, "dtype", "uint8"))
+        rows = _declared_rows(queries, spec.height, spec.width)
+        if rows is not None:
+            spec = dataclasses.replace(spec, query_rows=rows)
+        p = plan(spec)
+        self.last_plan = p
+        validate_queries(queries)
+        source = self.compute(frames, p)
+        results = [q.apply(source) for q in queries]
+        return EngineResult(plan=p, source=source, results=results)

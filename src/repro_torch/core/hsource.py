@@ -1,0 +1,327 @@
+"""One H-representation protocol for every way the port holds an H.
+
+Port of ``repro/core/hsource.py`` for the dense and query-fused
+representations (banded, spilled and sharded ones come with ROADMAP 1.2
+and 1.7).  Eq. 2 only ever reads corner *rows* of H, so one protocol
+serves every representation:
+
+    class HSource:
+        num_bins / height / width / lead     # metadata
+        rows(row_ids) -> (..., b, k, w)      # tensor on the source's device
+        dense() -> (..., b, h, w)            # assemble (when it exists)
+
+Every analytics function has one generic implementation against
+``rows()``; ``DenseH`` overrides with the direct dense paths.  Results are
+bit-exact either way because all H arithmetic is integer-valued fp32.
+
+The reference returns host (numpy) rows to dodge a jax 0.4.37 bug in
+concatenating row-sharded device arrays; torch has no such bug, so rows
+stay on the source's device here.
+"""
+
+from __future__ import annotations
+
+import abc
+
+import numpy as np
+import torch
+
+from repro_torch.core import region_query as rq
+from repro_torch.device import as_tensor
+
+
+class MissingRowsError(KeyError):
+    """A row-restricted source was asked for rows it does not hold.
+
+    Raised by :class:`PrefetchedRowsH` (a prefetch missed a query's rows —
+    a caller bug) and :class:`FusedRowsH` (a fused result holds ONLY its
+    request's corner rows; asking for more means the request changed and
+    the engine must recompute)."""
+
+
+def _lookup(held: np.ndarray, row_ids: np.ndarray, what: str) -> np.ndarray:
+    """Positions of ``row_ids`` in the sorted ``held`` rows, or raise."""
+    idx = np.searchsorted(held, row_ids)
+    n = len(held)
+    bad = ((idx >= n) | (held[np.minimum(idx, n - 1)] != row_ids)
+           if n else np.ones(row_ids.shape, bool))
+    if row_ids.size and bad.any():
+        raise MissingRowsError(f"rows {row_ids[bad].tolist()} {what}")
+    return idx
+
+
+class HSource(abc.ABC):
+    """Corner-row access + metadata over any integral-histogram holder."""
+
+    num_bins: int
+    height: int
+    width: int
+    lead: tuple      # leading frame axes of the H stack (() for a frame)
+
+    @property
+    def nbytes(self) -> int:
+        """Size estimate: the full fp32 H footprint."""
+        nlead = int(np.prod(self.lead, dtype=np.int64) or 1)
+        return 4 * nlead * self.num_bins * self.height * self.width
+
+    # -- the one representation primitive -----------------------------------
+    @abc.abstractmethod
+    def rows(self, row_ids) -> torch.Tensor:
+        """Full-frame H restricted to ``row_ids`` (sorted, ascending):
+        (..., b, len(row_ids), w) on the source's device."""
+
+    def dense(self) -> torch.Tensor:
+        """Materialize (..., b, h, w) as fp32 — small frames only."""
+        return self.rows(np.arange(self.height)).to(torch.float32)
+
+    # -- unified analytics (Eq. 2 against rows()) ---------------------------
+    def region_histogram(self, rects) -> torch.Tensor:
+        """``region_query.region_histogram`` semantics; returns fp32."""
+        rects = np.asarray(rects)
+        needed = rq.corner_rows(rects)
+        Hc = self.rows(needed)
+        out = rq.compressed_region_histogram(Hc, needed, rects)
+        return out.to(torch.float32)
+
+    def _window_lattices(self, window, stride):
+        """The two corner-row lattices of the regular window grid."""
+        wh, ww = window
+        n_r = (self.height - wh) // stride + 1
+        n_c = (self.width - ww) // stride + 1
+        bot = wh - 1 + np.arange(max(n_r, 0)) * stride
+        top = np.arange(max(n_r, 0)) * stride - 1     # row -1 is virtual
+        return n_r, n_c, bot, top
+
+    def _windows_from_rows(self, R, needed, window, stride):
+        """Four-corner arithmetic over prefetched corner rows ``R =
+        self.rows(needed)``."""
+        n_r, n_c, bot_rows, top_rows = self._window_lattices(window, stride)
+        sel = torch.as_tensor(np.searchsorted(needed, bot_rows),
+                              device=R.device)
+        bot = R[..., sel, :]
+        top = torch.zeros_like(bot)
+        real = top_rows >= 0
+        sel = torch.as_tensor(np.searchsorted(needed, top_rows[real]),
+                              device=R.device)
+        top[..., torch.as_tensor(real, device=R.device), :] = R[..., sel, :]
+        diff = bot - top                               # (..., b, n_r, w)
+        s = stride
+        ww = window[1]
+        d = diff[..., ww - 1 :: s][..., :n_c]
+        c = torch.zeros_like(d)                        # virtual zero column
+        c[..., 1:] = diff[..., s - 1 :: s][..., : n_c - 1]
+        return torch.movedim((d - c).to(torch.float32), -3, -1)
+
+    def _empty_windows(self, n_r, n_c, device):
+        return torch.zeros(
+            self.lead + (max(n_r, 0), max(n_c, 0), self.num_bins),
+            dtype=torch.float32, device=device)
+
+    def sliding_window_histograms(
+        self, window, stride: int = 1, *, stats: dict | None = None
+    ) -> torch.Tensor:
+        """One O(1) query per window position, one ``rows()`` pass."""
+        n_r, n_c, bot_rows, top_rows = self._window_lattices(window, stride)
+        if n_r <= 0 or n_c <= 0:
+            return self._empty_windows(n_r, n_c, self.device)
+        needed = np.unique(np.concatenate([bot_rows, top_rows[top_rows >= 0]]))
+        R = self.rows(needed)
+        out = self._windows_from_rows(R, needed, window, stride)
+        if stats is not None:
+            self._fill_stats(stats, R)
+        return out
+
+    def likelihood_map(
+        self, target_hist, window, metric, stride: int = 1,
+        *, stats: dict | None = None,
+    ):
+        hists = self.sliding_window_histograms(window, stride, stats=stats)
+        return metric(hists, rq._target(target_hist, hists))
+
+    def multi_scale_search(self, target_hist, windows, metric,
+                           stride: int = 1):
+        """The union of all scales' corner-row lattices is fetched in ONE
+        ``rows()`` pass."""
+        lattices = [self._window_lattices(wnd, stride) for wnd in windows]
+        all_rows = [
+            np.concatenate([bot, top[top >= 0]])
+            for (n_r, n_c, bot, top) in lattices
+            if n_r > 0 and n_c > 0
+        ]
+        needed = (np.unique(np.concatenate(all_rows))
+                  if all_rows else np.zeros((0,), np.int64))
+        R = self.rows(needed) if needed.size else None
+        maps = []
+        for wnd, (n_r, n_c, _, _) in zip(windows, lattices):
+            if n_r <= 0 or n_c <= 0:
+                hists = self._empty_windows(n_r, n_c, self.device)
+            else:
+                hists = self._windows_from_rows(R, needed, wnd, stride)
+            maps.append(metric(hists, rq._target(target_hist, hists)))
+        best_rect, best_score = rq.reduce_scale_maps(
+            maps, windows, stride, self.lead)
+        return best_rect, best_score, maps
+
+    def _fill_stats(self, stats: dict, R: torch.Tensor) -> None:
+        nlead = int(np.prod(self.lead, dtype=np.int64) or 1)
+        stats.update(
+            slab_bytes=2 * R.numel() * R.element_size(),
+            full_h_bytes=4 * nlead * self.num_bins * self.height * self.width,
+        )
+        stats.setdefault("num_bands", 1)
+        stats.setdefault("band_bytes", 0)
+        stats["peak_bytes"] = stats["band_bytes"] + stats["slab_bytes"]
+
+
+class DenseH(HSource):
+    """A materialized (..., b, h, w) H; analytics take the direct dense
+    paths of core/region_query.py.
+
+    ``H`` may be a tensor (kept where it is) or a numpy array, e.g. an H
+    the reference computed; a numpy H goes to ``device`` (``None`` = the
+    card)."""
+
+    def __init__(self, H, device=None):
+        if isinstance(H, torch.Tensor) and device is None:
+            self.H = H
+        else:
+            self.H = as_tensor(H, device)
+        if self.H.ndim < 3:
+            raise ValueError(
+                f"DenseH wants (..., b, h, w), got {tuple(self.H.shape)}")
+
+    @property
+    def num_bins(self) -> int:
+        return self.H.shape[-3]
+
+    @property
+    def height(self) -> int:
+        return self.H.shape[-2]
+
+    @property
+    def width(self) -> int:
+        return self.H.shape[-1]
+
+    @property
+    def lead(self) -> tuple:
+        return tuple(self.H.shape[:-3])
+
+    @property
+    def device(self) -> torch.device:
+        return self.H.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.H.numel() * self.H.element_size()
+
+    def rows(self, row_ids) -> torch.Tensor:
+        return self.H[..., torch.as_tensor(np.asarray(row_ids, np.int64),
+                                           device=self.H.device), :]
+
+    def dense(self) -> torch.Tensor:
+        return self.H
+
+    def region_histogram(self, rects) -> torch.Tensor:
+        return rq.region_histogram(self.H, rects)
+
+    def sliding_window_histograms(
+        self, window, stride: int = 1, *, stats: dict | None = None
+    ) -> torch.Tensor:
+        return rq.sliding_window_histograms(self.H, window, stride,
+                                            stats=stats)
+
+    def multi_scale_search(self, target_hist, windows, metric,
+                           stride: int = 1):
+        return rq.multi_scale_search(self.H, target_hist, windows, metric,
+                                     stride)
+
+
+class PrefetchedRowsH(HSource):
+    """A view over corner rows already fetched from another source: a
+    request's union of rows is fetched in ONE ``rows()`` pass and each
+    query is served from it.  Asking for other rows raises."""
+
+    def __init__(self, base: HSource, needed, R: torch.Tensor):
+        self._base = base
+        self._needed = np.asarray(needed)
+        self._R = R
+
+    num_bins = property(lambda self: self._base.num_bins)
+    height = property(lambda self: self._base.height)
+    width = property(lambda self: self._base.width)
+    lead = property(lambda self: self._base.lead)
+    device = property(lambda self: self._R.device)
+
+    def rows(self, row_ids) -> torch.Tensor:
+        row_ids = np.asarray(row_ids)
+        idx = _lookup(self._needed, row_ids,
+                      "were not prefetched; the engine's row union must "
+                      "cover every query")
+        return self._R[..., torch.as_tensor(idx, device=self._R.device), :]
+
+
+class FusedRowsH(HSource):
+    """The result of a query-fused dispatch: corner rows WITHOUT an H.
+
+    A fused plan never builds the (n, b, h, w) integral histogram —
+    ``kernels.ops.fused_corner_rows`` emits exactly the rows the request's
+    queries read, and this source serves those queries from that slab.
+    ``rows()`` outside the fused set and ``dense()`` raise
+    :class:`MissingRowsError`: there is no H to go back to."""
+
+    def __init__(self, row_ids, R, *, height: int, width: int):
+        self._row_ids = np.asarray(row_ids, np.int64).reshape(-1)
+        self._R = R if isinstance(R, torch.Tensor) else torch.as_tensor(R)
+        if self._R.ndim < 3 or self._R.shape[-2] != self._row_ids.size:
+            raise ValueError(
+                f"R {tuple(self._R.shape)} does not hold "
+                f"{self._row_ids.size} rows (want (..., b, k, w))")
+        self.height = height
+        self.width = width
+
+    @property
+    def num_bins(self) -> int:
+        return self._R.shape[-3]
+
+    @property
+    def lead(self) -> tuple:
+        return tuple(self._R.shape[:-3])
+
+    @property
+    def device(self) -> torch.device:
+        return self._R.device
+
+    @property
+    def row_ids(self) -> np.ndarray:
+        return self._row_ids
+
+    @property
+    def nbytes(self) -> int:
+        return self._R.numel() * self._R.element_size()
+
+    def rows(self, row_ids) -> torch.Tensor:
+        row_ids = np.asarray(row_ids)
+        idx = _lookup(self._row_ids, row_ids,
+                      "were not part of the fused request; a fused plan "
+                      "computes only its declared corner rows — re-run the "
+                      "engine with the new queries")
+        return self._R[..., torch.as_tensor(idx, device=self._R.device), :]
+
+    def dense(self):
+        raise MissingRowsError(
+            "this H was query-fused: only the requested corner rows were "
+            "ever computed and the dense (b, h, w) H does not exist; "
+            "re-plan without query fusion to materialize it")
+
+
+def as_hsource(H, device=None) -> HSource:
+    """Coerce a representation to the protocol: an ``HSource`` as-is, a
+    dense (..., b, h, w) tensor or numpy array as ``DenseH``.  Band
+    streams come with ROADMAP 1.2."""
+    if isinstance(H, HSource):
+        return H
+    if hasattr(H, "ndim") and hasattr(H, "shape"):
+        return DenseH(H, device)
+    raise TypeError(
+        f"cannot interpret {type(H).__name__} as an integral-histogram "
+        "source (want an HSource or a dense (..., b, h, w) array)")

@@ -1,0 +1,74 @@
+"""Public API: the integral histogram as a configured operator.
+
+Port of ``repro/core/integral_histogram.py``:
+
+>>> ih = IntegralHistogram(num_bins=32)
+>>> H = ih(image)                          # (32, h, w) on the GPU
+>>> Hs = ih(stack)                         # (n, 32, h, w), one launch
+>>> hist = ih.query(H, [r0, c0, r1, c1])   # O(1) region histogram
+>>> wins = ih.sliding_windows(Hs, (24, 24))  # (n, n_r, n_c, 32)
+
+``map_frames`` (streaming) comes with ROADMAP 1.5 and ``map_bands``
+(banded H) with ROADMAP 1.2.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core import region_query
+from repro_torch.kernels.ops import integral_histogram as _compute
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegralHistogram:
+    """Configured integral-histogram operator.
+
+    Attributes:
+      num_bins: histogram bins b.
+      method: "cw_b" | "cw_sts" | "cw_tis" | "wf_tis" (paper's four).
+      backend: "auto" | "cuda" | "torch" (kernels/ops.py).
+      tile: strip height of the plain scans.
+      bin_block: bins per CTA of the CUDA kernel (None = from the shape).
+      value_range: integer pixel range (floats are binned over [0, 1)).
+      device: where it runs (None = the GPU, "cpu" for the plain path).
+    """
+
+    num_bins: int = 32
+    method: str = "wf_tis"
+    backend: str = "auto"
+    tile: int = 128
+    bin_block: int | None = None
+    value_range: int | None = 256
+    device: str | None = None
+
+    def __call__(self, image):
+        """(h, w) -> (num_bins, h, w); (n, h, w) -> (n, num_bins, h, w)."""
+        return _compute(
+            image,
+            self.num_bins,
+            method=self.method,
+            backend=self.backend,
+            tile=self.tile,
+            bin_block=self.bin_block,
+            value_range=self.value_range,
+            device=self.device,
+        )
+
+    def engine(self, **overrides):
+        """A ``HistogramEngine`` sharing this operator's configuration."""
+        from repro_torch.core.engine import HistogramEngine
+
+        kwargs = dict(
+            method=self.method, backend=self.backend, tile=self.tile,
+            bin_block=self.bin_block, value_range=self.value_range,
+            device=self.device,
+        )
+        kwargs.update(overrides)
+        return HistogramEngine(self.num_bins, **kwargs)
+
+    # ---- O(1) analytics on a computed H (tensor or any HSource) ----
+    query = staticmethod(region_query.region_histogram)
+    sliding_windows = staticmethod(region_query.sliding_window_histograms)
+    likelihood_map = staticmethod(region_query.likelihood_map)
+    multi_scale_search = staticmethod(region_query.multi_scale_search)

@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for the integral-histogram scan (sm_90a).
+
+wf_tis.py     — K1, the WF-TiS scan: bin ids -> inclusive H.
+fused_rows.py — K2, the same scan emitting only requested rows of H.
+csrc/         — the CUDA C++ sources, shared scan in wf_tis_scan.cuh.
+_build.py     — nvcc at first use, libraries loaded with ctypes.
+ops.py        — the public entry points and backend dispatch.
+ref.py        — the plain torch oracle.
+"""
+
+from repro_torch.kernels.ops import integral_histogram
+from repro_torch.kernels.ref import integral_histogram_ref
+
+__all__ = ["integral_histogram", "integral_histogram_ref"]

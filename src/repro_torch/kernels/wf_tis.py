@@ -1,0 +1,146 @@
+"""K1: the WF-TiS integral histogram as a hand-written CUDA kernel.
+
+Replaces ``repro/kernels/wf_tis.py::wf_tis_pallas`` (body
+``_wf_tis_kernel``).  Source: ``csrc/wf_tis.cu`` over the scan in
+``csrc/wf_tis_scan.cuh``, built for ``sm_90a`` by ``kernels/_build.py``.
+
+What bounds it on an H100: bytes.  Per pixel it reads a 4-byte bin id
+and writes ``num_bins`` fp32 counts, a few adds each, so at 32 bins the
+least time is the H write over the 3.35 TB/s of device memory.  The
+design writes H once and reads nothing back: one CTA per (frame, bin
+block) walks the rows, keeps the column counts in shared memory, forms
+the one-hot in registers, and scans each row across the frame with warp
+shuffles.  The TPU kernel's carries between grid steps become carries
+along that loop, because CTAs run in no order.
+
+``wf_tis_cuda`` launches the kernel for a CUDA tensor and runs
+``wf_tis_plain`` (the strip scan of ``core/scans.py``: one-hot, two
+cumsums per strip, the carry) only for a CPU tensor.  ``wf_tis_cuda.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import scans
+
+_MAX_THREADS = 1024
+_MAX_CHUNKS = 4                 # 4-column chunks per thread (template Q)
+_BIN_BLOCKS = (8, 4, 2, 1)      # instantiated bin blocks (template BB)
+_SMEM_LIMIT = 227 * 1024        # dynamic shared memory one CTA may use
+
+
+def wf_tis_plain(idx: torch.Tensor, num_bins: int,
+                 carry: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch K1: (n, h, w) bin ids -> (n, num_bins, h, w) fp32, the
+    strip scan behind ``backend="torch"``."""
+    return scans.wf_tis_ids(idx, num_bins, carry_in=carry)
+
+
+def launch_shape(w: int, num_bins: int, n: int,
+                 bin_block: int | None = None) -> tuple[int, int, int]:
+    """(bin_block, threads, chunks) for a frame ``w`` wide.
+
+    Each thread owns ``4 * chunks`` contiguous columns.  ``bin_block=None``
+    takes the largest block that still gives two CTAs per SM of an H100
+    (132 SMs) and fits shared memory."""
+    chunks = 1
+    while _MAX_THREADS * 4 * chunks < w:
+        chunks *= 2
+    threads = 32 * max(1, -(-w // (128 * chunks)))
+    if chunks > _MAX_CHUNKS:
+        raise NotImplementedError(
+            f"width {w} exceeds the {_MAX_THREADS * 4 * _MAX_CHUNKS} columns "
+            "one CTA scans; wider frames need column strips with a row-carry "
+            "pre-pass (not ported yet)")
+
+    def smem(bb: int) -> int:
+        return 4 * (bb * threads * 4 * chunks + 2 * bb * 32)
+
+    if bin_block is None:
+        fits = [bb for bb in _BIN_BLOCKS if smem(bb) <= _SMEM_LIMIT]
+        if not fits:
+            raise NotImplementedError(f"width {w} exceeds shared memory")
+        busy = [bb for bb in fits if n * -(-num_bins // bb) >= 2 * 132]
+        bin_block = busy[0] if busy else fits[-1]
+    elif bin_block not in _BIN_BLOCKS:
+        raise ValueError(f"bin_block must be one of {_BIN_BLOCKS}, "
+                         f"got {bin_block}")
+    elif smem(bin_block) > _SMEM_LIMIT:
+        raise ValueError(f"bin_block {bin_block} at width {w} needs "
+                         f"{smem(bin_block)} B of shared memory")
+    return bin_block, threads, chunks
+
+
+def check_inputs(idx: torch.Tensor, num_bins: int,
+                 carry: torch.Tensor | None) -> None:
+    """The kernels' input contract, checked before any pointer is passed."""
+    if idx.ndim != 3 or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError(
+            f"idx must be a contiguous (n, h, w) int32 tensor, got "
+            f"{tuple(idx.shape)} {idx.dtype}")
+    if num_bins < 1:
+        raise ValueError(f"num_bins must be positive, got {num_bins}")
+    if carry is not None:
+        n, _, w = idx.shape
+        if (tuple(carry.shape) != (n, num_bins, w)
+                or carry.dtype != torch.float32 or not carry.is_contiguous()
+                or carry.device != idx.device):
+            raise ValueError(
+                f"carry must be a contiguous float32 {(n, num_bins, w)} "
+                f"tensor on {idx.device}, got {tuple(carry.shape)} "
+                f"{carry.dtype} on {carry.device}")
+
+
+def _lib():
+    from repro_torch.kernels import _build
+
+    lib = _build.library("wf_tis.cu")
+    fn = lib.wf_tis_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wf_tis_cuda(idx: torch.Tensor, num_bins: int, *,
+                bin_block: int | None = None,
+                carry: torch.Tensor | None = None) -> torch.Tensor:
+    """Inclusive integral histogram of bin ids.
+
+    Args:
+      idx: (n, h, w) contiguous int32 bin ids; any value outside
+        [0, num_bins) (PAD_BIN) matches no bin.  No padding is needed.
+      num_bins: number of bins.
+      bin_block: bins per CTA (1, 2, 4 or 8), ``None`` to pick from the
+        shape.
+      carry: optional (n, num_bins, w) fp32 band carry-in.
+
+    Returns:
+      (n, num_bins, h, w) fp32.  A CPU tensor runs ``wf_tis_plain``.
+    """
+    check_inputs(idx, num_bins, carry)
+    if not idx.is_cuda:
+        return wf_tis_plain(idx, num_bins, carry)
+    n, h, w = idx.shape
+    out = torch.empty((n, num_bins, h, w), dtype=torch.float32,
+                      device=idx.device)
+    if out.numel() == 0:
+        return out
+    bb, threads, chunks = launch_shape(w, num_bins, n, bin_block)
+    fn = _lib()
+    with torch.cuda.device(idx.device):
+        err = fn(idx.data_ptr(),
+                 None if carry is None else carry.data_ptr(),
+                 out.data_ptr(), n, h, w, num_bins, bb, threads, chunks,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"wf_tis kernel launch failed: CUDA error {err}")
+    wf_tis_cuda.launches += 1
+    return out
+
+
+wf_tis_cuda.launches = 0

@@ -1,0 +1,228 @@
+"""repro_torch scans and kernels held against the JAX reference.
+
+The same numpy inputs go through ``repro`` (CPU, ``backend="jnp"`` or the
+Pallas kernels in interpret mode) and through ``repro_torch`` on the CPU,
+where the CUDA wrappers run their plain versions.  Every H value is an
+integer below 2^24 held in fp32, so every comparison is bit-exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import binning as ref_binning
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch.core import binning
+from repro_torch.device import as_tensor
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_rows import (
+    fused_rows_cuda,
+    fused_rows_plain,
+    row_slot_map,
+)
+from repro_torch.kernels.wf_tis import launch_shape, wf_tis_cuda, wf_tis_plain
+
+torch.set_num_threads(1)
+
+METHODS = ("cw_b", "cw_sts", "cw_tis", "wf_tis")
+# (frame shape, bins): single frames and n = 3 stacks, ragged sizes.
+GEOMS = [
+    ((1, 1), 1),
+    ((5, 7), 8),
+    ((3, 32, 48), 32),
+    ((3, 97, 131), 8),
+]
+
+
+def _frames(seed, shape, dtype=np.uint8):
+    rng = np.random.default_rng(seed)
+    if dtype == np.uint8:
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    return rng.random(shape).astype(dtype)
+
+
+def _carry(seed, shape, bins):
+    """Integer-valued fp32 carry of the frame's leading axes."""
+    rng = np.random.default_rng(seed + 1)
+    return rng.integers(0, 1000, shape[:-2] + (bins, shape[-1])).astype(
+        np.float32)
+
+
+def _np(x):
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+@pytest.mark.parametrize("shape,bins", GEOMS)
+@pytest.mark.parametrize("method", METHODS)
+def test_integral_histogram_bit_exact(method, shape, bins, with_carry):
+    img = _frames(0, shape)
+    carry = _carry(0, shape, bins) if with_carry else None
+    want = ref_ops.integral_histogram(
+        jnp.asarray(img), bins, method=method, backend="jnp", tile=16,
+        carry_in=None if carry is None else jnp.asarray(carry))
+    got = ops.integral_histogram(img, bins, method=method, tile=16,
+                                 carry_in=carry, device="cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def _boundary_floats(shape, bins):
+    """float64 values a hair under each bin edge: float32(x) rounds up
+    onto the edge, float64 floor does not, so they pin the cast rule."""
+    rng = np.random.default_rng(3)
+    edges = rng.integers(1, bins, shape) / bins
+    return edges - 1e-12
+
+
+@pytest.mark.parametrize("kind", ["uint8", "int64", "float32", "float64",
+                                  "float64_edges", "bin_ids"])
+def test_binning_and_dtype_rules(kind):
+    shape, bins = (3, 32, 48), 8
+    value_range = 256
+    if kind == "uint8":
+        img = _frames(1, shape)
+    elif kind == "int64":
+        img = _frames(1, shape).astype(np.int64)
+    elif kind == "float32":
+        img = _frames(1, shape, np.float32)
+    elif kind == "float64":
+        img = _frames(1, shape, np.float64)
+    elif kind == "float64_edges":
+        img = _boundary_floats(shape, bins)
+    else:   # value_range=None: the input is bin ids, PAD_BIN and strays
+        img = np.random.default_rng(1).integers(-1, bins + 2, shape)
+        value_range = None
+    want_idx = ref_binning.bin_indices(jnp.asarray(img), bins, value_range)
+    got_idx = binning.bin_indices(as_tensor(img, "cpu"), bins, value_range)
+    assert got_idx.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got_idx), np.asarray(want_idx))
+    want = ref_ops.integral_histogram(jnp.asarray(img), bins, backend="jnp",
+                                      value_range=value_range)
+    got = ops.integral_histogram(img, bins, value_range=value_range,
+                                 device="cpu")
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_one_hot_and_pad_bin():
+    assert binning.PAD_BIN == ref_binning.PAD_BIN == -1
+    idx = np.array([[0, 2, -1], [1, 3, 2]], np.int32)
+    want = ref_binning.one_hot_bins(jnp.asarray(idx), 3)
+    got = binning.one_hot_bins(torch.as_tensor(idx), 3)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_oracles_match_reference():
+    img = _frames(2, (32, 48))
+    np.testing.assert_array_equal(
+        _np(ref.integral_histogram_ref(torch.as_tensor(img), 16)),
+        np.asarray(ref_ref.integral_histogram_ref(jnp.asarray(img), 16)))
+    np.testing.assert_array_equal(
+        _np(ref.region_histogram_ref(torch.as_tensor(img), 16, 3, 4, 20, 40)),
+        np.asarray(ref_ref.region_histogram_ref(jnp.asarray(img), 16,
+                                                3, 4, 20, 40)))
+
+
+def test_k1_semantics_match_pallas_interpret():
+    """K1's wrapper (its plain version on a CPU tensor) against the TPU
+    kernel itself, run in interpret mode, carry-in included."""
+    img = _frames(4, (2, 64, 96))
+    carry = _carry(4, img.shape, 16)
+    want = ref_ops.integral_histogram(
+        jnp.asarray(img), 16, backend="pallas", tile=32, bin_block=8,
+        interpret=True, carry_in=jnp.asarray(carry))
+    idx = binning.bin_indices(torch.as_tensor(img), 16)
+    got = wf_tis_cuda(idx, 16, carry=torch.as_tensor(carry))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_k2_semantics_match_pallas_interpret():
+    img = _frames(5, (2, 64, 96))
+    carry = _carry(5, img.shape, 16)
+    rows = np.array([0, 7, 31, 32, 40, 63])     # crosses strip edges
+    want = ref_ops.fused_corner_rows(
+        jnp.asarray(img), 16, rows, backend="pallas", tile=32, bin_block=8,
+        interpret=True, carry_in=jnp.asarray(carry))
+    idx = binning.bin_indices(torch.as_tensor(img), 16)
+    got = fused_rows_cuda(idx, 16, rows, carry=torch.as_tensor(carry))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape,rows,with_carry", [
+    ((50, 70), (0, 7, 31, 49), False),          # 2D, h < tile
+    ((3, 37, 53), (4, 36), True),               # stack, ragged
+    ((3, 97, 41), (10, 20, 33, 60), True),      # several bands, early cut
+])
+def test_fused_corner_rows_bit_exact(shape, rows, with_carry):
+    img = _frames(6, shape)
+    carry = _carry(6, shape, 8) if with_carry else None
+    want_stats, got_stats = {}, {}
+    want = ref_ops.fused_corner_rows(
+        jnp.asarray(img), 8, np.asarray(rows), backend="jnp", tile=16,
+        carry_in=None if carry is None else jnp.asarray(carry),
+        stats=want_stats)
+    got = ops.fused_corner_rows(img, 8, rows, tile=16, carry_in=carry,
+                                stats=got_stats, device="cpu")
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    want_stats["backend"] = "torch"
+    assert got_stats == want_stats
+
+
+def test_fused_early_cut_stats():
+    img = _frames(7, (2, 97, 41))
+    stats = {}
+    ops.fused_corner_rows(img, 4, [3, 20], tile=16, stats=stats,
+                          device="cpu")
+    assert stats["bands_computed"] == 2 < stats["bands_total"] == 7
+
+
+def test_row_slot_map_and_plain_k2():
+    slot = row_slot_map(np.array([2, 5, 6]), 8)
+    assert slot.dtype == torch.int32
+    assert slot.tolist() == [-1, -1, 0, -1, -1, 1, 2, -1]
+    idx = binning.bin_indices(torch.as_tensor(_frames(8, (2, 8, 9))), 4)
+    R = fused_rows_plain(idx, 4, [2, 5, 6])
+    np.testing.assert_array_equal(_np(R), _np(wf_tis_plain(idx, 4)[..., [2, 5, 6], :]))
+    np.testing.assert_array_equal(_np(fused_rows_cuda(idx, 4, [2, 5, 6])), _np(R))
+    for bad in ([5, 2], [2, 2], [], [-1, 3], [3, 8]):
+        with pytest.raises(ValueError, match="sorted unique"):
+            fused_rows_cuda(idx, 4, bad)
+
+
+def test_launch_shape_fits_the_card():
+    # (bin_block, threads, 4-column chunks per thread)
+    assert launch_shape(640, 32, 16) == (1, 160, 1)
+    bb, threads, chunks = launch_shape(1920, 64, 4)
+    assert threads * 4 * chunks >= 1920 and threads <= 1024
+    bb, threads, chunks = launch_shape(8192, 128, 1)
+    assert (threads, chunks) == (1024, 2)
+    with pytest.raises(NotImplementedError):
+        launch_shape(20000, 8, 1)
+
+
+def test_backend_errors_and_default_device(monkeypatch):
+    img = _frames(9, (8, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.integral_histogram(img, 4, backend="cuda", device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.integral_histogram(img, 4, backend="pallas", device="cpu")
+    with pytest.raises(NotImplementedError, match="1.2"):
+        ops.integral_histogram(img, 4, memory_budget_bytes=1 << 20,
+                               device="cpu")
+    with pytest.raises(ValueError, match="carry_in shape"):
+        ops.integral_histogram(img, 4, carry_in=np.zeros((4, 7)),
+                               device="cpu")
+    # On the card, cw_tis has no kernel yet: "auto" must not quietly run
+    # the plain scan, an explicit "torch" may.
+    card = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="1.4"):
+        ops.resolve_backend("auto", "cw_tis", card)
+    assert ops.resolve_backend("torch", "cw_tis", card) == "torch"
+    assert ops.resolve_backend("auto", "wf_tis", card) == "cuda"
+    assert ops.resolve_backend("auto", "cw_sts", card) == "torch"
+    # No device named and no GPU: raise, never compute on the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.integral_histogram(img, 4)
