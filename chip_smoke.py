@@ -6,22 +6,52 @@
 Phases, each ended by ``torch.cuda.synchronize()``; any failure exits
 non-zero before the result line is printed:
 
-  build   compile the CUDA kernels (src/repro_torch/kernels/csrc) with nvcc
+  build   compile the CUDA kernels (src/repro_torch/kernels/csrc) with nvcc,
+          one nvcc per source, all started together
   k1      the WF-TiS kernel against its plain torch version (torch.equal):
           a 16-frame 480x640 clip at 32 bins (the paper's geometry), four
           1080x1920 frames at 64 bins, ragged shapes, a float frame and a
           non-zero carry_in
   k2      the query-fused kernel against the plain H's rows, and the early
           cut (bands_computed < bands_total)
+  k3      the delta_apply kernel against its plain version (torch.equal) at
+          the clip's H with a random integer delta, on ragged shapes, and
+          from a row band of one H into a row band of another
+  k4      the CW-TiS kernels (hscan, then vscan) against the plain cw_tis
+          and against K1 (torch.equal): the clip, 4x1080x1920x64, K1's
+          ragged shapes, a float frame and a non-zero carry_in
   main    HistogramEngine(num_bins=32).run on the clip: a request that
-          plans "fused" and one that plans "dense"; the launch counters
-          are set to 0 just before each request and read just after it:
-          the fused one must launch fused_rows once and wf_tis never, the
-          dense one the other way round; answers held against
-          backend="torch" on the same card and against a direct count on
-          frames of the clip
+          plans "fused" and one that plans "dense"; answers held against
+          backend="torch" on the same card and against a direct count
+  bands   one 2160x3840 frame at 128 bins (dense H 4.25 GB) under a
+          512 MiB budget: the engine plans 8 bands of 273 rows and streams
+          them through K1 (one launch a band); rows of the BandedH and
+          ops.integral_histogram(memory_budget_bytes=...) equal one dense
+          K1 launch; a storage="uint16" engine plans "spilled" and answers
+          region queries of at most 65535 px exactly, past the wrap
+  video   a low-motion stream of 30 frames of 480x640 at 32 bins, each
+          rewriting a 48-row block of its predecessor, through
+          engine.run(frame, [LikelihoodQuery], prev=...): from frame 1 the
+          plan is incremental, K1 launches once per dirty run, K3 once when
+          clean rows lie below (never when the block touches the bottom),
+          K2 never; H equals a fresh K1 launch, maps equal backend="torch";
+          a frame with half its rows rewritten falls back (K3 never)
+  cw_tis  HistogramEngine(method="cw_tis") on the dense request (hscan and
+          vscan once each, K1 never) and on the fused one (4 tile-high
+          bands through K4, K2 never); answers equal the WF-TiS engine's
   timing  each kernel's median time (CUDA events) beside its bound, K1
-          also on one frame of the clip and at 1080p
+          also on one frame of the clip and at 1080p; then host-clock
+          request times (median of 5): incremental vs full recompute per
+          video frame, the banded request, and the dense request with
+          method="cw_tis" vs "wf_tis" (the paper's Fig. 7/8 pair); a
+          torch.profiler trace of 10 video requests of each kind (kernel
+          launches, device busy and idle share, top CPU ops); the repair
+          step of one video frame with K3 writing into the new H against
+          the same walk joined by a torch.cat
+
+Every request of the main, bands, video and cw_tis phases runs with all
+five launch counters set to 0 just before it and read just after; the
+kernels line carries each kernel's counts per path (``launches_by_path``).
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the rest of
@@ -87,6 +117,57 @@ def time_ms(fn, runs: int = 11, launches: int = 10) -> float:
     return statistics.median(times)
 
 
+def low_motion_stream(h: int, w: int, n: int, dirty_rows: int, seed: int):
+    """n uint8 frames; each rewrites ``dirty_rows`` rows of its predecessor
+    at a seeded random position (as benchmarks/bench_delta.py builds its
+    low-motion streams)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = [rng.integers(0, 256, (h, w), dtype=np.uint8)]
+    for _ in range(n - 1):
+        nxt = frames[-1].copy()
+        r = int(rng.integers(0, h - dirty_rows + 1))
+        nxt[r:r + dirty_rows] = rng.integers(0, 256, (dirty_rows, w),
+                                             dtype=np.uint8)
+        frames.append(nxt)
+    return frames
+
+
+def profile_requests(torch, requests, n: int = 10) -> str:
+    """Where ``n`` requests spend their time, from one torch.profiler
+    trace (CPU and CUDA activity): kernel launches and device busy time
+    per request, the device's idle share of the wall time, and the CPU
+    ops with the most self time.  The profiler's own cost inflates the
+    CPU times; "not measured" when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        requests()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(device_us(e) for e in events)
+    if busy <= 0:
+        return "not measured (the trace holds no device time)"
+    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+    top = sorted((e for e in events if e.self_cpu_time_total > 0),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    ops = ", ".join(f"{e.key} {e.self_cpu_time_total / n / 1e3:.3f}"
+                    for e in top)
+    return (f"{launches / n:.1f} kernel launches, device busy "
+            f"{busy / n / 1e3:.4f} ms of {wall_us / n / 1e3:.3f} ms wall "
+            f"(idle {1 - busy / wall_us:.1%}) a request; most CPU self "
+            f"time a request (ms, profiled): {ops}")
+
+
 def phase(name: str):
     import torch
 
@@ -139,15 +220,53 @@ def main() -> int:
 def run(torch) -> list[dict]:
     import numpy as np
 
+    from repro_torch.core import bands as bands_mod
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import distances
     from repro_torch.core import engine as eng_mod
+    from repro_torch.core import region_query as rq
     from repro_torch.core.binning import bin_indices
     from repro_torch.data import video_frames
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.cw_tis import (
+        cw_tis_cuda, cw_tis_hscan_cuda, cw_tis_hscan_plain, cw_tis_plain,
+        cw_tis_vscan_cuda, cw_tis_vscan_plain,
+    )
+    from repro_torch.kernels.delta_apply import (
+        delta_apply_cuda, delta_apply_plain,
+    )
     from repro_torch.kernels.fused_rows import fused_rows_cuda, fused_rows_plain
     from repro_torch.kernels.ref import region_histogram_ref
     from repro_torch.kernels.wf_tis import wf_tis_cuda, wf_tis_plain
 
     dev = torch.device("cuda")
+    wrappers = {"wf_tis": wf_tis_cuda, "fused_rows": fused_rows_cuda,
+                "delta_apply": delta_apply_cuda,
+                "cw_tis_hscan": cw_tis_hscan_cuda,
+                "cw_tis_vscan": cw_tis_vscan_cuda}
+    paths: dict[str, dict[str, int]] = {}      # path -> kernel -> launches
+
+    def counted(path, fn):
+        """Run one request with every launch counter set to 0 just before
+        it and read just after; add the counts to ``path``'s total."""
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: wrapper.launches for k, wrapper in wrappers.items()}
+        total = paths.setdefault(path, dict.fromkeys(wrappers, 0))
+        for k, v in counts.items():
+            total[k] += v
+        return out, dt, counts
+
+    def only(**launches):
+        """The counts of a request that launches just these kernels."""
+        want = dict.fromkeys(wrappers, 0)
+        want.update(launches)
+        return want
+
     log(f"device: {torch.cuda.get_device_name(0)} | torch "
         f"{torch.__version__} | CUDA {torch.version.cuda}")
     log(f"card: {card_line()}")
@@ -232,30 +351,104 @@ def run(torch) -> list[dict]:
             f"{stats['bands_total']} bands scanned, rows equal")
         del H, got, want
 
+    with phase("k3: delta_apply kernel vs its plain version"):
+        rng = np.random.default_rng(5)
+        k3_H = wf_tis_cuda(idx, nb)                    # the clip's H
+        k3_d = torch.as_tensor(rng.integers(-5000, 5000, (n, nb, w)),
+                               dtype=torch.float32, device=dev)
+        got = delta_apply_cuda(k3_H, k3_d)
+        want = delta_apply_plain(k3_H, k3_d)
+        check(torch.equal(got, want), "K3 != plain at the clip's H")
+        k3_err = float((got - want).abs().max())
+        log(f"   {n}x{nb}x{h}x{w} H + random integer delta: equal")
+        del got, want
+        for shape in ((1, 1, 1, 1), (2, 3, 17, 131), (1, 5, 9, 4099),
+                      (3, 32, 40, 641)):
+            Hr = torch.as_tensor(rng.integers(0, 1 << 20, shape),
+                                 dtype=torch.float32, device=dev)
+            dr = torch.as_tensor(rng.integers(-999, 999, shape[:2]
+                                              + shape[-1:]),
+                                 dtype=torch.float32, device=dev)
+            check(torch.equal(delta_apply_cuda(Hr, dr),
+                              delta_apply_plain(Hr, dr)),
+                  f"K3 != plain at {shape}")
+        # Rows 100..299 of the clip's H, written into rows 4..203 of another.
+        dst = torch.zeros((n, nb, h + 8, w), device=dev)
+        res = delta_apply_cuda(k3_H[:, :, 100:300], k3_d,
+                               out=dst[:, :, 4:204])
+        check(res.data_ptr() == dst[:, :, 4:204].data_ptr(),
+              "K3 did not write into the output view")
+        check(torch.equal(dst[:, :, 4:204],
+                          delta_apply_plain(k3_H[:, :, 100:300], k3_d)),
+              "K3 != plain from a row band into a row band")
+        check(not bool(dst[:, :, :4].any()) and not bool(dst[:, :, 204:].any()),
+              "K3 wrote outside its output view")
+        log("   ragged (1,1,1,1) (2,3,17,131) (1,5,9,4099) (3,32,40,641), "
+            "row band into a row band: equal")
+        del dst, res
+
+    with phase("k4: cw_tis kernels vs the plain cw_tis and K1"):
+        hh = cw_tis_hscan_cuda(idx, nb)
+        want = cw_tis_hscan_plain(idx, nb)
+        check(torch.equal(hh, want), "K4 hscan != plain at the clip")
+        hscan_err = float((hh - want).abs().max())
+        got = cw_tis_vscan_cuda(hh)
+        want = cw_tis_vscan_plain(hh)
+        check(torch.equal(got, want), "K4 vscan != plain at the clip")
+        vscan_err = float((got - want).abs().max())
+        check(torch.equal(got, cw_tis_plain(idx, nb)),
+              "K4 != plain cw_tis at the clip")
+        check(torch.equal(got, k3_H), "K4 != K1 at the clip")
+        log(f"   {n}x{h}x{w}x{nb}: hscan, vscan, plain cw_tis and K1 equal")
+        del got, want
+        rng = np.random.default_rng(6)
+        carry = torch.as_tensor(rng.integers(0, 5000, (n, nb, w)),
+                                dtype=torch.float32, device=dev)
+        got = cw_tis_cuda(idx, nb, carry=carry)
+        check(torch.equal(got, wf_tis_cuda(idx, nb, carry=carry)),
+              "K4 != K1 with a carry_in at the clip")
+        check(torch.equal(got, cw_tis_plain(idx, nb, carry)),
+              "K4 != plain cw_tis with a carry_in at the clip")
+        del got, carry
+        got = cw_tis_cuda(big, 64)
+        check(torch.equal(got, wf_tis_cuda(big, 64)), "K4 != K1 at 1080p")
+        check(torch.equal(got, cw_tis_plain(big, 64)),
+              "K4 != plain cw_tis at 4x1080x1920x64")
+        log("   4x1080x1920x64: equal to K1 and the plain cw_tis")
+        del got
+        torch.cuda.empty_cache()
+        for shape, bins, with_carry in cases:
+            x = torch.as_tensor(rng.integers(0, 256, shape, np.uint8),
+                                device=dev)
+            carry = None
+            if with_carry:
+                carry = torch.as_tensor(
+                    rng.integers(0, 5000, shape[:-2] + (bins, shape[-1])),
+                    dtype=torch.float32, device=dev)
+            got = ops.integral_histogram(x, bins, method="cw_tis",
+                                         backend="cuda", carry_in=carry)
+            for backend, method in (("torch", "cw_tis"), ("cuda", "wf_tis")):
+                check(torch.equal(got, ops.integral_histogram(
+                    x, bins, method=method, backend=backend, carry_in=carry)),
+                    f"K4 != {method}/{backend} at {shape}x{bins}")
+        check(torch.equal(
+            ops.integral_histogram(xf, 16, method="cw_tis", backend="cuda"),
+            ops.integral_histogram(xf, 16, method="cw_tis", backend="torch")),
+            "K4 != plain on a float frame")
+        log(f"   ragged {[c[0] for c in cases]}, carry_in, float frame: equal")
+
     with phase("main: HistogramEngine.run on the GPU"):
         dense_queries = [eng_mod.SlidingWindowQuery((24, 24), stride=1)]
         engine = eng_mod.HistogramEngine(num_bins=nb)
-
-        def counted(queries):
-            # Each path's own counts: set to 0 just before, read just after.
-            wf_tis_cuda.launches = fused_rows_cuda.launches = 0
-            t0 = time.perf_counter()
-            out = engine.run(clip_np, queries)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0, {
-                "wf_tis": wf_tis_cuda.launches,
-                "fused_rows": fused_rows_cuda.launches}
-
-        fused, t_fused, fused_counts = counted(fused_queries)
-        dense, t_dense, dense_counts = counted(dense_queries)
-        by_path = {name: {"fused": fused_counts[name],
-                          "dense": dense_counts[name]}
-                   for name in ("wf_tis", "fused_rows")}
+        fused, t_fused, fused_counts = counted(
+            "fused", lambda: engine.run(clip_np, fused_queries))
+        dense, t_dense, dense_counts = counted(
+            "dense", lambda: engine.run(clip_np, dense_queries))
         log(f"   launches: fused request {fused_counts}, dense request "
             f"{dense_counts}")
-        check(fused_counts == {"wf_tis": 0, "fused_rows": 1},
+        check(fused_counts == only(fused_rows=1),
               f"fused request launched {fused_counts}, want one fused_rows")
-        check(dense_counts == {"wf_tis": 1, "fused_rows": 0},
+        check(dense_counts == only(wf_tis=1),
               f"dense request launched {dense_counts}, want one wf_tis")
         check(fused.plan.representation == "fused",
               f"fused request planned {fused.plan.representation}")
@@ -313,6 +506,181 @@ def run(torch) -> list[dict]:
         del fused, dense, wins
         torch.cuda.empty_cache()
 
+    with phase("bands: 2160x3840 at 128 bins under a 512 MiB budget"):
+        bh, bw, bnb, budget = 2160, 3840, 128, 512 << 20
+        frame_4k = video_frames(bh, bw, 1, seed=3)[0]
+        big_ids = bin_indices(torch.as_tensor(frame_4k, device=dev),
+                              bnb).contiguous()
+        bp = bands_mod.plan_bands(bh, bw, bnb, memory_budget_bytes=budget)
+        check((bp.num_bands, bp.band_h) == (8, 273),
+              f"plan_bands gave {bp.num_bands} x {bp.band_h}")
+        b_target = region_histogram_ref(big_ids, bnb, 1000, 2000, 1063, 2063,
+                                        value_range=None)
+        band_queries = [eng_mod.LikelihoodQuery(b_target, (64, 64), stride=2)]
+        banded_engine = eng_mod.HistogramEngine(num_bins=bnb,
+                                                memory_budget_bytes=budget)
+        banded, t_banded, counts = counted(
+            "bands", lambda: banded_engine.run(frame_4k, band_queries))
+        k = len(banded.plan.spec.query_rows)
+        log(f"   plan: {banded.plan.representation}, "
+            f"{banded.plan.band_plan.num_bands} x "
+            f"{banded.plan.band_plan.band_h} rows, {k} corner rows (fuse "
+            f"bound {bh // 4}); {t_banded * 1e3:.1f} ms end to end; "
+            f"launches {counts}")
+        check(banded.plan.representation == "banded" and k > bh // 4,
+              f"banded request planned {banded.plan.representation}")
+        check(banded.plan.band_plan.spans == bp.spans, "band spans differ")
+        check(counts == only(wf_tis=8), f"banded request launched {counts}")
+        dense_big = wf_tis_cuda(big_ids[None], bnb)[0]      # one K1 launch
+        check(float(dense_big.max()) > 65535, "no count past 2^16 to wrap")
+        rows = np.array([0, 272, 273, 545, 546, 1000, 1910, 1911, 2159])
+        got, _, counts = counted("bands_rows",
+                                 lambda: banded.source.rows(rows))
+        check(counts == only(wf_tis=8), f"rows() stream launched {counts}")
+        check(torch.equal(got, dense_big[:, torch.as_tensor(rows, device=dev)]),
+              "BandedH rows != one dense K1 launch")
+        want_map = eng_mod.DenseH(dense_big).likelihood_map(
+            b_target, (64, 64), distances.intersection, 2)
+        check(torch.allclose(banded.results[0], want_map, rtol=MAP_RTOL,
+                             atol=MAP_ATOL),
+              "banded likelihood map != the dense H's")
+        del banded, want_map, got
+        got = ops.integral_histogram(frame_4k, bnb, memory_budget_bytes=budget)
+        check(torch.equal(got, dense_big),
+              "integral_histogram(memory_budget_bytes) != dense K1")
+        del got
+        torch.cuda.empty_cache()
+        log(f"   rows at band edges and integral_histogram(budget): equal "
+            f"to one dense K1 launch (H {dense_big.numel() * 4 / 1e9:.2f} GB)")
+        spill_engine = eng_mod.HistogramEngine(
+            num_bins=bnb, memory_budget_bytes=budget, storage="uint16")
+        sp_rects = np.array([[2000, 3000, 2159, 3399],    # 64000 px
+                             [0, 0, 254, 256],            # 65535 px
+                             [1500, 1800, 1699, 2099]])   # 60000 px
+        spilled, t_spilled, counts = counted(
+            "spilled", lambda: spill_engine.run(
+                frame_4k, [eng_mod.RegionQuery(sp_rects)]))
+        check(spilled.plan.representation == "spilled",
+              f"uint16 request planned {spilled.plan.representation}")
+        check(counts == only(wf_tis=8), f"spill launched {counts}")
+        want = rq.region_histogram(dense_big, sp_rects).cpu()
+        check(torch.equal(spilled.results[0], want),
+              "uint16 spill region histograms != dense H")
+        try:
+            spilled.source.region_histogram(np.array([[0, 0, 255, 255]]))
+            check(False, "a 65536-px region of a uint16 spill was answered")
+        except ValueError:
+            pass
+        log(f"   uint16 spill: {len(spilled.source.bands)} host bands, "
+            f"{spilled.source.nbytes / 1e9:.2f} GB; regions of 64000, 65535 "
+            f"and 60000 px equal the dense H past the 2^16 wrap; a 65536-px "
+            f"one refused; {t_spilled * 1e3:.1f} ms end to end")
+        del spilled, dense_big, want
+        torch.cuda.empty_cache()
+
+    with phase("video: incremental updates of a low-motion stream"):
+        vh, vw, vnb, block = 480, 640, 32, 48
+        stream = low_motion_stream(vh, vw, 30, block, seed=4)
+        patch = stream[0][200:224, 300:324].astype(np.int64)
+        v_target = np.bincount((patch * vnb // 256).ravel(),
+                               minlength=vnb).astype(np.float32)
+        v_queries = [eng_mod.LikelihoodQuery(v_target, (24, 24), stride=2)]
+        v_engine = eng_mod.HistogramEngine(num_bins=vnb)
+        v_plain = eng_mod.HistogramEngine(num_bins=vnb, backend="torch")
+
+        def check_frame(out, frame, what):
+            check(torch.equal(out.source.dense(),
+                              v_engine.compute_dense(frame)),
+                  f"{what}: H != a fresh K1 launch")
+            want = v_plain.run(frame, v_queries).results[0]
+            check(torch.allclose(out.results[0], want, rtol=MAP_RTOL,
+                                 atol=MAP_ATOL),
+                  f"{what}: map != backend='torch'")
+
+        out, _, counts = counted("video_first",
+                                 lambda: v_engine.run(stream[0], v_queries))
+        check(out.plan.representation == "dense"
+              and len(out.plan.spec.query_rows) == 240,
+              f"frame 0 planned {out.plan.representation}")
+        check(counts == only(wf_tis=1), f"frame 0 launched {counts}")
+        check_frame(out, stream[0], "frame 0")
+
+        def step(path, prev_frame, prev_out, frame):
+            spans = v_engine._delta_spans(v_engine.spec_for(frame.shape),
+                                          prev_out.source)
+            runs = delta_mod._merged_runs(
+                delta_mod.diff_bands(prev_frame, frame, spans))
+            dirty = [i for i, r in enumerate(runs) if r[2]]
+            below = sum(1 for r in runs[dirty[0] + 1:] if not r[2]) \
+                if dirty else 0
+            new, dt, counts = counted(path, lambda: v_engine.run(
+                frame, v_queries, prev=(prev_frame, prev_out)))
+            return new, dt, counts, only(wf_tis=len(dirty),
+                                         delta_apply=below)
+
+        k3_frames = 0
+        for t in range(1, len(stream)):
+            out, _, counts, want = step("video", stream[t - 1], out,
+                                        stream[t])
+            check(out.plan.incremental and out.plan.representation == "dense",
+                  f"frame {t} not incremental")
+            check(counts == want, f"frame {t} launched {counts}, want {want}")
+            check_frame(out, stream[t], f"frame {t}")
+            k3_frames += counts["delta_apply"]
+        log(f"   frames 1-29 incremental: {paths['video']} launches in all "
+            f"(K3 on {k3_frames} frames with clean rows below the block)")
+        rng = np.random.default_rng(7)
+        bottom = stream[-1].copy()
+        bottom[vh - block:] = rng.integers(0, 256, (block, vw), np.uint8)
+        out, _, counts, want = step("video_bottom", stream[-1], out, bottom)
+        check(out.plan.incremental and counts == want
+              and counts == only(wf_tis=1),
+              f"bottom block: incremental={out.plan.incremental}, {counts}")
+        check_frame(out, bottom, "bottom block")
+        half = bottom.copy()
+        half[: vh // 2] = rng.integers(0, 256, (vh // 2, vw), np.uint8)
+        fallback, _, counts = counted("video_fallback", lambda: v_engine.run(
+            half, v_queries, prev=(bottom, out)))
+        check(not fallback.plan.incremental and counts == only(wf_tis=1),
+              f"50% frame: incremental={fallback.plan.incremental}, {counts}")
+        check_frame(fallback, half, "50% frame")
+        log(f"   bottom block: {paths['video_bottom']}; 50% frame falls "
+            f"back to a full recompute: {paths['video_fallback']}")
+        del out, fallback
+
+    with phase("cw_tis: the dense and fused requests through K4"):
+        cw_engine = eng_mod.HistogramEngine(num_bins=nb, method="cw_tis")
+        cw_dense, _, counts = counted(
+            "cw_tis_dense", lambda: cw_engine.run(clip_np, dense_queries))
+        check(cw_dense.plan.representation == "dense"
+              and cw_dense.plan.backend == "cuda",
+              f"cw_tis dense request planned {cw_dense.plan.representation}")
+        check(counts == only(cw_tis_hscan=1, cw_tis_vscan=1),
+              f"cw_tis dense request launched {counts}")
+        wf_dense = engine.run(clip_np, dense_queries)
+        check(torch.equal(cw_dense.results[0], wf_dense.results[0]),
+              "cw_tis window histograms != wf_tis")
+        check(torch.equal(cw_dense.source.dense(), wf_dense.source.dense()),
+              "cw_tis H != wf_tis H")
+        del cw_dense, wf_dense
+        cw_fused, _, counts = counted(
+            "cw_tis_fused", lambda: cw_engine.run(clip_np, fused_queries))
+        check(cw_fused.plan.representation == "fused",
+              f"cw_tis fused request planned {cw_fused.plan.representation}")
+        check(counts == only(cw_tis_hscan=4, cw_tis_vscan=4),
+              f"cw_tis fused request launched {counts}")
+        wf_fused = engine.run(clip_np, fused_queries)
+        check(torch.equal(cw_fused.results[0], wf_fused.results[0]),
+              "cw_tis region histograms != wf_tis")
+        check(torch.equal(cw_fused.results[1], wf_fused.results[1]),
+              "cw_tis likelihood map != wf_tis")
+        check(torch.equal(cw_fused.results[2][0], wf_fused.results[2][0]),
+              "cw_tis best rects != wf_tis")
+        log(f"   dense request: {paths['cw_tis_dense']}; fused request: "
+            f"{paths['cw_tis_fused']}; answers equal the wf_tis engine's")
+        del cw_fused, wf_fused
+        torch.cuda.empty_cache()
+
     with phase("timing"):
         # K2 is timed as the main path calls it: host row ids, turned into
         # the row -> slot map and copied without waiting on the card.
@@ -321,6 +689,21 @@ def run(torch) -> list[dict]:
         k2_ms = time_ms(lambda: fused_rows_cuda(idx, nb, fused_rows))
         k2_plain = time_ms(lambda: fused_rows_plain(idx, nb, fused_rows),
                            runs=5, launches=2)
+        k3_ms = time_ms(lambda: delta_apply_cuda(k3_H, k3_d))
+        k3_plain = time_ms(lambda: delta_apply_plain(k3_H, k3_d), runs=5)
+        # The one PyTorch call that computes the same function: the same
+        # broadcast add as the plain version, timed as the library yardstick.
+        k3_library = time_ms(lambda: k3_H + k3_d[..., None, :])
+        hs_ms = time_ms(lambda: cw_tis_hscan_cuda(idx, nb))
+        hs_plain = time_ms(lambda: cw_tis_hscan_plain(idx, nb), runs=5,
+                           launches=2)
+        vs_ms = time_ms(lambda: cw_tis_vscan_cuda(hh))
+        vs_plain = time_ms(lambda: cw_tis_vscan_plain(hh), runs=5, launches=2)
+        # vscan without a carry is one PyTorch call: a cumsum down the rows.
+        vs_library = time_ms(lambda: torch.cumsum(hh, dim=-2))
+        k4_ms = time_ms(lambda: cw_tis_cuda(idx, nb))
+        log(f"   cw_tis (hscan + vscan) at the clip: {k4_ms:.4f} ms, "
+            f"{k4_ms / k1_ms:.2f}x wf_tis's {k1_ms:.4f} ms")
         for label, ids, bins in (("4x1080x1920x64", big, 64),
                                  (f"1x{h}x{w}x{nb}", idx[:1].contiguous(),
                                   nb)):
@@ -331,58 +714,150 @@ def run(torch) -> list[dict]:
                 f"{bound:.4f} ms, {bound / ms:.1%} of it")
         px = n * h * w
         h_run = int(fused_rows[-1]) + 1
-        # Each input read once, each output written once.
-        k1_bytes = 4 * px + 4 * px * nb
-        k2_bytes = 4 * n * h_run * w + 4 * n * nb * fused_rows.size * w
-        # One add per element of the column walk, one per emitted element
-        # of the row scan.
-        k1_ops = 2 * px * nb
-        k2_ops = n * nb * h_run * w + n * nb * fused_rows.size * w
+        # Each input read once, each output written once.  Operations: one
+        # add per element of a column walk, one per emitted element of a
+        # row scan (and one compare per one-hot element); K3 one add per
+        # element.
+        work = {
+            "wf_tis": (4 * px + 4 * px * nb, 2 * px * nb),
+            "fused_rows": (4 * n * h_run * w + 4 * n * nb * fused_rows.size * w,
+                           n * nb * h_run * w + n * nb * fused_rows.size * w),
+            "delta_apply": (4 * (2 * k3_H.numel() + k3_d.numel()),
+                            k3_H.numel()),
+            "cw_tis_hscan": (4 * px + 4 * px * nb, 2 * px * nb),
+            "cw_tis_vscan": (2 * 4 * px * nb, px * nb),
+        }
+        timed = {
+            "wf_tis": ("src/repro/kernels/wf_tis.py:253", "wf_tis.cu",
+                       k1_ms, k1_plain, None, k1_err),
+            "fused_rows": ("src/repro/kernels/fused_rows.py:294",
+                           "fused_rows.cu", k2_ms, k2_plain, None, k2_err),
+            "delta_apply": ("src/repro/kernels/delta_apply.py:112",
+                            "delta_apply.cu", k3_ms, k3_plain, k3_library,
+                            k3_err),
+            "cw_tis_hscan": ("src/repro/kernels/cw_tis.py:173", "cw_tis.cu",
+                             hs_ms, hs_plain, None, hscan_err),
+            "cw_tis_vscan": ("src/repro/kernels/cw_tis.py:187", "cw_tis.cu",
+                             vs_ms, vs_plain, vs_library, vscan_err),
+        }
+        library_call = {"delta_apply": "H + delta[..., None, :]",
+                        "cw_tis_vscan": "torch.cumsum(hh, dim=-2)"}
         records = []
-        for name, src, site, ms, plain_ms, nbytes, nops, err in (
-            ("wf_tis", "src/repro_torch/kernels/csrc/wf_tis.cu",
-             "src/repro/kernels/wf_tis.py:253", k1_ms, k1_plain, k1_bytes,
-             k1_ops, k1_err),
-            ("fused_rows", "src/repro_torch/kernels/csrc/fused_rows.cu",
-             "src/repro/kernels/fused_rows.py:294", k2_ms, k2_plain,
-             k2_bytes, k2_ops, k2_err),
-        ):
+        for name, (site, src, ms, plain_ms, lib_ms, err) in timed.items():
+            nbytes, nops = work[name]
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = nops / FP32_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
+            by_path = {path: counts[name] for path, counts in paths.items()}
             records.append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": site, "launches": sum(by_path[name].values()),
-                "launches_by_path": by_path[name],
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": site, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
+                "library_ms": lib_ms,
             })
+            lib = (f"library_ms {lib_ms:.4f} ({library_call[name]})"
+                   if lib_ms is not None else "library_ms: none, no single "
+                   "PyTorch call computes the same function")
             log(f"   {name}: {ms:.4f} ms ({n / ms * 1e3:.0f} frames/s) | "
                 f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)"
                 f", {bound / ms:.1%} of it | plain torch version "
-                f"{plain_ms:.4f} ms (no yardstick) | library_ms: none, no "
-                "single PyTorch call computes an integral histogram")
+                f"{plain_ms:.4f} ms (no yardstick) | {lib}")
 
-        # End to end: one request from host uint8 frames to answers on the
+        # End to end: requests from host uint8 frames to answers on the
         # card, warm, host clock around work that ends in a synchronize.
-        for label, queries in (("fused", fused_queries),
-                               ("dense", dense_queries)):
-            def request():
-                engine.run(clip_np, queries)
-                torch.cuda.synchronize()
-
-            request()
+        def request_ms(fn, reps: int = 5) -> float:
+            fn()
+            torch.cuda.synchronize()
             times = []
-            for _ in range(5):
+            for _ in range(reps):
                 t0 = time.perf_counter()
-                request()
+                fn()
+                torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-            ms = statistics.median(times) * 1e3
+            return statistics.median(times) * 1e3
+
+        for label, eng, queries in (
+                ("fused", engine, fused_queries),
+                ("dense", engine, dense_queries),
+                ("dense, method=cw_tis", cw_engine, dense_queries)):
+            ms = request_ms(lambda: eng.run(clip_np, queries))
             log(f"   engine.run {label} request, {n}x{h}x{w}x{nb} from host "
                 f"frames: {ms:.3f} ms median of 5 ({n / ms * 1e3:.0f} "
                 "frames/s)")
+        ms = request_ms(lambda: banded_engine.run(frame_4k, band_queries))
+        log(f"   engine.run banded request, 1x{bh}x{bw}x{bnb} in 8 bands: "
+            f"{ms:.3f} ms median of 5")
+
+        seed_out = v_engine.run(stream[0], v_queries)
+
+        def chain(prev_given: bool, stop: int = len(stream)):
+            # Frames 1..stop-1 of the video stream, each with its
+            # predecessor (incremental, chained from frame 0's result) or
+            # without (full recompute).
+            out = seed_out
+            for t in range(1, stop):
+                prev = (stream[t - 1], out) if prev_given else None
+                out = v_engine.run(stream[t], v_queries, prev=prev)
+
+        inc = request_ms(lambda: chain(True)) / (len(stream) - 1)
+        full = request_ms(lambda: chain(False)) / (len(stream) - 1)
+        log(f"   video {vh}x{vw}x{vnb}, 48-row block a frame: incremental "
+            f"{inc:.3f} ms/frame vs full recompute {full:.3f} ms/frame "
+            f"({full / inc:.2f}x; median of 5 runs of 29 requests)")
+        for label, prev_given in (("incremental", True), ("full", False)):
+            log(f"   video {label} request, torch.profiler over 10: "
+                + profile_requests(torch, lambda: chain(prev_given, 11)))
+
+        # The repair step of frame 1 alone: update_dense_ih's K3 walk as
+        # the port runs it (one new H, K3 writing the rows below into it)
+        # against the same walk joining per-run pieces with one torch.cat
+        # (a foil: the layout the walk had before K3 wrote in place).
+        H0 = seed_out.source.dense()
+        spans = v_engine._delta_spans(v_engine.spec_for(stream[1].shape),
+                                      seed_out.source)
+        report = delta_mod.diff_bands(stream[0], stream[1], spans)
+
+        def recompute(rows, carry):
+            return ops.integral_histogram(rows, vnb, carry_in=carry,
+                                          backend="cuda")
+
+        def k3(slab, d, out=None):
+            return ops.delta_apply(slab, d, backend="cuda", out=out)
+
+        def walk_out():
+            return delta_mod.update_dense_ih(H0, stream[1], report,
+                                             recompute=recompute, apply_fn=k3)
+
+        def walk_cat():
+            pieces, new_carry, d = [], None, None
+            for r0, r1, dirty in delta_mod._merged_runs(report):
+                old_bottom = H0[..., r1 - 1, :]
+                if dirty:
+                    slab = recompute(stream[1][r0:r1], new_carry)
+                    new_carry = slab[..., -1, :]
+                    d = new_carry - old_bottom
+                elif d is None:
+                    slab, new_carry = H0[..., r0:r1, :], old_bottom
+                else:
+                    slab, new_carry = k3(H0[..., r0:r1, :], d), old_bottom + d
+                pieces.append(slab)
+            return torch.cat(pieces, dim=-2)
+
+        check(torch.equal(walk_out(), walk_cat()), "the two walks differ")
+        walks = {"in place": [], "cat": []}
+        for _ in range(4):                  # alternating, to share drift
+            for label, fn in (("in place", walk_out), ("cat", walk_cat)):
+                walks[label].append(request_ms(
+                    lambda: [fn() for _ in range(20)]) / 20)
+        log(f"   update_dense_ih repair of frame 1 ({len(report.spans)} "
+            f"spans, runs {[r[2] for r in delta_mod._merged_runs(report)]}), "
+            f"host clock, median of 4x5 runs of 20: K3 into the new H "
+            f"{statistics.median(walks['in place']):.4f} ms vs pieces + "
+            f"torch.cat {statistics.median(walks['cat']):.4f} ms")
     return records
 
 

@@ -14,7 +14,7 @@ _ENGINE_EXPORTS = {
     "EngineResult", "RegionQuery", "SlidingWindowQuery", "LikelihoodQuery",
     "MultiScaleQuery",
 }
-_HSOURCE_EXPORTS = {"HSource", "DenseH", "FusedRowsH", "as_hsource"}
+_HSOURCE_EXPORTS = {"HSource", "DenseH", "BandedH", "FusedRowsH", "as_hsource"}
 
 __all__ = [
     "PAD_BIN", "bin_indices", "one_hot_bins",

@@ -1,19 +1,22 @@
-"""Plan/execute engine for the dense and query-fused representations.
+"""Plan/execute engine over the dense, banded, spilled and query-fused
+representations.
 
 Port of ``repro/core/engine.py``:
 
-    spec = WorkloadSpec(height=480, width=640, num_bins=32)
+    spec = WorkloadSpec(height=480, width=640, num_bins=32,
+                        memory_budget_bytes=64 << 20)
     p = plan(spec)            # deterministic, inspectable, testable
     print(p.explain())        # why this representation
 
 ``HistogramEngine`` composes plan -> compute -> query: ``engine.run``
 returns an ``HSource`` (core/hsource.py) plus the results of its queries.
-Two of the reference's decisions are ported: decision 0 (fuse the queries
-into the scan when their corner-row union is at most ``height // 4``
-rows; K2) and decision 4 (dense H; K1).  Memory budgets, storage
-policies, meshes and incremental updates raise ``NotImplementedError``
-naming the ROADMAP item that ports them.  No priors file is read: tiles
-tuned on a TPU do not transfer.
+The reference's decisions are ported but for the mesh (decision 1,
+ROADMAP 1.7, which raises ``NotImplementedError``): incremental updates
+of a cached predecessor (-1; K1 or K4 on the dirty rows, K3 on the clean
+rows below), query fusion (0; K2), band streaming (2) and host spill (3)
+under a memory budget or storage policy, dense H (4; K1, or K4 for
+``cw_tis``).  No priors file is read: tiles and thresholds tuned on a TPU
+do not transfer, so the dirty-fraction threshold is the constant 0.35.
 """
 
 from __future__ import annotations
@@ -23,7 +26,16 @@ from typing import Iterable
 
 import numpy as np
 
+from repro_torch.core import delta as delta_mod
+from repro_torch.core.bands import (
+    STORAGE_POLICIES,
+    BandPlan,
+    SpilledIH,
+    plan_bands,
+    validate_storage_policy,
+)
 from repro_torch.core.hsource import (
+    BandedH,
     DenseH,
     FusedRowsH,
     HSource,
@@ -31,11 +43,15 @@ from repro_torch.core.hsource import (
 )
 from repro_torch.device import dtype_name, resolve_device
 
-REPRESENTATIONS = ("dense", "fused")
+REPRESENTATIONS = ("dense", "banded", "spilled", "fused")
 
 # Fuse the queries into the scan (never store H) when the request's
 # corner-row union is at most 1/_FUSE_ROW_FRACTION of the frame height.
 _FUSE_ROW_FRACTION = 4
+
+# Dirty-row fraction above which an incremental update of a cached
+# predecessor H stops paying and plan() recomputes.
+_DELTA_DIRTY_THRESHOLD = delta_mod.DEFAULT_DIRTY_THRESHOLD
 
 # Auto microbatching targets this per-dispatch output footprint.
 _AUTO_BATCH_BYTES = 4 << 20
@@ -46,10 +62,7 @@ FP32_EXACT_COUNT = 1 << 24
 
 # Spec fields whose execution paths come with later ROADMAP items.
 _UNPORTED = (
-    ("memory_budget_bytes", "banded H under a memory budget (ROADMAP 1.2)"),
-    ("storage", "host spill storage policies (ROADMAP 1.2)"),
     ("mesh", "multi-GPU sharding (ROADMAP 1.7)"),
-    ("dirty_fraction", "incremental video updates (ROADMAP 1.3)"),
 )
 
 
@@ -73,9 +86,14 @@ class WorkloadSpec:
     """Everything the planner needs to know about a request.
 
     ``num_frames`` is frames per call, ``None`` for an open stream.
-    ``query_rows`` is the corner-row union of the request's queries
-    (``engine.run`` fills it).  ``device`` is where the request runs
-    (``None`` = the GPU); it decides what backend ``"auto"`` means."""
+    ``memory_budget_bytes`` bounds the live H footprint (banding);
+    ``storage`` selects a host spill policy (core/bands.py
+    STORAGE_POLICIES) and implies the spilled representation.
+    ``query_rows`` is the corner-row union of the request's queries and
+    ``dirty_fraction`` the share of frame rows in dirty bands against a
+    cached predecessor (``engine.run`` fills both).  ``device`` is where
+    the request runs (``None`` = the GPU); it decides what backend
+    ``"auto"`` means."""
 
     height: int
     width: int
@@ -108,12 +126,15 @@ class ExecutionPlan:
     """The planner's resolved decisions; equal specs give equal plans."""
 
     spec: WorkloadSpec
-    representation: str                 # dense | fused
+    representation: str                 # dense | banded | spilled | fused
     method: str
     backend: str                        # resolved: "cuda" | "torch"
     tile: int
     bin_block: int | None
     microbatch: int
+    band_plan: BandPlan | None = None
+    storage: str | None = None
+    incremental: bool = False           # update a cached predecessor H
 
     def explain(self) -> str:
         """Human-readable plan rationale."""
@@ -129,6 +150,13 @@ class ExecutionPlan:
             f"({per_frame / 2**20:.1f} MiB fp32)",
             f"  representation  : {self.representation}",
         ]
+        if self.incremental:
+            df = s.dirty_fraction or 0.0
+            recomputed = int(round(df * per_frame))
+            lines.append(
+                f"  incremental     : update — dirty fraction {df:.2f} "
+                f"within threshold; recompute ~{recomputed} B/frame, "
+                f"reuse ~{per_frame - recomputed} B/frame of cached H")
         if s.query_rows is not None:
             k = len(s.query_rows)
             nf = 1 if s.num_frames is None else s.num_frames
@@ -139,19 +167,38 @@ class ExecutionPlan:
                     f"({rows_b} B) << full H {per_frame} B; H never stored")
             else:
                 bound = s.height // _FUSE_ROW_FRACTION
+                why = (f"{k} corner row(s) exceed the fuse bound "
+                       f"({bound} rows)" if k > bound else
+                       f"{k} corner row(s), but the request pins another "
+                       "path")
                 lines.append(
-                    f"  query fusion    : store — {k} corner row(s) exceed "
-                    f"the fuse bound ({bound} rows); fall back to "
+                    f"  query fusion    : store — {why}; fall back to "
                     f"{self.representation}")
         bb = "auto" if self.bin_block is None else self.bin_block
         lines += [
             f"  method/backend  : {self.method} / {self.backend}",
             f"  tile/bin_block  : {self.tile} / {bb}",
             f"  microbatch      : {self.microbatch} frame(s)/dispatch",
-            "  bands           : none (no memory budget)",
-            "  storage         : device fp32",
-            "  sharding        : none",
         ]
+        if self.band_plan is None:
+            budget = s.memory_budget_bytes
+            why = ("no memory budget" if budget is None
+                   else f"fits the {budget} B budget in one band")
+            lines.append(f"  bands           : none ({why})")
+        else:
+            bp = self.band_plan
+            lines.append(
+                f"  bands           : {bp.num_bands} x {bp.band_h} rows "
+                f"({bp.band_bytes} B/band <= {s.memory_budget_bytes} B "
+                "budget)")
+        if self.storage is None:
+            lines.append("  storage         : device fp32")
+        else:
+            bound = STORAGE_POLICIES[self.storage][1]
+            lines.append(
+                f"  storage         : host spill {self.storage} "
+                f"(exact regions <= {bound} px)")
+        lines.append("  sharding        : none")
         return "\n".join(lines)
 
 
@@ -166,13 +213,24 @@ def _check_ported(spec: WorkloadSpec) -> None:
 def plan(spec: WorkloadSpec) -> ExecutionPlan:
     """Deterministically map a workload onto an execution path.
 
-      0. query_rows known and small (at most height/4 rows) -> fused:
+     -1. dirty_fraction known and at most 0.35 -> incremental: update the
+         cached predecessor H (dirty rows recomputed, clean rows below
+         carry-corrected) instead of recomputing; fusion is skipped, since
+         a fused result stores nothing to update next frame.
+      0. query_rows known and small (at most height/4 rows, no storage
+         pinning another path, row slab within any budget) -> fused:
          compute only those corner rows straight out of the scan (K2),
          never store H.
-      4. otherwise -> dense (K1).
+      1. mesh given -> sharded: ROADMAP 1.7, raises for now.
+      2. budget given -> band-plan the frame; more than one band means the
+         monolithic H breaks the budget: banded (stream) or, with a
+         storage policy, spilled.  One band fits: dense.
+      3. storage given -> spilled even without a budget (one band).
+      4. otherwise -> dense (K1; K4 for cw_tis).
 
     Microbatch comes from the per-frame H footprint (auto_batch_size),
-    capped by ``num_frames``; a fused plan takes the whole request.
+    capped by ``num_frames``; banded/spilled/fused plans take the whole
+    request.
 
     >>> p = plan(WorkloadSpec(height=64, width=64, num_bins=8,
     ...                       device="cpu"))
@@ -191,25 +249,70 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
     microbatch = auto_batch_size(spec.num_bins, spec.height, spec.width)
     if nf is not None:
         microbatch = max(1, min(microbatch, nf))
+    common = dict(spec=spec, method=spec.method, backend=backend,
+                  tile=spec.tile, bin_block=spec.bin_block)
 
-    if spec.query_rows is not None:
+    incremental = False
+    if spec.dirty_fraction is not None:
+        if not 0.0 <= spec.dirty_fraction <= 1.0:
+            raise ValueError(
+                f"dirty_fraction must be within [0, 1], got "
+                f"{spec.dirty_fraction}")
+        incremental = spec.dirty_fraction <= _DELTA_DIRTY_THRESHOLD
+
+    if spec.query_rows is not None and not incremental:
         rows = spec.query_rows
+        k = len(rows)
         if not all(
             0 <= r < spec.height for r in rows
         ) or list(rows) != sorted(set(rows)):
             raise ValueError(
                 f"query_rows must be sorted unique within "
                 f"[0, {spec.height}), got {rows[:8]}")
-        if 0 < len(rows) <= spec.height // _FUSE_ROW_FRACTION:
+        rows_bytes = 4 * (1 if nf is None else nf) * spec.num_bins * k \
+            * spec.width
+        fits = (spec.memory_budget_bytes is None
+                or rows_bytes <= spec.memory_budget_bytes)
+        if 0 < k <= spec.height // _FUSE_ROW_FRACTION \
+                and spec.storage is None and fits:
             return ExecutionPlan(
-                spec=spec, representation="fused", method=spec.method,
-                backend=backend, tile=spec.tile, bin_block=spec.bin_block,
-                microbatch=(microbatch if nf is None else nf))
+                representation="fused",
+                microbatch=(microbatch if nf is None else nf), **common)
+
+    if spec.storage is not None:
+        validate_storage_policy(spec.storage, spec.height, spec.width)
+
+    band_frames = 1 if nf is None else nf
+    band_plan = None
+    if spec.memory_budget_bytes is not None:
+        band_plan = plan_bands(
+            spec.height, spec.width, spec.num_bins,
+            memory_budget_bytes=spec.memory_budget_bytes,
+            num_frames=band_frames)
+        if band_plan.num_bands == 1 and spec.storage is None:
+            band_plan = None
+    elif spec.storage is not None:
+        band_plan = plan_bands(spec.height, spec.width, spec.num_bins,
+                               num_frames=band_frames)
+
+    if spec.storage is not None:
+        representation = "spilled"
+    elif band_plan is not None:
+        representation = "banded"
+    else:
+        representation = "dense"
+    if representation in ("banded", "spilled") and nf is not None:
+        microbatch = nf        # bands stream the whole request at once
+    if representation == "dense" and spec.memory_budget_bytes is not None:
+        # One band fits the budget, but the launch is microbatch frames
+        # wide: cap it so the budget bounds the live H too.
+        microbatch = max(1, min(
+            microbatch, spec.memory_budget_bytes // spec.per_frame_h_bytes))
 
     return ExecutionPlan(
-        spec=spec, representation="dense", method=spec.method,
-        backend=backend, tile=spec.tile, bin_block=spec.bin_block,
-        microbatch=microbatch)
+        representation=representation, microbatch=microbatch,
+        band_plan=band_plan, storage=spec.storage, incremental=incremental,
+        **common)
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +506,8 @@ class HistogramEngine:
 
     ``device=None`` runs on the GPU; ``device="cpu"`` runs the plain
     torch versions.  ``engine.last_plan`` keeps the most recent plan.
+    ``memory_budget_bytes`` bands an H that breaks it; ``storage`` spills
+    it to the host under that policy.
     """
 
     def __init__(
@@ -484,6 +589,7 @@ class HistogramEngine:
 
     def compute(self, frames, p: ExecutionPlan | None = None) -> HSource:
         """Execute the plan: frames -> the planned H representation."""
+        from repro_torch.core import bands as bands_mod
         from repro_torch.kernels.ops import (
             fused_corner_rows,
             integral_histogram,
@@ -501,7 +607,93 @@ class HistogramEngine:
                                 width=p.spec.width)
             source.last_fused_stats = stats
             return source
+        if p.representation == "spilled":
+            return bands_mod.spill_banded_ih(
+                frames, self.num_bins, storage=p.storage, plan=p.band_plan,
+                **kw)
+        if p.representation == "banded":
+            return BandedH(lambda: bands_mod.iter_banded_ih(
+                frames, self.num_bins, plan=p.band_plan, **kw))
         return DenseH(integral_histogram(frames, self.num_bins, **kw))
+
+    # -- incremental video path (core/delta.py) -----------------------------
+    def _delta_spans(self, spec: WorkloadSpec, prev_source: HSource):
+        """The band granularity dirty detection and update share: a
+        spilled source's own spans, the spec's budget bands otherwise,
+        16-row bands for a dense plan (no bands of its own)."""
+        spans = getattr(prev_source, "spans", None)
+        if spans is not None:
+            return tuple(spans)
+        nf = spec.num_frames
+        if spec.memory_budget_bytes is not None:
+            bp = plan_bands(
+                spec.height, spec.width, spec.num_bins,
+                memory_budget_bytes=spec.memory_budget_bytes,
+                num_frames=1 if nf is None else nf)
+        else:
+            # Dense plans have no bands of their own: detect finely (the
+            # dense walk merges adjacent spans back into maximal runs, so
+            # fine detection costs no launches and recomputes less) while
+            # keeping at least ~8 bands on small frames.
+            band_h = max(1, min(16, -(-spec.height // 8)))
+            bp = plan_bands(spec.height, spec.width, spec.num_bins,
+                            band_h=band_h)
+        return bp.spans
+
+    def _delta_report(self, frames, prev_frame, prev_source: HSource,
+                      spec: WorkloadSpec):
+        """Dirty-band detection against a cached predecessor, or None
+        when the predecessor cannot seed an update (geometry, bin or shape
+        mismatch, or a representation without the hook)."""
+        if self.mesh is not None:
+            return None
+        if not hasattr(prev_source, "update_bands"):
+            return None
+        if tuple(np.shape(prev_frame)) != tuple(np.shape(frames)):
+            return None
+        if (prev_source.height, prev_source.width) != (spec.height,
+                                                       spec.width):
+            return None
+        if prev_source.num_bins != self.num_bins:
+            return None
+        return delta_mod.diff_bands(
+            prev_frame, frames, self._delta_spans(spec, prev_source))
+
+    def _updatable(self, prev_source: HSource, p: ExecutionPlan) -> bool:
+        """Does the cached representation match the plan well enough to
+        take the update?  (Policy mismatch -> full recompute.)"""
+        if p.representation == "dense":
+            return isinstance(prev_source, DenseH)
+        if p.representation == "banded":
+            return (isinstance(prev_source, BandedH)
+                    and prev_source._factory is not None)
+        if p.representation == "spilled":
+            return (isinstance(prev_source, SpilledIH)
+                    and prev_source.storage == p.storage
+                    and prev_source.carries is not None)
+        return False
+
+    def _update(self, prev_source: HSource, frames, report,
+                p: ExecutionPlan) -> HSource:
+        """Drive the cached source's ``update_bands`` hook with the plan's
+        kernel launch and the delta_apply slab repair."""
+        from repro_torch.kernels import ops
+
+        kw = self._kernel_kwargs(p)
+
+        def recompute(band_rows, carry):
+            return ops.integral_histogram(band_rows, self.num_bins,
+                                          carry_in=carry, **kw)
+
+        # "cuda" plans repair clean rows with K3; "torch" plans leave
+        # apply_fn unset, so the dense walk takes its plain assembly.
+        apply_fn = None
+        if p.backend == "cuda":
+            def apply_fn(slab, d, out=None):
+                return ops.delta_apply(slab, d, backend="cuda", out=out)
+
+        return prev_source.update_bands(frames, report, recompute=recompute,
+                                        apply_fn=apply_fn)
 
     def run(self, frames, queries: Iterable = (), *,
             prev=None) -> EngineResult:
@@ -510,6 +702,17 @@ class HistogramEngine:
         The queries' declared corner-row union goes into the spec as
         ``query_rows``; when it is small the plan fuses the queries into
         the scan (``representation == "fused"``) and H is never stored.
+        Several queries against a band stream share ONE stream: the union
+        of their corner rows is fetched in a single ``rows()`` pass
+        (``prefetch_rows``).
+
+        ``prev=(prev_frame, prev_source)`` offers a predecessor frame and
+        its H (an ``HSource`` or ``EngineResult``): when few enough rows
+        changed (core/delta.py) the plan goes ``incremental`` and the
+        cached H is *updated* — dirty bands recomputed, clean rows below
+        carry-corrected — bit-exactly.  High motion, geometry or policy
+        mismatches and sources that cannot take an update (fused,
+        single-shot banded) fall back to a full recompute.
 
         >>> import numpy as np
         >>> frame = np.arange(64, dtype=np.uint8).reshape(8, 8) % 4
@@ -520,20 +723,39 @@ class HistogramEngine:
         >>> [float(v) for v in out.results[0].ravel()]
         [16.0, 16.0, 16.0, 16.0]
         """
-        if prev is not None:
-            raise NotImplementedError(
-                "run(prev=...) updates a cached H incrementally; "
-                "incremental video updates are not ported to repro_torch "
-                "yet (ROADMAP 1.3)")
         queries = list(queries)
         spec = self.spec_for(np.shape(frames),
                              getattr(frames, "dtype", "uint8"))
         rows = _declared_rows(queries, spec.height, spec.width)
         if rows is not None:
             spec = dataclasses.replace(spec, query_rows=rows)
+
+        prev_source = report = None
+        if prev is not None:
+            prev_frame, prev_source = prev
+            if isinstance(prev_source, EngineResult):
+                prev_source = prev_source.source
+            report = self._delta_report(frames, prev_frame, prev_source,
+                                        spec)
+            if report is not None:
+                spec = dataclasses.replace(
+                    spec, dirty_fraction=report.dirty_fraction)
+
         p = plan(spec)
+        if p.incremental and not self._updatable(prev_source, p):
+            # The cached representation cannot take the update (policy
+            # mismatch, single-shot stream, ...): re-plan for a full
+            # recompute rather than fail.
+            spec = dataclasses.replace(spec, dirty_fraction=None)
+            p = plan(spec)
         self.last_plan = p
         validate_queries(queries)
-        source = self.compute(frames, p)
-        results = [q.apply(source) for q in queries]
+        if p.incremental:
+            source = self._update(prev_source, frames, report, p)
+        else:
+            source = self.compute(frames, p)
+        target = source
+        if len(queries) > 1 and isinstance(source, BandedH):
+            target = prefetch_rows(source, queries) or source
+        results = [q.apply(target) for q in queries]
         return EngineResult(plan=p, source=source, results=results)

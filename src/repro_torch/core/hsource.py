@@ -1,27 +1,31 @@
 """One H-representation protocol for every way the port holds an H.
 
-Port of ``repro/core/hsource.py`` for the dense and query-fused
-representations (banded, spilled and sharded ones come with ROADMAP 1.2
-and 1.7).  Eq. 2 only ever reads corner *rows* of H, so one protocol
-serves every representation:
+Port of ``repro/core/hsource.py`` for the dense, band-streamed,
+host-spilled (``core/bands.SpilledIH``) and query-fused representations
+(the sharded one comes with ROADMAP 1.7).  Eq. 2 only ever reads corner
+*rows* of H, so one protocol serves every representation:
 
     class HSource:
         num_bins / height / width / lead     # metadata
+        exact_region_bound                   # storage-policy count bound
         rows(row_ids) -> (..., b, k, w)      # tensor on the source's device
         dense() -> (..., b, h, w)            # assemble (when it exists)
 
 Every analytics function has one generic implementation against
 ``rows()``; ``DenseH`` overrides with the direct dense paths.  Results are
-bit-exact either way because all H arithmetic is integer-valued fp32.
+bit-exact either way because all H arithmetic is integer-valued: fp32
+below 2**24, modular for the integer spill policies.
 
 The reference returns host (numpy) rows to dodge a jax 0.4.37 bug in
 concatenating row-sharded device arrays; torch has no such bug, so rows
-stay on the source's device here.
+stay on the source's device here (the host, for a spill).
 """
 
 from __future__ import annotations
 
 import abc
+import itertools
+import warnings
 
 import numpy as np
 import torch
@@ -59,6 +63,13 @@ class HSource(abc.ABC):
     lead: tuple      # leading frame axes of the H stack (() for a frame)
 
     @property
+    def exact_region_bound(self) -> int | None:
+        """Largest region pixel count a query is guaranteed exact for, or
+        ``None`` when unbounded (fp32 sources are bounded upstream by the
+        2**24 query validation)."""
+        return None
+
+    @property
     def nbytes(self) -> int:
         """Size estimate: the full fp32 H footprint."""
         nlead = int(np.prod(self.lead, dtype=np.int64) or 1)
@@ -74,14 +85,31 @@ class HSource(abc.ABC):
         """Materialize (..., b, h, w) as fp32 — small frames only."""
         return self.rows(np.arange(self.height)).to(torch.float32)
 
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Bring a four-corner combination of ``rows()`` values back to
+        true counts: the identity, except for the modular spill policies
+        (``bands.SpilledIH``)."""
+        return x
+
     # -- unified analytics (Eq. 2 against rows()) ---------------------------
+    def _check_region_bound(self, max_area: int, what: str = "region") -> None:
+        bound = self.exact_region_bound
+        if bound is not None and max_area > bound:
+            raise ValueError(
+                f"{what} of {max_area} pixels exceeds the {self.storage} "
+                f"storage policy's exact-count bound {bound}; spill with a "
+                "wider policy")
+
     def region_histogram(self, rects) -> torch.Tensor:
         """``region_query.region_histogram`` semantics; returns fp32."""
         rects = np.asarray(rects)
+        area = (rects[..., 2] - rects[..., 0] + 1) * (
+            rects[..., 3] - rects[..., 1] + 1)
+        self._check_region_bound(int(np.max(area)))
         needed = rq.corner_rows(rects)
         Hc = self.rows(needed)
         out = rq.compressed_region_histogram(Hc, needed, rects)
-        return out.to(torch.float32)
+        return self._reduce(out).to(torch.float32)
 
     def _window_lattices(self, window, stride):
         """The two corner-row lattices of the regular window grid."""
@@ -110,7 +138,8 @@ class HSource(abc.ABC):
         d = diff[..., ww - 1 :: s][..., :n_c]
         c = torch.zeros_like(d)                        # virtual zero column
         c[..., 1:] = diff[..., s - 1 :: s][..., : n_c - 1]
-        return torch.movedim((d - c).to(torch.float32), -3, -1)
+        out = self._reduce(d - c).to(torch.float32)
+        return torch.movedim(out, -3, -1)
 
     def _empty_windows(self, n_r, n_c, device):
         return torch.zeros(
@@ -124,7 +153,9 @@ class HSource(abc.ABC):
         n_r, n_c, bot_rows, top_rows = self._window_lattices(window, stride)
         if n_r <= 0 or n_c <= 0:
             return self._empty_windows(n_r, n_c, self.device)
+        self._check_region_bound(window[0] * window[1], "window")
         needed = np.unique(np.concatenate([bot_rows, top_rows[top_rows >= 0]]))
+        self._warn_if_slabs_dominate(n_r, stride)
         R = self.rows(needed)
         out = self._windows_from_rows(R, needed, window, stride)
         if stats is not None:
@@ -143,6 +174,11 @@ class HSource(abc.ABC):
         """The union of all scales' corner-row lattices is fetched in ONE
         ``rows()`` pass."""
         lattices = [self._window_lattices(wnd, stride) for wnd in windows]
+        # Scales that do not fit the frame query nothing, so they must not
+        # trip the storage-policy bound either.
+        live = [wh * ww for (wh, ww), (n_r, n_c, _, _) in zip(windows, lattices)
+                if n_r > 0 and n_c > 0]
+        self._check_region_bound(max(live, default=0), "window")
         all_rows = [
             np.concatenate([bot, top[top >= 0]])
             for (n_r, n_c, bot, top) in lattices
@@ -161,6 +197,10 @@ class HSource(abc.ABC):
         best_rect, best_score = rq.reduce_scale_maps(
             maps, windows, stride, self.lead)
         return best_rect, best_score, maps
+
+    def _warn_if_slabs_dominate(self, n_r: int, stride: int) -> None:
+        """Streaming sources warn when the corner-row slabs are no smaller
+        than the monolithic H they avoid (stride-1 sliding windows)."""
 
     def _fill_stats(self, stats: dict, R: torch.Tensor) -> None:
         nlead = int(np.prod(self.lead, dtype=np.int64) or 1)
@@ -221,6 +261,18 @@ class DenseH(HSource):
     def dense(self) -> torch.Tensor:
         return self.H
 
+    def update_bands(self, next_frame, report, *, recompute,
+                     apply_fn=None) -> "DenseH":
+        """The incremental-video hook (core/delta.py): a new DenseH for
+        ``next_frame``, recomputing only the report's dirty bands and
+        carry-correcting the clean rows below, bit-exact against a full
+        recompute."""
+        from repro_torch.core import delta as delta_mod
+
+        return DenseH(delta_mod.update_dense_ih(
+            self.H, next_frame, report, recompute=recompute,
+            apply_fn=apply_fn))
+
     def region_histogram(self, rects) -> torch.Tensor:
         return rq.region_histogram(self.H, rects)
 
@@ -234,6 +286,118 @@ class DenseH(HSource):
                            stride: int = 1):
         return rq.multi_scale_search(self.H, target_hist, windows, metric,
                                      stride)
+
+
+class BandedH(HSource):
+    """An H held as a ``BandH`` stream (core/bands.py): the full H never
+    exists at once.
+
+    ``bands`` is either an iterable/iterator of ``BandH`` (single-shot: a
+    second query raises with a pointer to the factory form) or a zero-arg
+    callable returning a fresh stream per query (replayable — what
+    ``HistogramEngine`` builds).  ``rows()`` streams the bands once and
+    keeps only the requested rows, on the bands' device."""
+
+    def __init__(self, bands):
+        self._factory = bands if callable(bands) else None
+        self._tail = None if callable(bands) else iter(bands)
+        self._meta = None
+        self.last_stream_stats: dict = {}
+
+    # -- stream management ---------------------------------------------------
+    def _take_stream(self):
+        # A stashed stream (from a meta peek) is used first; otherwise the
+        # factory opens a fresh one, and a single-shot iterator that was
+        # already taken has nothing left to give.
+        if self._tail is not None:
+            stream, self._tail = self._tail, None
+        elif self._factory is not None:
+            stream = self._factory()
+        else:
+            raise RuntimeError(
+                "this BandedH wraps a single-shot band iterator that was "
+                "already consumed; construct it with a zero-arg factory "
+                "(e.g. BandedH(lambda: ih.map_bands(img, ...))) to run "
+                "multiple queries")
+        first = next(stream)
+        if self._meta is None:
+            self._meta = (first.frame_h, tuple(first.H.shape), first.H.device)
+        return itertools.chain([first], stream)
+
+    def _peek_meta(self):
+        if self._meta is None:
+            # Hand the un-consumed stream back so the peek costs nothing:
+            # the next query picks it up before asking the factory again.
+            self._tail = self._take_stream()
+        return self._meta
+
+    # -- metadata ------------------------------------------------------------
+    num_bins = property(lambda self: self._peek_meta()[1][-3])
+    height = property(lambda self: self._peek_meta()[0])
+    width = property(lambda self: self._peek_meta()[1][-1])
+    lead = property(lambda self: self._peek_meta()[1][:-3])
+    device = property(lambda self: self._peek_meta()[2])
+
+    # -- protocol ------------------------------------------------------------
+    def rows(self, row_ids) -> torch.Tensor:
+        row_ids = np.asarray(row_ids, np.int64)
+        out = None
+        num_bands = 0
+        peak_band = 0
+        for band in self._take_stream():
+            Hb = band.H
+            if out is None:
+                out = torch.zeros(Hb.shape[:-2] + (len(row_ids), Hb.shape[-1]),
+                                  dtype=torch.float32, device=Hb.device)
+            num_bands = band.num_bands
+            peak_band = max(peak_band, band.nbytes)
+            pos = np.flatnonzero((row_ids >= band.r0) & (row_ids < band.r1))
+            if pos.size:
+                local = torch.as_tensor(row_ids[pos] - band.r0,
+                                        device=Hb.device)
+                out[..., torch.as_tensor(pos, device=Hb.device), :] = \
+                    Hb[..., local, :]
+        self.last_stream_stats = {"num_bands": num_bands,
+                                  "band_bytes": peak_band}
+        return out
+
+    def dense(self) -> torch.Tensor:
+        """Assemble the full H on the bands' device."""
+        return torch.cat([band.H for band in self._take_stream()], dim=-2)
+
+    def update_bands(self, next_frame, report, *, recompute,
+                     apply_fn=None) -> "BandedH":
+        """The incremental-video hook (core/delta.py): a new replayable
+        BandedH whose stream replays this one's bands, recomputing dirty
+        bands from ``next_frame`` and carry-correcting clean bands below.
+        Only factory-backed (replayable) sources can be updated."""
+        from repro_torch.core import delta as delta_mod
+
+        if self._factory is None:
+            raise RuntimeError(
+                "cannot update a single-shot BandedH — only factory-"
+                "backed (replayable) band streams support incremental "
+                "updates; the engine falls back to a full recompute")
+        return BandedH(delta_mod.update_banded_factory(
+            self._factory, next_frame, report, recompute=recompute,
+            apply_fn=apply_fn))
+
+    # -- stats / warnings ----------------------------------------------------
+    def _warn_if_slabs_dominate(self, n_r: int, stride: int) -> None:
+        nlead = int(np.prod(self.lead, dtype=np.int64) or 1)
+        slab_bytes = 2 * 4 * nlead * self.num_bins * n_r * self.width
+        full_bytes = 4 * nlead * self.num_bins * self.height * self.width
+        if slab_bytes >= full_bytes:
+            warnings.warn(
+                f"banded sliding windows at stride {stride} need "
+                f"{slab_bytes} B of corner-row slabs >= the {full_bytes} B "
+                "monolithic H they avoid; increase the stride (slabs scale "
+                "with 1/stride) or use the monolithic path for frames this "
+                "size", stacklevel=4)
+
+    def _fill_stats(self, stats: dict, R: torch.Tensor) -> None:
+        stats.update(self.last_stream_stats)
+        super()._fill_stats(stats, R)
 
 
 class PrefetchedRowsH(HSource):
@@ -251,6 +415,11 @@ class PrefetchedRowsH(HSource):
     width = property(lambda self: self._base.width)
     lead = property(lambda self: self._base.lead)
     device = property(lambda self: self._R.device)
+    exact_region_bound = property(lambda self: self._base.exact_region_bound)
+    storage = property(lambda self: getattr(self._base, "storage", "float32"))
+
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return self._base._reduce(x)
 
     def rows(self, row_ids) -> torch.Tensor:
         row_ids = np.asarray(row_ids)
@@ -316,12 +485,18 @@ class FusedRowsH(HSource):
 
 def as_hsource(H, device=None) -> HSource:
     """Coerce a representation to the protocol: an ``HSource`` as-is, a
-    dense (..., b, h, w) tensor or numpy array as ``DenseH``.  Band
-    streams come with ROADMAP 1.2."""
+    dense (..., b, h, w) tensor or numpy array as ``DenseH`` (a numpy H
+    goes to ``device``), a ``BandH`` iterable/iterator or a zero-arg
+    band-stream factory as ``BandedH``."""
     if isinstance(H, HSource):
         return H
+    if callable(H):
+        return BandedH(H)
     if hasattr(H, "ndim") and hasattr(H, "shape"):
         return DenseH(H, device)
+    if hasattr(H, "__iter__") or hasattr(H, "__next__"):
+        return BandedH(H)
     raise TypeError(
         f"cannot interpret {type(H).__name__} as an integral-histogram "
-        "source (want an HSource or a dense (..., b, h, w) array)")
+        "source (want an HSource, a dense (..., b, h, w) array, or a "
+        "BandH stream/factory)")

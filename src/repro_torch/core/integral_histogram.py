@@ -8,8 +8,9 @@ Port of ``repro/core/integral_histogram.py``:
 >>> hist = ih.query(H, [r0, c0, r1, c1])   # O(1) region histogram
 >>> wins = ih.sliding_windows(Hs, (24, 24))  # (n, n_r, n_c, 32)
 
-``map_frames`` (streaming) comes with ROADMAP 1.5 and ``map_bands``
-(banded H) with ROADMAP 1.2.
+>>> bands = ih.map_bands(big, memory_budget_bytes=512 << 20)  # BandH stream
+
+``map_frames`` (streaming) comes with ROADMAP 1.5.
 """
 
 from __future__ import annotations
@@ -55,6 +56,33 @@ class IntegralHistogram:
             device=self.device,
         )
 
+    def map_bands(
+        self,
+        image,
+        *,
+        band_h: int | None = None,
+        memory_budget_bytes: int | None = None,
+        prefetch: int = 0,
+    ):
+        """Stream H as row bands under a memory budget (core/bands.py).
+
+        For frames whose (num_bins, h, w) H does not fit on the card this
+        yields ``BandH`` chunks, each with the band's H and its (b, w)
+        bottom-row carry, equal bit for bit to the monolithic result.
+        Wrap the stream in ``BandedH`` (or hand a zero-arg factory of it)
+        for O(1) analytics that never hold H.  ``prefetch >= 1`` comes
+        with the streaming runtime (ROADMAP 1.5) and raises until then.
+        """
+        from repro_torch.core import bands
+
+        return bands.iter_banded_ih(
+            image, self.num_bins,
+            band_h=band_h, memory_budget_bytes=memory_budget_bytes,
+            prefetch=prefetch, device=self.device,
+            method=self.method, backend=self.backend, tile=self.tile,
+            bin_block=self.bin_block, value_range=self.value_range,
+        )
+
     def engine(self, **overrides):
         """A ``HistogramEngine`` sharing this operator's configuration."""
         from repro_torch.core.engine import HistogramEngine
@@ -72,3 +100,9 @@ class IntegralHistogram:
     sliding_windows = staticmethod(region_query.sliding_window_histograms)
     likelihood_map = staticmethod(region_query.likelihood_map)
     multi_scale_search = staticmethod(region_query.multi_scale_search)
+
+    # ---- deprecated: the unified entry points above accept a BandedH ----
+    banded_query = staticmethod(region_query.banded_region_histogram)
+    banded_sliding_windows = staticmethod(
+        region_query.banded_sliding_window_histograms)
+    banded_likelihood_map = staticmethod(region_query.banded_likelihood_map)

@@ -9,11 +9,13 @@ read as 0.  Every entry point is rank-polymorphic over leading frame axes
 of H ``(..., b, h, w)`` and also accepts an ``HSource``
 (core/hsource.py).  Corner indices past the frame are clamped to its
 last row or column, as JAX's gather clamps them, so an oversized rect
-reads the whole frame.  The ``banded_*`` shims of the reference come with
-banding (ROADMAP 1.2).
+reads the whole frame.  The ``banded_*`` entry points are the reference's
+deprecated shims over ``BandedH`` and the unified functions.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -225,3 +227,57 @@ def corner_rows(rects) -> np.ndarray:
         np.concatenate([(rects[..., 0] - 1).ravel(), rects[..., 2].ravel()])
     )
     return needed[needed >= 0].astype(np.int64)
+
+
+def _deprecated_banded(name: str, replacement: str):
+    warnings.warn(
+        f"{name} is deprecated and will be removed in 2.0: wrap the band "
+        f"stream in an HSource and use the unified entry point instead — "
+        f"{replacement} — or drive the whole request through "
+        "repro_torch.core.engine.HistogramEngine",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def banded_region_histogram(bands, rects) -> torch.Tensor:
+    """Deprecated shim: ``region_histogram(BandedH(bands), rects)``.
+    Streams the bands once, keeping only the corner rows the rects
+    touch."""
+    from repro_torch.core.hsource import as_hsource
+
+    _deprecated_banded("banded_region_histogram",
+                       "region_histogram(BandedH(bands), rects)")
+    return region_histogram(as_hsource(bands), rects)
+
+
+def banded_sliding_window_histograms(
+    bands, window: tuple[int, int], stride: int = 1, *,
+    stats: dict | None = None,
+) -> torch.Tensor:
+    """Deprecated shim:
+    ``sliding_window_histograms(BandedH(bands), window, stride)``; peak
+    memory is one band plus the corner-row slabs (``stats`` receives the
+    proxy)."""
+    from repro_torch.core.hsource import as_hsource
+
+    _deprecated_banded(
+        "banded_sliding_window_histograms",
+        "sliding_window_histograms(BandedH(bands), window, stride)")
+    return sliding_window_histograms(as_hsource(bands), window, stride,
+                                     stats=stats)
+
+
+def banded_likelihood_map(
+    bands, target_hist, window: tuple[int, int], metric, stride: int = 1,
+    *, stats: dict | None = None,
+):
+    """Deprecated shim:
+    ``likelihood_map(BandedH(bands), target, window, metric, stride)``."""
+    from repro_torch.core.hsource import as_hsource
+
+    _deprecated_banded(
+        "banded_likelihood_map",
+        "likelihood_map(BandedH(bands), target, window, metric)")
+    return likelihood_map(as_hsource(bands), target_hist, window, metric,
+                          stride, stats=stats)

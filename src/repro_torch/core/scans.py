@@ -4,7 +4,8 @@ Port of ``repro/core/scans.py``; these are the ``"torch"`` backend.
 
 CW-B    — cross-weave baseline: per-bin scan / transpose / scan.
 CW-STS  — one batched scan -> materialized transpose -> scan.
-CW-TiS  — tiled horizontal strip scan, then tiled vertical strip scan.
+CW-TiS  — tiled horizontal strip scan, then tiled vertical strip scan;
+          the CUDA kernels are kernels/cw_tis.py.
 WF-TiS  — strip-by-strip scan with the (b, w) column carry threaded
           between strips; the CUDA kernel is kernels/wf_tis.py.
 
@@ -73,8 +74,15 @@ def _pad_idx(idx: torch.Tensor, th: int, tw: int) -> torch.Tensor:
 def cw_tis(
     image: torch.Tensor, num_bins: int, value_range: int = 256, tile: int = 128
 ) -> torch.Tensor:
-    idx = bin_indices(image, num_bins, value_range)
-    h, w = image.shape[-2:]
+    return cw_tis_ids(bin_indices(image, num_bins, value_range), num_bins,
+                      tile)
+
+
+def cw_tis_ids(idx: torch.Tensor, num_bins: int,
+               tile: int = 128) -> torch.Tensor:
+    """``cw_tis`` on bin ids; an id outside ``[0, num_bins)`` matches no
+    bin.  This is the plain version of the CUDA kernels K4."""
+    h, w = idx.shape[-2:]
     th, tw = min(tile, h), min(tile, w)
     q = one_hot_bins(_pad_idx(idx, th, tw), num_bins)
     h_scanned = _blocked_cumsum_last(q, tw)

@@ -1,5 +1,7 @@
 // WF-TiS integral-histogram scan for Hopper (sm_90a), shared by the dense
 // kernel (wf_tis.cu, K1) and the query-fused kernel (fused_rows.cu, K2).
+// Its row loader and CTA-wide row scan (load_ids, cta_exclusive_scan) are
+// also the horizontal pass of CW-TiS (cw_tis.cu, K4).
 //
 // Replaces repro/kernels/wf_tis.py::_wf_tis_kernel and
 // repro/kernels/fused_rows.py::_fused_rows_kernel.  What it computes:
@@ -46,6 +48,57 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // plus two buffers of per-warp totals.
 inline size_t smem_bytes(int bb, int threads, int q) {
   return sizeof(float) * ((size_t)bb * threads * 4 * q + 2 * (size_t)bb * 32);
+}
+
+// Bin ids of one row for the 4*Q columns from c_first (-1 outside the
+// frame), with 16-byte loads when vec.
+template <int Q>
+__device__ __forceinline__ void load_ids(const int* __restrict__ row,
+                                         int c_first, int w, bool vec,
+                                         int4 (&dst)[Q]) {
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = c_first + 4 * q;
+    if (vec && c < w) {
+      dst[q] = __ldg(reinterpret_cast<const int4*>(row + c));
+    } else {
+      dst[q].x = c < w ? __ldg(row + c) : -1;
+      dst[q].y = c + 1 < w ? __ldg(row + c + 1) : -1;
+      dst[q].z = c + 2 < w ? __ldg(row + c + 2) : -1;
+      dst[q].w = c + 3 < w ? __ldg(row + c + 3) : -1;
+    }
+  }
+}
+
+// The row scan across the CTA: excl[j] = sum of tot[j] over all lower
+// threads, for each of BB bins.  A warp shuffle scan, then the per-warp
+// totals through `wt` (BB * 32 floats of shared memory), one
+// __syncthreads.  Callers alternate two `wt` buffers between calls, so
+// one barrier per call is enough.
+template <int BB>
+__device__ __forceinline__ void cta_exclusive_scan(const float (&tot)[BB],
+                                                   float (&excl)[BB],
+                                                   float* wt, int lane,
+                                                   int warp) {
+  float incl[BB];
+#pragma unroll
+  for (int j = 0; j < BB; ++j) {
+    float x = tot[j];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(kFullMask, x, o);
+      if (lane >= o) x += y;
+    }
+    incl[j] = x;
+    if (lane == 31) wt[j * 32 + warp] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < BB; ++j) {
+    float run = incl[j] - tot[j];
+    for (int k = 0; k < warp; ++k) run += wt[j * 32 + k];
+    excl[j] = run;
+  }
 }
 
 template <int BB, int Q, bool FUSED>
@@ -99,20 +152,8 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
   const int* frame = idx + (size_t)f * h * w;
 
   // Bin ids of one row for this thread's columns (-1 outside the frame).
-  auto load_row = [&](int r, int4* dst) {
-    const int* row = frame + (size_t)r * w;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int c = c_first + 4 * q;
-      if (vec_in && c < w) {
-        dst[q] = __ldg(reinterpret_cast<const int4*>(row + c));
-      } else {
-        dst[q].x = c < w ? __ldg(row + c) : -1;
-        dst[q].y = c + 1 < w ? __ldg(row + c + 1) : -1;
-        dst[q].z = c + 2 < w ? __ldg(row + c + 2) : -1;
-        dst[q].w = c + 3 < w ? __ldg(row + c + 3) : -1;
-      }
-    }
+  auto load_row = [&](int r, int4 (&dst)[Q]) {
+    load_ids<Q>(frame + (size_t)r * w, c_first, w, vec_in, dst);
   };
 
   // The next row's bin ids and output slot are loaded one row ahead, so
@@ -157,26 +198,14 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
     if (emit) {
       // Horizontal step: exclusive prefix of the thread totals across the
       // CTA (warp shuffle scan, then the per-warp totals).
-      float* wt = warp_tot + (emitted & 1) * BB * 32;
-      float incl[BB];
-#pragma unroll
-      for (int j = 0; j < BB; ++j) {
-        float x = tot[j];
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float y = __shfl_up_sync(kFullMask, x, o);
-          if (lane >= o) x += y;
-        }
-        incl[j] = x;
-        if (lane == 31) wt[j * 32 + warp] = x;
-      }
-      __syncthreads();
+      float excl[BB];
+      cta_exclusive_scan<BB>(tot, excl, warp_tot + (emitted & 1) * BB * 32,
+                             lane, warp);
 
 #pragma unroll
       for (int j = 0; j < BB; ++j) {
         const int b = b0 + j;
-        float run = incl[j] - tot[j];
-        for (int k = 0; k < warp; ++k) run += wt[j * 32 + k];
+        float run = excl[j];
         if (b >= nb) continue;
         float* orow = out + (((size_t)f * nb + b) * h_out + slot) * w;
 #pragma unroll

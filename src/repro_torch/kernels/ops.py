@@ -8,15 +8,18 @@ is polymorphic over a frame axis:
   (n, h, w) -> (n, num_bins, h, w)    one kernel launch for the stack
 
 Backends:
-  "cuda"   — the hand-written kernels (K1 ``wf_tis``, K2 ``fused_rows``).
+  "cuda"   — the hand-written kernels: K1 ``wf_tis``, K2 ``fused_rows``,
+             K3 ``delta_apply``, K4 ``cw_tis`` (hscan + vscan).
   "torch"  — the plain torch scans of core/scans.py.
   "auto"   — "cuda" for a CUDA tensor, "torch" for a CPU tensor.
 
-An explicit "cuda" on a CPU tensor raises ``ValueError``.  ``cw_tis`` on
-the card raises ``NotImplementedError`` (its kernel, K4, is ROADMAP 1.4)
-unless ``backend="torch"`` asks for the plain scan by name: "auto" never
-runs a plain scan on the card in place of an unported kernel.  ``cw_b``
-and ``cw_sts`` have no kernel in the reference either and run as torch.
+An explicit "cuda" on a CPU tensor raises ``ValueError``.  ``cw_b`` and
+``cw_sts`` have no kernel in the reference either: "auto" runs them as
+torch, an explicit "cuda" raises.
+
+``memory_budget_bytes`` hands the frame to the planner
+(core/engine.py): when its H breaks the budget it is computed band by
+band through the kernels' carry-in (core/bands.py) and reassembled.
 
 Inputs may be numpy arrays or tensors; ``device=None`` means the card.
 """
@@ -29,11 +32,16 @@ import torch
 from repro_torch.core import scans
 from repro_torch.core.binning import bin_indices
 from repro_torch.device import as_tensor
+from repro_torch.kernels.cw_tis import cw_tis_cuda
+from repro_torch.kernels.delta_apply import (
+    delta_apply_cuda,
+    delta_apply_plain,
+)
 from repro_torch.kernels.fused_rows import check_rows, fused_rows_cuda
 from repro_torch.kernels.wf_tis import wf_tis_cuda
 
 BACKENDS = ("auto", "cuda", "torch")
-CUDA_METHODS = ("wf_tis",)
+CUDA_METHODS = ("wf_tis", "cw_tis")
 
 
 def resolve_backend(backend: str, method: str, device) -> str:
@@ -51,10 +59,6 @@ def resolve_backend(backend: str, method: str, device) -> str:
             "'torch' on the CPU")
     if not on_card:
         return "torch"
-    if method == "cw_tis":
-        raise NotImplementedError(
-            "the cw_tis kernel (K4) is not ported yet (ROADMAP 1.4); pass "
-            "backend='torch' to run the plain scan on the card")
     if method in CUDA_METHODS:
         return "cuda"
     if backend == "cuda":
@@ -94,16 +98,32 @@ def integral_histogram(
     ``tile`` is the strip height of the plain scans; ``bin_block`` the
     bins per CTA of the kernel (``None`` picks it from the shape).
     ``carry_in`` (``([n,] num_bins, w)``) seeds the scan with the bottom
-    row of everything above the slice.
+    row of everything above the slice.  ``memory_budget_bytes`` caps the
+    H of one launch: the planner bands the frame when its H breaks it.
     """
-    if memory_budget_bytes is not None:
-        raise NotImplementedError(
-            "memory_budget_bytes (banded H) is not ported yet (ROADMAP 1.2)")
     x = as_tensor(image, device)
     if x.ndim not in (2, 3):
         raise ValueError(f"expected (h, w) or (n, h, w), got {tuple(x.shape)}")
     backend = resolve_backend(backend, method, x.device)
     carry = _check_carry(carry_in, x.shape, num_bins, x.device)
+
+    if memory_budget_bytes is not None:
+        # The banding decision lives in the planner; this entry point just
+        # executes the plan it hands back.
+        from repro_torch.core import bands, engine  # both import us
+
+        h, w = x.shape[-2:]
+        p = engine.plan(engine.WorkloadSpec(
+            height=h, width=w, num_bins=num_bins,
+            num_frames=1 if x.ndim == 2 else x.shape[0], method=method,
+            backend=backend, tile=tile, bin_block=bin_block,
+            value_range=value_range, memory_budget_bytes=memory_budget_bytes,
+            device=str(x.device)))
+        if p.band_plan is not None:
+            return bands.banded_integral_histogram(
+                x, num_bins, plan=p.band_plan, carry_in=carry, method=method,
+                backend=p.backend, tile=tile, bin_block=bin_block,
+                value_range=value_range, device=x.device)
 
     if backend == "torch":
         if method == "wf_tis":
@@ -118,8 +138,9 @@ def integral_histogram(
     if squeeze:
         idx = idx[None]
         carry = None if carry is None else carry[None]
-    out = wf_tis_cuda(idx, num_bins, bin_block=bin_block,
-                      carry=None if carry is None else carry.contiguous())
+    kernel = cw_tis_cuda if method == "cw_tis" else wf_tis_cuda
+    out = kernel(idx, num_bins, bin_block=bin_block,
+                 carry=None if carry is None else carry.contiguous())
     return out[0] if squeeze else out
 
 
@@ -146,6 +167,11 @@ def fused_corner_rows(
     the frame), ``rows_bytes``, ``full_h_bytes`` and the resolved
     ``backend``.
 
+    Only ``wf_tis`` has a fused kernel (K2).  On the card ``cw_tis``
+    streams the tile-high bands through its own kernels (K4) with the
+    carry, as the reference computes it off its fused kernel; the TPU
+    reference refuses that ``"pallas"`` plan instead.
+
     Returns (..., num_bins, K, w) fp32, equal bit for bit to dense H at
     those rows.
     """
@@ -156,10 +182,10 @@ def fused_corner_rows(
     frames = x[None] if squeeze else x
     n, h, w = frames.shape
     rows = check_rows(row_ids, h)
-    if backend == "cuda" and method != "wf_tis":
+    if backend == "cuda" and method not in CUDA_METHODS:
         raise ValueError(
             f"the fused kernel runs the wf_tis scan; method {method!r} has "
-            "no fused CUDA path — use backend='auto' or 'torch'")
+            "no CUDA kernel — use backend='auto' or 'torch'")
     backend = resolve_backend(backend, method, frames.device)
     carry = carry_in
     if squeeze and carry is not None and np.ndim(carry) == 2:
@@ -172,20 +198,22 @@ def fused_corner_rows(
     h_cut = min(h, bands_needed * tile)
     frames = frames[:, :h_cut]
 
-    if backend == "cuda":
+    if backend == "cuda" and method == "wf_tis":
         idx = bin_indices(frames, num_bins, value_range).contiguous()
         R = fused_rows_cuda(
             idx, num_bins, rows, bin_block=bin_block,
             carry=None if carry is None else carry.contiguous())
     else:
-        # Stream tile-high bands through the scan, carry threaded between
-        # them; keep only the requested rows of each band.
+        # Stream tile-high bands through the scan (K4 for cw_tis on the
+        # card), carry threaded between them; keep only the requested rows
+        # of each band.
         kept = []
         for b in range(bands_needed):
             band = frames[:, b * tile:(b + 1) * tile]
             Hb = integral_histogram(
-                band, num_bins, method=method, backend="torch", tile=tile,
-                value_range=value_range, carry_in=carry, device=band.device)
+                band, num_bins, method=method, backend=backend, tile=tile,
+                bin_block=bin_block, value_range=value_range, carry_in=carry,
+                device=band.device)
             carry = Hb[..., -1, :]
             local = rows[(rows >= b * tile) & (rows < (b + 1) * tile)]
             if local.size:
@@ -201,6 +229,61 @@ def fused_corner_rows(
             backend=backend,
         )
     return R[0] if squeeze else R
+
+
+def delta_apply(
+    H,
+    delta,
+    *,
+    backend: str = "auto",
+    out=None,
+    device=None,
+) -> torch.Tensor:
+    """Repair a clean H slab with a broadcast carry delta.
+
+    The incremental video path (core/delta.py): when rows above a slab
+    were edited, the slab's whole correction is one ``(..., num_bins, w)``
+    delta — the dirty band's new bottom row minus its old one — added to
+    every row.  Integer-valued fp32, so the result equals recomputing the
+    slab bit for bit.
+
+    Args:
+      H: (num_bins, h, w) or (n, num_bins, h, w) fp32 clean slab (a row
+        band of a larger H is taken in place).
+      delta: (num_bins, w) or (n, num_bins, w), frame axis matching ``H``.
+      backend: "cuda" runs K3 (``kernels/delta_apply.py``), "torch" the
+        broadcast add; "auto" takes K3 for a CUDA tensor.
+      out: optional destination of H's shape (e.g. a row band of the H
+        being assembled); K3 writes into it.
+
+    Returns:
+      ``H + delta`` broadcast over the row axis, same logical shape as H.
+    """
+    H = as_tensor(H, device) if not isinstance(H, torch.Tensor) else H
+    if H.ndim not in (3, 4):
+        raise ValueError(
+            f"expected (num_bins, h, w) or (n, num_bins, h, w), got "
+            f"{tuple(H.shape)}")
+    backend = resolve_backend(backend, "wf_tis", H.device)
+    squeeze = H.ndim == 3
+    slab = H[None] if squeeze else H
+    d = as_tensor(delta, H.device).to(torch.float32)
+    d = d[None] if squeeze and d.ndim == 2 else d
+    n, nb, h, w = slab.shape
+    if tuple(d.shape) != (n, nb, w):
+        raise ValueError(
+            f"delta shape {tuple(np.shape(delta))} incompatible with "
+            f"{(n, nb, w)} (frames, num_bins, width)")
+    dst = None if out is None else (out[None] if squeeze else out)
+    if backend == "torch":
+        res = delta_apply_plain(slab, d)
+        if dst is not None:
+            dst.copy_(res)
+            res = dst
+    else:
+        res = delta_apply_cuda(slab.to(torch.float32), d.contiguous(),
+                               out=dst)
+    return res[0] if squeeze else res
 
 
 def fused_likelihood_map(

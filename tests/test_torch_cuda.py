@@ -12,7 +12,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.engine import HistogramEngine, RegionQuery
+from repro_torch.core.engine import (
+    HistogramEngine,
+    LikelihoodQuery,
+    RegionQuery,
+    SlidingWindowQuery,
+)
+from repro_torch.kernels.cw_tis import (
+    cw_tis_cuda,
+    cw_tis_hscan_cuda,
+    cw_tis_hscan_plain,
+    cw_tis_plain,
+    cw_tis_vscan_cuda,
+)
+from repro_torch.kernels.delta_apply import delta_apply_cuda, delta_apply_plain
 from repro_torch.kernels.fused_rows import fused_rows_cuda
 from repro_torch.kernels.wf_tis import wf_tis_cuda, wf_tis_plain
 
@@ -72,3 +85,101 @@ def test_engine_on_the_card_launches_the_kernels(cuda_device):
     plain = HistogramEngine(num_bins=8, backend="torch").run(
         frames, [RegionQuery(np.array([[3, 4, 40, 60]]))])
     assert torch.equal(fused.results[0], plain.results[0])
+
+
+def _counts():
+    return {"wf_tis": wf_tis_cuda.launches,
+            "fused_rows": fused_rows_cuda.launches,
+            "delta_apply": delta_apply_cuda.launches,
+            "cw_tis_hscan": cw_tis_hscan_cuda.launches,
+            "cw_tis_vscan": cw_tis_vscan_cuda.launches}
+
+
+def _zero_counts():
+    for fn in (wf_tis_cuda, fused_rows_cuda, delta_apply_cuda,
+               cw_tis_hscan_cuda, cw_tis_vscan_cuda):
+        fn.launches = 0
+
+
+@pytest.mark.parametrize("n,b,h,w", [
+    (1, 1, 1, 1), (2, 3, 17, 131), (3, 32, 40, 640), (1, 5, 9, 4099),
+])
+def test_delta_apply_kernel_equals_plain(cuda_device, n, b, h, w):
+    rng = np.random.default_rng(12)
+    H = torch.as_tensor(rng.integers(0, 1 << 20, (n, b, h, w)),
+                        dtype=torch.float32, device=cuda_device)
+    d = torch.as_tensor(rng.integers(-5000, 5000, (n, b, w)),
+                        dtype=torch.float32, device=cuda_device)
+    before = delta_apply_cuda.launches
+    assert torch.equal(delta_apply_cuda(H, d), delta_apply_plain(H, d))
+    assert delta_apply_cuda.launches == before + 1
+    # A row band of H, written straight into a row band of another H.
+    if h > 4:
+        out = torch.zeros_like(H)
+        got = delta_apply_cuda(H[:, :, 2:h - 1], d, out=out[:, :, 1:h - 2])
+        assert got.data_ptr() == out[:, :, 1:h - 2].data_ptr()
+        assert torch.equal(out[:, :, 1:h - 2],
+                           delta_apply_plain(H[:, :, 2:h - 1], d))
+        assert not out[:, :, :1].any() and not out[:, :, h - 2:].any()
+
+
+@pytest.mark.parametrize("n,h,w,bins,with_carry", [
+    (1, 1, 1, 1, False), (3, 97, 131, 32, True), (2, 33, 4099, 3, True),
+    (2, 130, 640, 32, False),
+])
+def test_cw_tis_kernels_equal_plain_and_k1(cuda_device, n, h, w, bins,
+                                           with_carry):
+    rng = np.random.default_rng(13)
+    idx = torch.as_tensor(rng.integers(-1, bins + 1, (n, h, w)),
+                          dtype=torch.int32, device=cuda_device)
+    carry = (torch.as_tensor(_carry(13, (n, h, w), bins), device=cuda_device)
+             if with_carry else None)
+    before = (cw_tis_hscan_cuda.launches, cw_tis_vscan_cuda.launches)
+    hh = cw_tis_hscan_cuda(idx, bins)
+    assert torch.equal(hh, cw_tis_hscan_plain(idx, bins))
+    H = cw_tis_cuda(idx, bins, carry=carry)
+    assert (cw_tis_hscan_cuda.launches, cw_tis_vscan_cuda.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(H, cw_tis_plain(idx, bins, carry))
+    assert torch.equal(H, wf_tis_cuda(idx, bins, carry=carry))
+
+
+def test_incremental_stream_launches_k3_not_k2(cuda_device):
+    rng = np.random.default_rng(14)
+    prev = rng.integers(0, 256, (64, 80), np.uint8)
+    eng = HistogramEngine(num_bins=8)
+    target = np.full(8, 8.0, np.float32)
+    queries = [LikelihoodQuery(target, (8, 8), stride=2)]
+    out = eng.run(prev, queries)
+    assert out.plan.representation == "dense"
+    for r0 in (16, 56):            # clean rows below, then none below
+        nxt = prev.copy()
+        nxt[r0:r0 + 8] = rng.integers(0, 256, (8, 80), np.uint8)
+        _zero_counts()
+        new = eng.run(nxt, queries, prev=(prev, out))
+        counts = _counts()
+        assert new.plan.incremental and new.plan.representation == "dense"
+        assert counts == {"wf_tis": 1, "fused_rows": 0,
+                          "delta_apply": int(r0 + 8 < 64),
+                          "cw_tis_hscan": 0, "cw_tis_vscan": 0}, counts
+        fresh = eng.compute_dense(nxt)
+        assert torch.equal(new.source.dense(), fresh)
+        plain = HistogramEngine(num_bins=8, backend="torch").run(nxt, queries)
+        assert torch.allclose(new.results[0], plain.results[0], rtol=1e-6,
+                              atol=1e-7)
+        prev, out = nxt, new
+
+
+def test_cw_tis_engine_launches_k4_not_k1(cuda_device):
+    frames = np.random.default_rng(15).integers(0, 256, (2, 64, 80),
+                                                np.uint8)
+    queries = [SlidingWindowQuery((4, 4), 2)]
+    _zero_counts()
+    got = HistogramEngine(num_bins=8, method="cw_tis").run(frames, queries)
+    counts = _counts()
+    assert got.plan.representation == "dense"
+    assert counts == {"wf_tis": 0, "fused_rows": 0, "delta_apply": 0,
+                      "cw_tis_hscan": 1, "cw_tis_vscan": 1}, counts
+    want = HistogramEngine(num_bins=8).run(frames, queries)
+    assert torch.equal(got.results[0], want.results[0])
+    assert torch.equal(got.source.dense(), want.source.dense())

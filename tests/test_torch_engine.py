@@ -65,21 +65,57 @@ def test_plan_matches_reference(height, num_frames):
     ("dirty_fraction", 0.1, "1.3"),
 ])
 def test_unported_spec_fields_raise(field, value, item):
+    """Only the mesh (ROADMAP 1.7) is still refused; the fields of items
+    1.2 and 1.3 plan as the reference plans them."""
     spec = engine.WorkloadSpec(height=32, width=32, device="cpu",
                                **{field: value})
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        engine.plan(spec)
+    if field == "mesh":
+        with pytest.raises(NotImplementedError,
+                           match=item.replace(".", r"\.")):
+            engine.plan(spec)
+        return
+    want = ref_engine.plan(ref_engine.WorkloadSpec(
+        height=32, width=32, backend="jnp", **{field: value}))
+    got = engine.plan(spec)
+
+    def decisions(p):
+        bp = p.band_plan
+        return (p.representation, p.incremental, p.storage, p.microbatch,
+                None if bp is None else (bp.spans, bp.band_bytes))
+
+    assert decisions(got) == decisions(want)
+
+    def lines(p):
+        keys = ("representation", "incremental", "bands", "storage")
+        return [ln for ln in p.explain().splitlines()
+                if ln.split(":")[0].strip() in keys]
+
+    assert lines(got) == lines(want)
 
 
 def test_unported_run_arguments_raise():
-    frame = np.zeros((16, 16), np.uint8)
-    eng = engine.HistogramEngine(num_bins=4, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"1\.3"):
-        eng.run(frame, [], prev=(frame, None))
-    budget = engine.HistogramEngine(num_bins=4, memory_budget_bytes=1 << 10,
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match=r"1\.2"):
-        budget.run(frame, [])
+    """``prev=`` and a memory budget run now: a predecessor without an H
+    falls back to a full recompute, a budget below the H bands it; both
+    as in the reference."""
+    frame = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    rects = np.array([[0, 0, 15, 15], [3, 2, 9, 11]])
+    cases = [
+        (dict(), dict(prev=(frame, None)), "dense"),
+        (dict(memory_budget_bytes=1 << 10), dict(), "banded"),
+    ]
+    for eng_kw, run_kw, rep in cases:
+        got = engine.HistogramEngine(num_bins=4, device="cpu", **eng_kw).run(
+            frame, [engine.SlidingWindowQuery((4, 4), 2)], **run_kw)
+        want = ref_engine.HistogramEngine(num_bins=4, backend="jnp",
+                                          **eng_kw).run(
+            frame, [ref_engine.SlidingWindowQuery((4, 4), 2)], **run_kw)
+        assert got.plan.representation == want.plan.representation == rep
+        assert not got.plan.incremental
+        np.testing.assert_array_equal(_np(got.results[0]),
+                                      np.asarray(want.results[0]))
+        np.testing.assert_array_equal(
+            _np(got.source.region_histogram(rects)),
+            np.asarray(want.source.region_histogram(rects)))
 
 
 @pytest.mark.parametrize("shape,rect", [

@@ -208,18 +208,24 @@ def test_backend_errors_and_default_device(monkeypatch):
         ops.integral_histogram(img, 4, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         ops.integral_histogram(img, 4, backend="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="1.2"):
-        ops.integral_histogram(img, 4, memory_budget_bytes=1 << 20,
-                               device="cpu")
+    # A budget goes through the planner: one band fits, so it is the
+    # monolithic H; a budget of two rows bands it, with the same result.
+    whole = ops.integral_histogram(img, 4, device="cpu")
+    for budget in (1 << 20, 2 * 4 * 4 * 8):
+        np.testing.assert_array_equal(
+            _np(ops.integral_histogram(img, 4, memory_budget_bytes=budget,
+                                       device="cpu")), _np(whole))
     with pytest.raises(ValueError, match="carry_in shape"):
         ops.integral_histogram(img, 4, carry_in=np.zeros((4, 7)),
                                device="cpu")
-    # On the card, cw_tis has no kernel yet: "auto" must not quietly run
-    # the plain scan, an explicit "torch" may.
+    # On the card, cw_tis runs its own kernels (K4); an explicit "torch"
+    # may still ask for the plain scan.
     card = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="1.4"):
-        ops.resolve_backend("auto", "cw_tis", card)
+    assert ops.resolve_backend("auto", "cw_tis", card) == "cuda"
+    assert ops.resolve_backend("cuda", "cw_tis", card) == "cuda"
     assert ops.resolve_backend("torch", "cw_tis", card) == "torch"
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        ops.resolve_backend("cuda", "cw_sts", card)
     assert ops.resolve_backend("auto", "wf_tis", card) == "cuda"
     assert ops.resolve_backend("auto", "cw_sts", card) == "torch"
     # No device named and no GPU: raise, never compute on the CPU.
