@@ -20,6 +20,11 @@ non-zero before the result line is printed:
   k4      the CW-TiS kernels (hscan, then vscan) against the plain cw_tis
           and against K1 (torch.equal): the clip, 4x1080x1920x64, K1's
           ragged shapes, a float frame and a non-zero carry_in
+  k5      the SSD scan kernel against its plain version (TF32 off) at the
+          Mamba2-130M prefill's shape, B=4, S=1024, H=24, P=64, N=128,
+          chunk 256: y and h_last with h0 = 0 and with a random h0, and
+          ssd_chunked on a ragged S=1000; max abs and rel errors against
+          K5_ATOL / K5_RTOL
   main    HistogramEngine(num_bins=32).run on the clip: a request that
           plans "fused" and one that plans "dense"; answers held against
           backend="torch" on the same card and against a direct count
@@ -39,6 +44,19 @@ non-zero before the result line is printed:
   cw_tis  HistogramEngine(method="cw_tis") on the dense request (hscan and
           vscan once each, K1 never) and on the fused one (4 tile-high
           bands through K4, K2 never); answers equal the WF-TiS engine's
+  lm      repro_torch.launch.serve.main on mamba2-130m at full size (24
+          layers, d_model 768, vocab 50280), batch 4, 1024-token prompts,
+          32 greedy tokens, seed 0: K5 once per layer of the prefill (24)
+          and never in decode; the same request's prefill logits held
+          against the fp32 model with the plain scan (fp32 with K5 within
+          LM_ATOL32, the served bf16 within LM_PREC16 of the largest
+          logit, which another prompt's logits and the model less its
+          last layer must fail) and against the bf16 model with the
+          plain scan (within LM_SCAN16), the greedy tokens the served and
+          fp32 runs agree on, and warm prefill ms, decode ms per token
+          and tokens/s beside the card line; the launch counts are read
+          again where serve hands the prefilled cache to decode_loop, so
+          prefill and decode are two paths of the kernels line
   timing  each kernel's median time (CUDA events) beside its bound, K1
           also on one frame of the clip and at 1080p; then host-clock
           request times (median of 5): incremental vs full recompute per
@@ -49,8 +67,8 @@ non-zero before the result line is printed:
           step of one video frame with K3 writing into the new H against
           the same walk joined by a torch.cat
 
-Every request of the main, bands, video and cw_tis phases runs with all
-five launch counters set to 0 just before it and read just after; the
+Every request of the main, bands, video, cw_tis and lm phases runs with
+all six launch counters set to 0 just before it and read just after; the
 kernels line carries each kernel's counts per path (``launches_by_path``).
 
 The line before the last is the per-kernel JSON record, the last line
@@ -74,6 +92,28 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 MAP_RTOL, MAP_ATOL = 1e-6, 1e-7
+# K5 against its plain version, both fp32 on the card (TF32 off): the sums
+# run in another order and the kernel walks 64-step chunks where the plain
+# loop takes 256; |got - want| <= K5_ATOL + K5_RTOL * |want| elementwise.
+K5_ATOL, K5_RTOL = 1e-4, 1e-4
+# Mamba2-130M prefill logits (last position).  The fp32 model with K5
+# against the fp32 model with the plain scan: the scan's rounding only.
+LM_ATOL32 = 1e-3
+# The served bf16 model, as fractions of the largest |logit| of the fp32
+# reference.  Against the bf16 model with the plain scan: a change of the
+# scan's rounding alone (chunk 32 vs 16) moves a narrow 24-layer model of
+# this family by 4.7% of it in bf16.  Against the fp32 model with the
+# plain scan: bf16 activations through 24 layers read 12.4% at full width
+# on the H100, and the fp32 model less its last layer reads 23.7% (another
+# prompt's logits 138.8%); the gate lies between the sound reading and the
+# faults, and the phase checks that both faults fail it.  On the CPU the
+# port's bf16 rounds like the reference compiled without XLA's excess
+# precision
+# (tests/test_torch_models.py::test_bf16_drift_at_depth_matches_reference).
+LM_SCAN16 = 0.15
+LM_PREC16 = 0.18
+# The lm phase's request (the issue's serving geometry).
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "mamba2-130m", 4, 1024, 32, 0
 
 
 class SmokeFailure(RuntimeError):
@@ -117,6 +157,22 @@ def time_ms(fn, runs: int = 11, launches: int = 10) -> float:
     return statistics.median(times)
 
 
+def request_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``reps`` calls of ``fn``, each ended by a
+    synchronize, after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
 def low_motion_stream(h: int, w: int, n: int, dirty_rows: int, seed: int):
     """n uint8 frames; each rewrites ``dirty_rows`` rows of its predecessor
     at a seeded random position (as benchmarks/bench_delta.py builds its
@@ -138,8 +194,12 @@ def profile_requests(torch, requests, n: int = 10) -> str:
     """Where ``n`` requests spend their time, from one torch.profiler
     trace (CPU and CUDA activity): kernel launches and device busy time
     per request, the device's idle share of the wall time, and the CPU
-    ops with the most self time.  The profiler's own cost inflates the
-    CPU times; "not measured" when the trace holds no device time."""
+    ops with the most self time.  Device time is summed over the device's
+    own events (kernels, copies, sets) only: an op that launches a kernel
+    carries that kernel's time as its own self device time too.  The
+    profiler's own cost inflates the CPU times; "not measured" when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -154,7 +214,9 @@ def profile_requests(torch, requests, n: int = 10) -> str:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    busy = sum(device_us(e) for e in events)
+    busy = sum(device_us(e) for e in events
+               if e.device_type != DeviceType.CPU)
+    both = sum(device_us(e) for e in events)     # ops and kernels alike
     if busy <= 0:
         return "not measured (the trace holds no device time)"
     launches = sum(e.count for e in events if "LaunchKernel" in e.key)
@@ -164,7 +226,8 @@ def profile_requests(torch, requests, n: int = 10) -> str:
                     for e in top)
     return (f"{launches / n:.1f} kernel launches, device busy "
             f"{busy / n / 1e3:.4f} ms of {wall_us / n / 1e3:.3f} ms wall "
-            f"(idle {1 - busy / wall_us:.1%}) a request; most CPU self "
+            f"(idle {1 - busy / wall_us:.1%}; summed over ops and kernels "
+            f"alike {both / n / 1e3:.4f} ms) a request; most CPU self "
             f"time a request (ms, profiled): {ops}")
 
 
@@ -237,28 +300,40 @@ def run(torch) -> list[dict]:
     )
     from repro_torch.kernels.fused_rows import fused_rows_cuda, fused_rows_plain
     from repro_torch.kernels.ref import region_histogram_ref
+    from repro_torch.kernels.ssd_scan import (
+        KERNEL_CHUNK, ssd_scan_cuda, ssd_scan_plain,
+    )
     from repro_torch.kernels.wf_tis import wf_tis_cuda, wf_tis_plain
 
     dev = torch.device("cuda")
     wrappers = {"wf_tis": wf_tis_cuda, "fused_rows": fused_rows_cuda,
                 "delta_apply": delta_apply_cuda,
                 "cw_tis_hscan": cw_tis_hscan_cuda,
-                "cw_tis_vscan": cw_tis_vscan_cuda}
+                "cw_tis_vscan": cw_tis_vscan_cuda,
+                "ssd_scan": ssd_scan_cuda}
     paths: dict[str, dict[str, int]] = {}      # path -> kernel -> launches
+
+    def read_counts():
+        return {k: wrapper.launches for k, wrapper in wrappers.items()}
+
+    def tally(path, counts):
+        total = paths.setdefault(path, dict.fromkeys(wrappers, 0))
+        for k, v in counts.items():
+            total[k] += v
 
     def counted(path, fn):
         """Run one request with every launch counter set to 0 just before
-        it and read just after; add the counts to ``path``'s total."""
+        it and read just after; add the counts to ``path``'s total (none
+        when ``path`` is None)."""
         for wrapper in wrappers.values():
             wrapper.launches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {k: wrapper.launches for k, wrapper in wrappers.items()}
-        total = paths.setdefault(path, dict.fromkeys(wrappers, 0))
-        for k, v in counts.items():
-            total[k] += v
+        counts = read_counts()
+        if path is not None:
+            tally(path, counts)
         return out, dt, counts
 
     def only(**launches):
@@ -436,6 +511,63 @@ def run(torch) -> list[dict]:
             ops.integral_histogram(xf, 16, method="cw_tis", backend="torch")),
             "K4 != plain on a float frame")
         log(f"   ragged {[c[0] for c in cases]}, carry_in, float frame: equal")
+
+    with phase("k5: ssd_scan kernel vs its plain version"):
+        from repro_torch.models.ssm import ssd_chunked
+
+        sb, ss, sh, sp, sn, sq = 4, 1024, 24, 64, 128, 256
+
+        def ssd_inputs(seed, s):
+            # The ranges the model hands the scan: softplus step sizes,
+            # A = -exp(small), B and C of the conv + silu's scale.
+            r = np.random.default_rng(seed)
+            arrays = (r.standard_normal((sb, s, sh, sp)),
+                      np.log1p(np.exp(r.standard_normal((sb, s, sh)))),
+                      -np.exp(r.standard_normal(sh) * 0.2),
+                      r.standard_normal((sb, s, 1, sn)) * 0.3,
+                      r.standard_normal((sb, s, 1, sn)) * 0.3,
+                      r.standard_normal((sb, sh, sn, sp)))
+            return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                    for a in arrays]
+
+        def scan_errors(label, got, want):
+            errs = []
+            for name, g, w_ in zip(("y", "h_last"), got, want):
+                abs_err = float((g - w_).abs().max())
+                rel_err = abs_err / float(w_.abs().max())
+                log(f"   {label}: {name} max abs err {abs_err:.3e}, max rel "
+                    f"err {rel_err:.3e} (|{name}| up to "
+                    f"{float(w_.abs().max()):.3f})")
+                check(torch.allclose(g, w_, atol=K5_ATOL, rtol=K5_RTOL),
+                      f"K5 != plain ({label}, {name}) beyond atol {K5_ATOL} "
+                      f"rtol {K5_RTOL}")
+                errs.append(abs_err)
+            return max(errs)
+
+        k5_in = ssd_inputs(9, ss)
+        sx, sdt, sA, sB, sC, sh0 = k5_in
+        k5_err = 0.0
+        for label, h0 in (("h0 = 0", None),
+                          ("h0 = zeros", torch.zeros_like(sh0)),
+                          ("random h0", sh0)):
+            got = ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq, h0=h0)
+            want = ssd_scan_plain(sx, sdt, sA, sB, sC, chunk=sq, h0=h0)
+            k5_err = max(k5_err, scan_errors(
+                f"{sb}x{ss}x{sh}x{sp}, N={sn}, {label}", got, want))
+        check(torch.equal(ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq)[0],
+                          ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq,
+                                        h0=torch.zeros_like(sh0))[0]),
+              "K5 with h0=None != K5 with h0=zeros")
+        rx, rdt, rA, rB, rC, rh0 = ssd_inputs(10, 1000)
+        before = ssd_scan_cuda.launches
+        got = ssd_chunked(rx, rdt, rA, rB, rC, sq, h0=rh0)
+        check(ssd_scan_cuda.launches == before + 1,
+              "ssd_chunked on CUDA tensors did not launch K5")
+        want = ssd_chunked(rx, rdt, rA, rB, rC, sq, h0=rh0, backend="torch")
+        k5_err = max(k5_err, scan_errors(
+            "ssd_chunked, ragged S=1000 (padded to 1024), random h0", got,
+            want))
+        del got, want, rx, rdt, rB, rC, rh0
 
     with phase("main: HistogramEngine.run on the GPU"):
         dense_queries = [eng_mod.SlidingWindowQuery((24, 24), stride=1)]
@@ -681,6 +813,149 @@ def run(torch) -> list[dict]:
         del cw_fused, wf_fused
         torch.cuda.empty_cache()
 
+    with phase(f"lm: {LM_ARCH} serving through repro_torch.launch.serve"):
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+        from repro_torch.models import api, ssm
+        from repro_torch.train.serve_step import decode_loop, make_serve_fns
+
+        cfg = get_config(LM_ARCH)
+        argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+                str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", str(LM_SEED)]
+        # serve.main is the main path's run.  The counters are read once
+        # more where it hands the prefilled cache to decode_loop, which
+        # splits its counts into the prefill's and the decode's.
+        at_decode = {}
+        serve_decode_loop = serve.decode_loop
+
+        def observed_decode_loop(*args, **kwargs):
+            torch.cuda.synchronize()
+            at_decode.update(read_counts())
+            return serve_decode_loop(*args, **kwargs)
+
+        torch.cuda.reset_peak_memory_stats()
+        serve.decode_loop = observed_decode_loop
+        try:
+            served, t_serve, counts = counted(None,
+                                              lambda: serve.main(argv))
+        finally:
+            serve.decode_loop = serve_decode_loop
+        decode_counts = {k: counts[k] - at_decode[k] for k in counts}
+        tally("lm_prefill", at_decode)
+        tally("lm_decode", decode_counts)
+        lm_launches = {"prefill": at_decode["ssd_scan"],
+                       "decode_step": decode_counts["ssd_scan"] / LM_GEN}
+        log(f"   serve.main (cold, first call of the process): "
+            f"{t_serve * 1e3:.1f} ms; prefill launched {at_decode}, "
+            f"{LM_GEN} decode steps {decode_counts}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        check(at_decode == only(ssd_scan=cfg.num_layers),
+              f"the prefill launched {at_decode}, want K5 "
+              f"{cfg.num_layers} times (once per layer)")
+        check(decode_counts == only(),
+              f"decode launched {decode_counts}, want no kernel of ours")
+        check(tuple(served.shape) == (LM_BATCH, LM_GEN)
+              and served.dtype == torch.int32
+              and 0 <= int(served.min())
+              and int(served.max()) < cfg.padded_vocab,
+              f"served tokens {tuple(served.shape)} {served.dtype}")
+
+        # The same request again (weights and prompts from the same seed),
+        # prefill and decode apart, for its logits.
+        params, prompts = serve.make_request(cfg, LM_BATCH, LM_PROMPT,
+                                             LM_SEED, dev)
+        batch = {"tokens": prompts}
+        max_len = LM_PROMPT + LM_GEN
+
+        def fresh_cache():
+            return api.init_cache(cfg, LM_BATCH, max_len)
+
+        logits, cache = api.prefill(params, batch, cfg, fresh_cache())
+        check(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()), "prefill logits")
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks, _ = decode_loop(params, first, cache, cfg, LM_GEN)
+        rerun_same = int((toks == served).sum())
+        log(f"   rerun tokens equal the served ones at {rerun_same} of "
+            f"{toks.numel()} places")
+
+        # The reference: the same weights and prompts in an fp32 copy of
+        # the config with the plain scan.
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        ref_logits, ref_cache = api.prefill(params, batch, cfg32,
+                                            fresh_cache(), backend="torch")
+        k5_32, _ = api.prefill(params, batch, cfg32, fresh_cache())
+        plain16, _ = api.prefill(params, batch, cfg, fresh_cache(),
+                                 backend="torch")
+        # Two wrong answers the bf16 gate must refuse: the fp32
+        # reference's logits of the next prompt of the batch, and those of
+        # the fp32 model with its last layer left out.
+        tree = params.param_tree()
+        cfg_short = dataclasses.replace(cfg32,
+                                        num_layers=cfg.num_layers - 1)
+        short = ssm.Mamba2LM(cfg_short,
+                             {**tree, "layers": tree["layers"][:-1]})
+        short_logits, _ = api.prefill(
+            short, batch, cfg_short,
+            api.init_cache(cfg_short, LM_BATCH, max_len), backend="torch")
+        scale = float(ref_logits.abs().max())
+        err32 = float((k5_32 - ref_logits).abs().max())
+        err_scan16 = float((logits - plain16).abs().max())
+        err16 = float((logits - ref_logits).abs().max())
+        err_other = float((logits - ref_logits.roll(1, 0)).abs().max())
+        err_short = float((logits - short_logits).abs().max())
+        log(f"   last-position logits (|logit| up to {scale:.3f}): fp32 with "
+            f"K5 vs fp32 with the plain scan: max abs err {err32:.3e} "
+            f"(tolerance {LM_ATOL32}); served bf16 vs bf16 with the plain "
+            f"scan: {err_scan16:.3e} ({err_scan16 / scale:.1%}, tolerance "
+            f"{LM_SCAN16:.0%}); served bf16 vs the fp32 reference: "
+            f"{err16:.3e} ({err16 / scale:.1%}, tolerance {LM_PREC16:.0%}); "
+            f"wrong answers: another prompt's fp32 logits "
+            f"{err_other / scale:.1%}, the fp32 model less its last layer "
+            f"{err_short / scale:.1%}")
+        check(err32 <= LM_ATOL32, f"fp32 K5 logits off by {err32}")
+        check(err_scan16 <= LM_SCAN16 * scale,
+              f"bf16 K5 logits off the bf16 plain scan's by {err_scan16}")
+        check(err16 <= LM_PREC16 * scale,
+              f"bf16 logits off the fp32 reference by {err16}")
+        check(min(err_other, err_short) > LM_PREC16 * scale,
+              f"the bf16 gate passes a wrong answer (another prompt "
+              f"{err_other}, one layer less {err_short})")
+        ref_first = torch.argmax(ref_logits, dim=-1).to(torch.int32)
+        ref_toks, _ = decode_loop(params, ref_first, ref_cache, cfg32, LM_GEN)
+        agree = (torch.cat([first[:, None], toks], 1)
+                 == torch.cat([ref_first[:, None], ref_toks], 1))
+        lead = [int(row.cumprod(0).sum()) for row in agree.int()]
+        log(f"   greedy tokens, served bf16 vs the fp32 reference: "
+            f"{int(agree.sum())} of {agree.numel()} agree; leading run per "
+            f"sequence {lead} of {LM_GEN + 1}")
+        del k5_32, plain16, ref_logits, ref_cache, ref_toks, short
+        del short_logits, tree
+
+        prefill_fn, _ = make_serve_fns(cfg)
+
+        lm_prefill_ms = request_ms(
+            lambda: prefill_fn(params, batch, fresh_cache()), reps=3)
+        lm_decode_ms = request_ms(
+            lambda: decode_loop(params, first, cache, cfg, LM_GEN),
+            reps=3) / LM_GEN
+        log(f"   {LM_ARCH} ({cfg.num_layers} layers, d_model {cfg.d_model}), "
+            f"batch {LM_BATCH}, warm, host clock, median of 3 | card "
+            f"{card_line()}")
+        log(f"   prefill {LM_BATCH}x{LM_PROMPT}: {lm_prefill_ms:.3f} ms "
+            f"({LM_BATCH * LM_PROMPT / lm_prefill_ms * 1e3:.0f} tokens/s)")
+        log(f"   decode: {lm_decode_ms:.3f} ms per step of {LM_BATCH} tokens "
+            f"({LM_BATCH / lm_decode_ms * 1e3:.0f} tokens/s, {LM_GEN} steps)")
+        log("   prefill, torch.profiler over 3: " + profile_requests(
+            torch, lambda: [prefill_fn(params, batch, fresh_cache())
+                            for _ in range(3)], n=3))
+        log("   decode step, torch.profiler over 8: " + profile_requests(
+            torch, lambda: decode_loop(params, first, cache, cfg, 8), n=8))
+        del params, cache, logits, served, toks
+        torch.cuda.empty_cache()
+
     with phase("timing"):
         # K2 is timed as the main path calls it: host row ids, turned into
         # the row -> slot map and copied without waiting on the card.
@@ -702,6 +977,15 @@ def run(torch) -> list[dict]:
         # vscan without a carry is one PyTorch call: a cumsum down the rows.
         vs_library = time_ms(lambda: torch.cumsum(hh, dim=-2))
         k4_ms = time_ms(lambda: cw_tis_cuda(idx, nb))
+        k5_ms = time_ms(lambda: ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq))
+        k5_plain = time_ms(lambda: ssd_scan_plain(sx, sdt, sA, sB, sC,
+                                                  chunk=sq),
+                           runs=5, launches=2)
+        log(f"   ssd_scan at {sb}x{ss}x{sh}x{sp}, N={sn}: {k5_ms:.4f} ms a "
+            f"launch, {cfg.num_layers * k5_ms:.3f} ms for the "
+            f"{cfg.num_layers} launches of a prefill "
+            f"({cfg.num_layers * k5_ms / lm_prefill_ms:.1%} of its "
+            f"{lm_prefill_ms:.3f} ms)")
         log(f"   cw_tis (hscan + vscan) at the clip: {k4_ms:.4f} ms, "
             f"{k4_ms / k1_ms:.2f}x wf_tis's {k1_ms:.4f} ms")
         for label, ids, bins in (("4x1080x1920x64", big, 64),
@@ -726,7 +1010,24 @@ def run(torch) -> list[dict]:
                             k3_H.numel()),
             "cw_tis_hscan": (4 * px + 4 * px * nb, 2 * px * nb),
             "cw_tis_vscan": (2 * 4 * px * nb, px * nb),
+            # The timed launch (h0 = None) reads x, dt, A, B and C and
+            # writes y and h_last.  Operations: what the function needs,
+            # the recurrence's decay, update and read-out of the (N, P)
+            # state, 4 N P flops per (batch, head, step); the SSD form
+            # of a chunked kernel does more, and more the longer its
+            # chunk.
+            "ssd_scan": (4 * (sx.numel() + sdt.numel() + sA.numel()
+                              + sB.numel() + sC.numel()     # read
+                              + sx.numel() + sb * sh * sn * sp),  # written
+                         4 * sb * sh * ss * sn * sp),
         }
+        ssd_form = {q: 2 * sb * sh * ss * (q * (sn + sp) + 2 * sn * sp)
+                    for q in (KERNEL_CHUNK, sq)}
+        log(f"   ssd_scan operations: the function needs "
+            f"{work['ssd_scan'][1] / 1e9:.2f} GFLOP (4 N P a step); the SSD "
+            f"form's full products, 2 Q (Q N + Q P + 2 N P) a chunk, are "
+            + ", ".join(f"{f / 1e9:.2f} GFLOP at Q = {q}"
+                        for q, f in ssd_form.items()))
         timed = {
             "wf_tis": ("src/repro/kernels/wf_tis.py:253", "wf_tis.cu",
                        k1_ms, k1_plain, None, k1_err),
@@ -739,6 +1040,8 @@ def run(torch) -> list[dict]:
                              hs_ms, hs_plain, None, hscan_err),
             "cw_tis_vscan": ("src/repro/kernels/cw_tis.py:187", "cw_tis.cu",
                              vs_ms, vs_plain, vs_library, vscan_err),
+            "ssd_scan": ("src/repro/kernels/ssd_scan.py:88", "ssd_scan.cu",
+                         k5_ms, k5_plain, None, k5_err),
         }
         library_call = {"delta_apply": "H + delta[..., None, :]",
                         "cw_tis_vscan": "torch.cumsum(hh, dim=-2)"}
@@ -749,37 +1052,30 @@ def run(torch) -> list[dict]:
             t_ops = nops / FP32_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
             by_path = {path: counts[name] for path, counts in paths.items()}
+            by = "bytes" if t_bytes >= t_ops else "operations"
             records.append({
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": site, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             })
+            if name == "ssd_scan":
+                records[-1]["launches_per_request"] = lm_launches
             lib = (f"library_ms {lib_ms:.4f} ({library_call[name]})"
                    if lib_ms is not None else "library_ms: none, no single "
                    "PyTorch call computes the same function")
-            log(f"   {name}: {ms:.4f} ms ({n / ms * 1e3:.0f} frames/s) | "
-                f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)"
-                f", {bound / ms:.1%} of it | plain torch version "
-                f"{plain_ms:.4f} ms (no yardstick) | {lib}")
+            rate = (f"{nops / ms / 1e9:.2f} TFLOP/s fp32" if by == "operations"
+                    else f"{n / ms * 1e3:.0f} frames/s")
+            log(f"   {name}: {ms:.4f} ms ({rate}) | bound {bound:.4f} ms by "
+                f"{by} ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+                f"{nops / 1e9:.3f} GFLOP at 67 TFLOP/s), {bound / ms:.1%} "
+                f"of it | plain torch version {plain_ms:.4f} ms (no "
+                f"yardstick) | {lib}")
 
         # End to end: requests from host uint8 frames to answers on the
         # card, warm, host clock around work that ends in a synchronize.
-        def request_ms(fn, reps: int = 5) -> float:
-            fn()
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            return statistics.median(times) * 1e3
-
         for label, eng, queries in (
                 ("fused", engine, fused_queries),
                 ("dense", engine, dense_queries),

@@ -5,6 +5,7 @@ fused_rows.py — K2, the same scan emitting only requested rows of H.
 delta_apply.py — K3, the carry-delta broadcast of incremental video updates.
 cw_tis.py     — K4, CW-TiS: a row-scan launch (hscan), then a column-scan
                 launch (vscan).
+ssd_scan.py   — K5, the Mamba-2 SSD chunked scan of the model zoo.
 csrc/         — the CUDA C++ sources, shared scan in wf_tis_scan.cuh.
 _build.py     — nvcc at first use, libraries loaded with ctypes.
 ops.py        — the public entry points and backend dispatch.

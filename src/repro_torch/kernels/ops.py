@@ -9,7 +9,8 @@ is polymorphic over a frame axis:
 
 Backends:
   "cuda"   — the hand-written kernels: K1 ``wf_tis``, K2 ``fused_rows``,
-             K3 ``delta_apply``, K4 ``cw_tis`` (hscan + vscan).
+             K3 ``delta_apply``, K4 ``cw_tis`` (hscan + vscan), and K5
+             ``ssd_scan`` (the Mamba-2 SSD scan behind ``ssd_scan``).
   "torch"  — the plain torch scans of core/scans.py.
   "auto"   — "cuda" for a CUDA tensor, "torch" for a CPU tensor.
 
@@ -38,29 +39,36 @@ from repro_torch.kernels.delta_apply import (
     delta_apply_plain,
 )
 from repro_torch.kernels.fused_rows import check_rows, fused_rows_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.wf_tis import wf_tis_cuda
 
 BACKENDS = ("auto", "cuda", "torch")
 CUDA_METHODS = ("wf_tis", "cw_tis")
 
 
-def resolve_backend(backend: str, method: str, device) -> str:
-    """"cuda" or "torch" for ``method`` on ``device``, or raise."""
+def kernel_backend(backend: str, device) -> str:
+    """"cuda" or "torch" for a function that has one CUDA kernel, on
+    ``device``: "auto" takes the kernel for a CUDA tensor and the plain
+    version otherwise; an explicit "cuda" off the card raises."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (want {BACKENDS})")
-    if method not in scans.METHODS:
-        raise ValueError(f"unknown method {method!r}")
-    on_card = torch.device(device).type == "cuda"
     if backend == "torch":
         return backend
+    on_card = torch.device(device).type == "cuda"
     if backend == "cuda" and not on_card:
         raise ValueError(
             "backend='cuda' needs a CUDA tensor; use backend='auto' or "
             "'torch' on the CPU")
-    if not on_card:
-        return "torch"
-    if method in CUDA_METHODS:
-        return "cuda"
+    return "cuda" if on_card else "torch"
+
+
+def resolve_backend(backend: str, method: str, device) -> str:
+    """"cuda" or "torch" for the scan ``method`` on ``device``, or raise."""
+    resolved = kernel_backend(backend, device)
+    if method not in scans.METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if resolved == "torch" or method in CUDA_METHODS:
+        return resolved
     if backend == "cuda":
         raise ValueError(
             f"method {method!r} has no CUDA kernel (CUDA methods: "
@@ -264,7 +272,7 @@ def delta_apply(
         raise ValueError(
             f"expected (num_bins, h, w) or (n, num_bins, h, w), got "
             f"{tuple(H.shape)}")
-    backend = resolve_backend(backend, "wf_tis", H.device)
+    backend = kernel_backend(backend, H.device)
     squeeze = H.ndim == 3
     slab = H[None] if squeeze else H
     d = as_tensor(delta, H.device).to(torch.float32)
@@ -313,3 +321,26 @@ def fused_likelihood_map(
     R = fused_corner_rows(image, nb, rows, stats=stats, **kwargs)
     source = FusedRowsH(row_ids=rows, R=R, height=h, width=w)
     return source.likelihood_map(model, window, metric, stride)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
+             backend: str = "auto"):
+    """The Mamba-2 SSD chunked scan, ``models/ssm.ssd_chunked``'s inner loop.
+
+    Args:
+      x: (B, S, H, P) float32 values; dt: (B, S, H) positive step sizes;
+        A: (H,) negative decay rates; Bm / Cm: (B, S, G, N); all float32.
+      chunk: chunk length; S must be a multiple of it (``ssd_chunked``
+        pads with dt = 0, identity steps).
+      h0: optional (B, H, N, P) initial state (prefill into a state).
+      backend: "cuda" runs K5 (``kernels/ssd_scan.py``, G = 1 only),
+        "torch" the plain chunk loop; "auto" takes K5 for a CUDA tensor.
+        An explicit "cuda" on a CPU tensor raises ``ValueError``.
+
+    Returns:
+      (y (B, S, H, P), h_last (B, H, N, P)) fp32.  The reference's
+      ``ssd_scan`` returns y alone and always starts from zero.
+    """
+    backend = kernel_backend(backend, x.device)
+    fn = ssd_scan_cuda if backend == "cuda" else ssd_scan_plain
+    return fn(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)

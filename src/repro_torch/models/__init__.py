@@ -1,0 +1,2 @@
+"""The model zoo's ported families (ROADMAP 1.9): the ssm family
+(Mamba-2) for serving.  ``api`` is the uniform entry point."""

@@ -27,6 +27,7 @@ from repro_torch.kernels.cw_tis import (
 )
 from repro_torch.kernels.delta_apply import delta_apply_cuda, delta_apply_plain
 from repro_torch.kernels.fused_rows import fused_rows_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.wf_tis import wf_tis_cuda, wf_tis_plain
 
 torch.set_num_threads(1)
@@ -183,3 +184,105 @@ def test_cw_tis_engine_launches_k4_not_k1(cuda_device):
     want = HistogramEngine(num_bins=8).run(frames, queries)
     assert torch.equal(got.results[0], want.results[0])
     assert torch.equal(got.source.dense(), want.source.dense())
+
+
+# K5 against its plain version: fp32 FMAs in another order and 64-step
+# chunks inside the kernel against the plain chunk loop (cuBLAS fp32,
+# TF32 off).
+SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
+
+
+def _ssd_inputs(seed, b, s, h, p, n, g=1, with_h0=False, device="cuda"):
+    r = np.random.default_rng(seed)
+    arrays = [
+        r.standard_normal((b, s, h, p)),
+        np.log1p(np.exp(r.standard_normal((b, s, h)))),
+        -np.exp(r.standard_normal(h) * 0.2),
+        r.standard_normal((b, s, g, n)) * 0.3,
+        r.standard_normal((b, s, g, n)) * 0.3,
+        r.standard_normal((b, h, n, p)) if with_h0 else None,
+    ]
+    return [None if a is None else torch.as_tensor(a, dtype=torch.float32,
+                                                   device=device)
+            for a in arrays]
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
+    (1, 1, 1, 4, 4, 1, False), (2, 100, 3, 8, 16, 25, True),
+    (1, 320, 2, 64, 128, 64, False), (4, 1024, 24, 64, 128, 256, True),
+])
+def test_ssd_scan_kernel_equals_plain(cuda_device, no_tf32, b, s, h, p, n,
+                                      chunk, with_h0):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(20, b, s, h, p, n, with_h0=with_h0)
+    before = ssd_scan_cuda.launches
+    y, h_last = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 1
+    y_want, h_want = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.testing.assert_close(y, y_want, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(h_last, h_want, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def test_ssd_scan_kernel_reads_strided_inputs(cuda_device, no_tf32):
+    """x, B and C as the model hands them over in fp32: views into one
+    (B, S, d_in + 2N) activation."""
+    b, s, h, p, n = 2, 130, 4, 16, 32
+    r = np.random.default_rng(21)
+    xbc = torch.as_tensor(r.standard_normal((b, s, h * p + 2 * n)),
+                          dtype=torch.float32, device=cuda_device)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    Bm = xbc[..., h * p:h * p + n].reshape(b, s, 1, n) * 0.3
+    Cm = xbc[..., h * p + n:].reshape(b, s, 1, n)
+    dt = torch.rand((b, s, h), device=cuda_device)
+    A = -torch.rand((h,), device=cuda_device)
+    y, h_last = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=10)
+    y_c, h_c = ssd_scan_cuda(x.contiguous(), dt, A, Bm.contiguous(),
+                             Cm.contiguous(), chunk=10)
+    assert torch.equal(y, y_c) and torch.equal(h_last, h_c)
+    y_want, _ = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=10)
+    torch.testing.assert_close(y, y_want, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def test_ssd_chunked_on_the_card(cuda_device, no_tf32):
+    from repro_torch.models.ssm import ssd_chunked
+
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(22, 2, 1000, 3, 64, 128,
+                                       with_h0=True)
+    y, h_last = ssd_chunked(x, dt, A, Bm, Cm, 256, h0=h0)
+    y_want, h_want = ssd_chunked(x, dt, A, Bm, Cm, 256, h0=h0,
+                                 backend="torch")
+    torch.testing.assert_close(y, y_want, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(h_last, h_want, atol=SSD_ATOL, rtol=SSD_RTOL)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(23, 1, 32, 4, 8, 16, g=2)
+    with pytest.raises(NotImplementedError, match="G=2"):
+        ssd_chunked(x, dt, A, Bm, Cm, 16)
+
+
+def test_mamba2_prefill_launches_k5_once_per_layer(cuda_device, no_tf32):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import make_request
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(smoke_config("mamba2-130m"), dtype="float32")
+    params, prompts = make_request(cfg, 2, 40, seed=0)
+    cache = api.init_cache(cfg, 2, 48)
+    ssd_scan_cuda.launches = 0
+    logits, cache = api.prefill(params, {"tokens": prompts}, cfg, cache)
+    assert ssd_scan_cuda.launches == cfg.num_layers
+    want, _ = api.prefill(params, {"tokens": prompts}, cfg,
+                          api.init_cache(cfg, 2, 48), backend="torch")
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    ssd_scan_cuda.launches = 0
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    api.decode_step(params, nxt, cfg, cache)
+    assert ssd_scan_cuda.launches == 0
