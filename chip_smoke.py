@@ -7,11 +7,15 @@ Phases, each ended by ``torch.cuda.synchronize()``; any failure exits
 non-zero before the result line is printed:
 
   build   compile the CUDA kernels (src/repro_torch/kernels/csrc) with nvcc,
-          one nvcc per source, all started together
+          one nvcc per source, all started together; each one's seconds
   k1      the WF-TiS kernel against its plain torch version (torch.equal):
           a 16-frame 480x640 clip at 32 bins (the paper's geometry), four
           1080x1920 frames at 64 bins, ragged shapes, a float frame and a
-          non-zero carry_in
+          non-zero carry_in; K1_SHAPES, the shapes the paths launch it at
+          (the clip, one frame, a 48-row dirty run with its carry, a
+          273x3840x128 band with its carry) and 1080p, with their strips
+          and CTAs; and strips of one frame's R rows at heights R - 1, R,
+          R + 1 and 1
   k2      the query-fused kernel against the plain H's rows, and the early
           cut (bands_computed < bands_total)
   k3      the delta_apply kernel against its plain version (torch.equal) at
@@ -20,11 +24,12 @@ non-zero before the result line is printed:
   k4      the CW-TiS kernels (hscan, then vscan) against the plain cw_tis
           and against K1 (torch.equal): the clip, 4x1080x1920x64, K1's
           ragged shapes, a float frame and a non-zero carry_in
-  k5      the SSD scan kernel against its plain version (TF32 off) at the
-          Mamba2-130M prefill's shape, B=4, S=1024, H=24, P=64, N=128,
-          chunk 256: y and h_last with h0 = 0 and with a random h0, and
-          ssd_chunked on a ragged S=1000; max abs and rel errors against
-          K5_ATOL / K5_RTOL
+  k5      the SSD scan kernel (3xTF32 tensor cores) against its plain
+          version (TF32 off) at the Mamba2-130M prefill's shape, B=4,
+          S=1024, H=24, P=64, N=128, chunk 256: y and h_last with h0 = 0
+          and with a random h0, and ssd_chunked on a ragged S=1000; max
+          abs and rel errors against K5_ATOL / K5_RTOL; K5's operation
+          bound at the 3xTF32 rate beside the fp32 one
   main    HistogramEngine(num_bins=32).run on the clip: a request that
           plans "fused" and one that plans "dense"; answers held against
           backend="torch" on the same card and against a direct count
@@ -58,7 +63,10 @@ non-zero before the result line is printed:
           again where serve hands the prefilled cache to decode_loop, so
           prefill and decode are two paths of the kernels line
   timing  each kernel's median time (CUDA events) beside its bound, K1
-          also on one frame of the clip and at 1080p; then host-clock
+          also at K1_SHAPES with its launches per run; K1 at each shape
+          and K5 profiled (torch.profiler: CUDA launches and device time
+          a call); K1 in one strip against strips at K1_SWEEP_HEIGHTS,
+          where launch_shape's strip threshold comes from; then host-clock
           request times (median of 5): incremental vs full recompute per
           video frame, the banded request, and the dense request with
           method="cw_tis" vs "wf_tis" (the paper's Fig. 7/8 pair); a
@@ -88,13 +96,17 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor-core) peak.
+# H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor-core) peak, and
+# the dense TF32 tensor-core peak over 3: K5 computes each needed product
+# as three TF32 products (3xTF32).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32X3_OPS_PER_S = 495e12 / 3
 MAP_RTOL, MAP_ATOL = 1e-6, 1e-7
-# K5 against its plain version, both fp32 on the card (TF32 off): the sums
-# run in another order and the kernel walks 64-step chunks where the plain
-# loop takes 256; |got - want| <= K5_ATOL + K5_RTOL * |want| elementwise.
+# K5 against its plain version (TF32 off): the kernel's 3xTF32 products
+# keep about fp32 accuracy, the sums run in another order, and the kernel
+# takes 64-step chunks where the plain loop takes 256;
+# |got - want| <= K5_ATOL + K5_RTOL * |want| elementwise.
 K5_ATOL, K5_RTOL = 1e-4, 1e-4
 # Mamba2-130M prefill logits (last position).  The fp32 model with K5
 # against the fp32 model with the plain scan: the scan's rounding only.
@@ -114,6 +126,24 @@ LM_SCAN16 = 0.15
 LM_PREC16 = 0.18
 # The lm phase's request (the issue's serving geometry).
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "mamba2-130m", 4, 1024, 32, 0
+# K1's shapes, (n, h, w, bins, with a carry), and the paths whose launches
+# each one counts: the dense clip; one frame (the first video frame and
+# the 50% fallback); a video frame's 48-row dirty run with its carry; one
+# band of the 4K frame with its carry; and 1080p, on no path of this run.
+K1_SHAPES = {
+    "clip": ((16, 480, 640, 32, False), ("dense",)),
+    "frame": ((1, 480, 640, 32, False), ("video_first", "video_fallback")),
+    "dirty run": ((1, 48, 640, 32, True), ("video", "video_bottom")),
+    "band": ((1, 273, 3840, 128, True), ("bands", "bands_rows", "spilled")),
+    "1080p": ((4, 1080, 1920, 64, False), ()),
+}
+# Heights of a 640-column run at 32 bins with a carry, timed in one strip
+# and in strips: the video's dirty runs, up to the 50% fallback, and a
+# whole frame.
+K1_SWEEP_HEIGHTS = (48, 64, 80, 96, 112, 128, 160, 192, 240, 480)
+# K5 at the Mamba2-130M prefill: batch, steps, heads, P, N, and the chunk
+# of the plain loop.
+K5_SHAPE = (4, 1024, 24, 64, 128, 256)
 
 
 class SmokeFailure(RuntimeError):
@@ -231,6 +261,86 @@ def profile_requests(torch, requests, n: int = 10) -> str:
             f"time a request (ms, profiled): {ops}")
 
 
+def k1_inputs(torch, dev, n, h, w, bins, with_carry, seed=11):
+    """Seeded (n, h, w) int32 bin ids and, ``with_carry``, an (n, bins, w)
+    fp32 carry of integer counts (None without)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = torch.as_tensor(rng.integers(0, bins, (n, h, w)),
+                          dtype=torch.int32, device=dev)
+    carry = (torch.as_tensor(rng.integers(0, 5000, (n, bins, w)),
+                             dtype=torch.float32, device=dev)
+             if with_carry else None)
+    return ids, carry
+
+
+def k1_bytes(ids, bins, carry) -> int:
+    """Bytes K1's function moves: the ids and the carry read once, H
+    written once (a pre-pass's second read of the ids is the kernel's
+    cost, not the function's)."""
+    return 4 * ids.numel() * (bins + 1) + (
+        4 * carry.numel() if carry is not None else 0)
+
+
+def ssd_inputs(torch, dev, seed, s=K5_SHAPE[1]):
+    """K5's inputs at K5_SHAPE with ``s`` steps, in the ranges the model
+    hands the scan: x, softplus step sizes dt, A = -exp(small), B and C
+    of the conv + silu's scale, and a random h0."""
+    import numpy as np
+
+    sb, _, sh, sp, sn, _ = K5_SHAPE
+    r = np.random.default_rng(seed)
+    arrays = (r.standard_normal((sb, s, sh, sp)),
+              np.log1p(np.exp(r.standard_normal((sb, s, sh)))),
+              -np.exp(r.standard_normal(sh) * 0.2),
+              r.standard_normal((sb, s, 1, sn)) * 0.3,
+              r.standard_normal((sb, s, 1, sn)) * 0.3,
+              r.standard_normal((sb, sh, sn, sp)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in arrays]
+
+
+def device_kernels(torch, fn, calls: int = 10):
+    """What one call of ``fn`` runs on the device, from a torch.profiler
+    trace: its device events (kernels, copies, sets) a call, and their
+    device µs a call by name, over ``calls`` warm calls inside one
+    ``record_function`` range.  The range's mark on the device's timeline
+    spans the device work of its calls, on the kernels' own clock, and is
+    the window (the range on the host's clock where the trace has no such
+    mark).  Left out of the count: the trace's first call (a trace can
+    miss the launches just after it starts), every event outside the
+    window, and the mark itself.  None and {} when the window holds no
+    device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = "chip_smoke.device_kernels"
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function(mark):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    marks = sorted((e for e in events if e.name == mark),
+                   key=lambda e: e.device_type == DeviceType.CPU)
+    window = marks[0].time_range                # the device's mark first
+    inside = [e for e in events         # 1 µs for the clocks' rounding
+              if e.device_type != DeviceType.CPU and e.name != mark
+              and window.start - 1 <= e.time_range.start <= window.end + 1]
+    if not inside:
+        return None, {}
+    us: dict[str, float] = {}
+    for e in inside:
+        us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
+    return len(inside) / calls, us
+
+
 def phase(name: str):
     import torch
 
@@ -303,7 +413,11 @@ def run(torch) -> list[dict]:
     from repro_torch.kernels.ssd_scan import (
         KERNEL_CHUNK, ssd_scan_cuda, ssd_scan_plain,
     )
-    from repro_torch.kernels.wf_tis import wf_tis_cuda, wf_tis_plain
+    from repro_torch.kernels import wf_tis as wf_tis_mod
+    from repro_torch.kernels.wf_tis import (
+        launch as wf_tis_launch, launch_shape, strip_rows_for, wf_tis_cuda,
+        wf_tis_plain,
+    )
 
     dev = torch.device("cuda")
     wrappers = {"wf_tis": wf_tis_cuda, "fused_rows": fused_rows_cuda,
@@ -349,7 +463,11 @@ def run(torch) -> list[dict]:
     with phase("build"):
         t0 = time.perf_counter()
         libs = _build.build_all()
-        log(f"   built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+        log(f"   built {sorted(libs)} in {time.perf_counter() - t0:.1f} s; "
+            "nvcc seconds by source: " + (", ".join(
+                f"{src} {sec:.1f}" for src, sec in sorted(
+                    _build.build_seconds.items(), key=lambda kv: -kv[1]))
+                or "none (all built before)"))
 
     n, h, w, nb = 16, 480, 640, 32
     clip_np = video_frames(h, w, n, seed=0)
@@ -394,6 +512,37 @@ def run(torch) -> list[dict]:
                           ops.integral_histogram(xf, 16, backend="torch")),
               "K1 != plain on a float frame")
         log(f"   ragged {[c[0] for c in cases]}, carry_in, float frame: equal")
+
+        # The shapes the paths launch K1 at, each as the wrapper cuts it.
+        k1_in = {}
+        for label, ((kn, kh, kw, bins, with_carry), _) in K1_SHAPES.items():
+            ids, cin = k1_inputs(torch, dev, kn, kh, kw, bins, with_carry)
+            k1_in[label] = (ids, bins, cin)
+            shp = launch_shape(kw, bins, kn, h=kh)
+            check(torch.equal(wf_tis_cuda(ids, bins, carry=cin),
+                              wf_tis_plain(ids, bins, cin)),
+                  f"K1 != plain at the {label} shape {tuple(ids.shape)}")
+            log(f"   {label} {kn}x{kh}x{kw}x{bins}"
+                f"{' + carry' if cin is not None else ''}: equal; "
+                f"{shp.strips(kh)} strip(s) of {shp.strip_rows} rows, "
+                f"bin block {shp.bin_block}, {shp.ctas(kn, bins, kh)} CTAs")
+            torch.cuda.empty_cache()
+        # Strip boundaries: one frame's strip height R, at heights R - 1,
+        # R, R + 1 and 1, with and without a carry.
+        R = launch_shape(w, nb, 1, h=h).strip_rows
+        for kh in (R - 1, R, R + 1, 1):
+            for with_carry in (False, True):
+                bins = nb
+                ids, cin = k1_inputs(torch, dev, 1, kh, w, bins, with_carry,
+                                     seed=kh)
+                shp = launch_shape(w, bins, 1, h=kh, strip_rows=R)
+                check(torch.equal(wf_tis_launch(ids, bins, shp, cin),
+                                  wf_tis_plain(ids, bins, cin)),
+                      f"K1 != plain at height {kh} in strips of {R} rows "
+                      f"(carry {with_carry})")
+            log(f"   1x{kh}x{w}x{nb} in strips of {R} rows: "
+                f"{shp.strips(kh)} strip(s), {shp.ctas(1, nb, kh)} CTAs; "
+                "equal with and without a carry")
 
     # The main path's fused request (built once, used by k2/main/timing).
     rects = np.array([[100, 120, 219, 279], [0, 0, 479, 639]])
@@ -515,20 +664,7 @@ def run(torch) -> list[dict]:
     with phase("k5: ssd_scan kernel vs its plain version"):
         from repro_torch.models.ssm import ssd_chunked
 
-        sb, ss, sh, sp, sn, sq = 4, 1024, 24, 64, 128, 256
-
-        def ssd_inputs(seed, s):
-            # The ranges the model hands the scan: softplus step sizes,
-            # A = -exp(small), B and C of the conv + silu's scale.
-            r = np.random.default_rng(seed)
-            arrays = (r.standard_normal((sb, s, sh, sp)),
-                      np.log1p(np.exp(r.standard_normal((sb, s, sh)))),
-                      -np.exp(r.standard_normal(sh) * 0.2),
-                      r.standard_normal((sb, s, 1, sn)) * 0.3,
-                      r.standard_normal((sb, s, 1, sn)) * 0.3,
-                      r.standard_normal((sb, sh, sn, sp)))
-            return [torch.as_tensor(a, dtype=torch.float32, device=dev)
-                    for a in arrays]
+        sb, ss, sh, sp, sn, sq = K5_SHAPE
 
         def scan_errors(label, got, want):
             errs = []
@@ -544,7 +680,7 @@ def run(torch) -> list[dict]:
                 errs.append(abs_err)
             return max(errs)
 
-        k5_in = ssd_inputs(9, ss)
+        k5_in = ssd_inputs(torch, dev, 9)
         sx, sdt, sA, sB, sC, sh0 = k5_in
         k5_err = 0.0
         for label, h0 in (("h0 = 0", None),
@@ -558,7 +694,7 @@ def run(torch) -> list[dict]:
                           ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq,
                                         h0=torch.zeros_like(sh0))[0]),
               "K5 with h0=None != K5 with h0=zeros")
-        rx, rdt, rA, rB, rC, rh0 = ssd_inputs(10, 1000)
+        rx, rdt, rA, rB, rC, rh0 = ssd_inputs(torch, dev, 10, 1000)
         before = ssd_scan_cuda.launches
         got = ssd_chunked(rx, rdt, rA, rB, rC, sq, h0=rh0)
         check(ssd_scan_cuda.launches == before + 1,
@@ -568,6 +704,16 @@ def run(torch) -> list[dict]:
             "ssd_chunked, ragged S=1000 (padded to 1024), random h0", got,
             want))
         del got, want, rx, rdt, rB, rC, rh0
+        # The operations the function needs, 4 N P flops a step, over the
+        # rate of the unit K5 computes them on, and over fp32's.
+        k5_flops = 4 * sb * sh * ss * sn * sp
+        k5_bounds = {"3xTF32": k5_flops / TF32X3_OPS_PER_S * 1e3,
+                     "fp32": k5_flops / FP32_OPS_PER_S * 1e3}
+        log(f"   K5 operation bound: {k5_flops / 1e9:.2f} GFLOP at "
+            f"{TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s (3xTF32 on the tensor "
+            f"cores) = {k5_bounds['3xTF32']:.4f} ms; at "
+            f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s fp32 = "
+            f"{k5_bounds['fp32']:.4f} ms")
 
     with phase("main: HistogramEngine.run on the GPU"):
         dense_queries = [eng_mod.SlidingWindowQuery((24, 24), stride=1)]
@@ -945,7 +1091,10 @@ def run(torch) -> list[dict]:
             f"batch {LM_BATCH}, warm, host clock, median of 3 | card "
             f"{card_line()}")
         log(f"   prefill {LM_BATCH}x{LM_PROMPT}: {lm_prefill_ms:.3f} ms "
-            f"({LM_BATCH * LM_PROMPT / lm_prefill_ms * 1e3:.0f} tokens/s)")
+            f"({LM_BATCH * LM_PROMPT / lm_prefill_ms * 1e3:.0f} tokens/s); "
+            f"its {cfg.num_layers} K5 calls are bound by "
+            f"{cfg.num_layers * k5_bounds['3xTF32']:.3f} ms at the 3xTF32 "
+            f"rate ({cfg.num_layers * k5_bounds['fp32']:.3f} ms at fp32's)")
         log(f"   decode: {lm_decode_ms:.3f} ms per step of {LM_BATCH} tokens "
             f"({LM_BATCH / lm_decode_ms * 1e3:.0f} tokens/s, {LM_GEN} steps)")
         log("   prefill, torch.profiler over 3: " + profile_requests(
@@ -988,14 +1137,62 @@ def run(torch) -> list[dict]:
             f"{lm_prefill_ms:.3f} ms)")
         log(f"   cw_tis (hscan + vscan) at the clip: {k4_ms:.4f} ms, "
             f"{k4_ms / k1_ms:.2f}x wf_tis's {k1_ms:.4f} ms")
-        for label, ids, bins in (("4x1080x1920x64", big, 64),
-                                 (f"1x{h}x{w}x{nb}", idx[:1].contiguous(),
-                                  nb)):
-            ms = time_ms(lambda: wf_tis_cuda(ids, bins))
-            bound = 4 * ids.numel() * (bins + 1) / HBM_BYTES_PER_S * 1e3
-            log(f"   wf_tis at {label}: {ms:.4f} ms "
-                f"({ids.shape[0] / ms * 1e3:.0f} frames/s) | bound "
-                f"{bound:.4f} ms, {bound / ms:.1%} of it")
+        # K1 at the shapes the paths launch it at, and at 1080p: bound by
+        # bytes (k1_bytes), with the launches of this run's paths at that
+        # shape and, from a profiler trace, the CUDA launches and device
+        # time of one call.
+        k1_by_shape, k1_calls = [], {}
+        for label, (ids, bins, cin) in k1_in.items():
+            kn, kh, kw = ids.shape
+            shp = launch_shape(kw, bins, kn, h=kh)
+            ms = time_ms(lambda: wf_tis_cuda(ids, bins, carry=cin))
+            per_call, kernel_us = device_kernels(
+                torch, lambda: wf_tis_cuda(ids, bins, carry=cin))
+            k1_calls[label] = per_call
+            bound = k1_bytes(ids, bins, cin) / HBM_BYTES_PER_S * 1e3
+            runs = sum(paths.get(pth, {}).get("wf_tis", 0)
+                       for pth in K1_SHAPES[label][1])
+            k1_by_shape.append({
+                "shape": f"{kn}x{kh}x{kw}x{bins}"
+                         + (" + carry" if cin is not None else ""),
+                "path": label, "ms": ms, "bound_ms": bound,
+                "launches_per_run": runs,
+                "device_us": sum(kernel_us.values()) if kernel_us else None})
+            log(f"   wf_tis at the {label} shape {k1_by_shape[-1]['shape']}: "
+                f"{ms:.4f} ms ({kn / ms * 1e3:.0f} frames/s) | bound "
+                f"{bound:.4f} ms by bytes, {bound / ms:.1%} of it | "
+                f"{shp.strips(kh)} strip(s), {shp.ctas(kn, bins, kh)} CTAs | "
+                f"{runs} launches in this run's paths | profiled: "
+                + (f"{per_call:g} CUDA launch(es) a call, device µs a call "
+                   + ", ".join(f"{k[:48]} {v:.2f}"
+                               for k, v in kernel_us.items())
+                   if per_call is not None else "not measured"))
+        # Where strips start to pay: one strip against the strip cut at
+        # heights of a 640-column run at 32 bins with a carry (bins 0..31
+        # a frame, one CTA a bin without strips).
+        sweep = []
+        for kh in K1_SWEEP_HEIGHTS:
+            ids, cin = k1_inputs(torch, dev, 1, kh, w, nb, True, seed=kh)
+            one = launch_shape(w, nb, 1, h=kh, strip_rows=kh)
+            cut = launch_shape(w, nb, 1, h=kh,
+                               strip_rows=strip_rows_for(kh, nb))
+            pair = [time_ms(lambda: wf_tis_launch(ids, nb, one, cin)),
+                    time_ms(lambda: wf_tis_launch(ids, nb, cut, cin))]
+            pair += [time_ms(lambda: wf_tis_launch(ids, nb, one, cin)),
+                     time_ms(lambda: wf_tis_launch(ids, nb, cut, cin))]
+            sweep.append(f"{kh}: {min(pair[0], pair[2]):.4f} vs "
+                         f"{min(pair[1], pair[3]):.4f} "
+                         f"({cut.strips(kh)} strips)")
+        log(f"   wf_tis strip sweep, 1xHx{w}x{nb} + carry, ms a call (best "
+            f"of two medians), H: one strip vs strips: " + "; ".join(sweep)
+            + f" | launch_shape cuts from {wf_tis_mod._STRIP_MIN_HEIGHT} rows")
+        k5_calls, k5_kernel_us = device_kernels(
+            torch, lambda: ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq))
+        log(f"   ssd_scan profiled: "
+            + (f"{k5_calls:g} CUDA launch(es) a call, device µs a call "
+               + ", ".join(f"{k[:48]} {v:.2f}"
+                           for k, v in k5_kernel_us.items())
+               if k5_calls is not None else "not measured"))
         px = n * h * w
         h_run = int(fused_rows[-1]) + 1
         # Each input read once, each output written once.  Operations: one
@@ -1045,11 +1242,15 @@ def run(torch) -> list[dict]:
         }
         library_call = {"delta_apply": "H + delta[..., None, :]",
                         "cw_tis_vscan": "torch.cumsum(hh, dim=-2)"}
+        # The rate of the unit each kernel computes on: K5's products are
+        # 3xTF32 on the tensor cores, the others fp32 adds.
+        op_rate = {"ssd_scan": (TF32X3_OPS_PER_S, "3xTF32")}
         records = []
         for name, (site, src, ms, plain_ms, lib_ms, err) in timed.items():
             nbytes, nops = work[name]
+            rate, unit = op_rate.get(name, (FP32_OPS_PER_S, "fp32"))
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = nops / FP32_OPS_PER_S * 1e3
+            t_ops = nops / rate * 1e3
             bound = max(t_bytes, t_ops)
             by_path = {path: counts[name] for path, counts in paths.items()}
             by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1062,17 +1263,27 @@ def run(torch) -> list[dict]:
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             })
             if name == "ssd_scan":
-                records[-1]["launches_per_request"] = lm_launches
+                records[-1].update(launches_per_request=lm_launches,
+                                   cuda_launches_per_call=k5_calls)
+            if name == "wf_tis":
+                records[-1].update(cuda_launches_per_call=k1_calls,
+                                   shapes=k1_by_shape)
             lib = (f"library_ms {lib_ms:.4f} ({library_call[name]})"
                    if lib_ms is not None else "library_ms: none, no single "
                    "PyTorch call computes the same function")
-            rate = (f"{nops / ms / 1e9:.2f} TFLOP/s fp32" if by == "operations"
-                    else f"{n / ms * 1e3:.0f} frames/s")
-            log(f"   {name}: {ms:.4f} ms ({rate}) | bound {bound:.4f} ms by "
-                f"{by} ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
-                f"{nops / 1e9:.3f} GFLOP at 67 TFLOP/s), {bound / ms:.1%} "
-                f"of it | plain torch version {plain_ms:.4f} ms (no "
-                f"yardstick) | {lib}")
+            achieved = (f"{nops / ms / 1e9:.2f} TFLOP/s of needed work"
+                        if by == "operations"
+                        else f"{n / ms * 1e3:.0f} frames/s")
+            extra = ""
+            if name == "ssd_scan":
+                fp32_bound = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
+                extra = (f"; at fp32's 67 TFLOP/s the bound would be "
+                         f"{fp32_bound:.4f} ms, {fp32_bound / ms:.1%} of it")
+            log(f"   {name}: {ms:.4f} ms ({achieved}) | bound {bound:.4f} ms "
+                f"by {by} ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+                f"{nops / 1e9:.3f} GFLOP at {rate / 1e12:.0f} TFLOP/s "
+                f"{unit}), {bound / ms:.1%} of it{extra} | plain torch "
+                f"version {plain_ms:.4f} ms (no yardstick) | {lib}")
 
         # End to end: requests from host uint8 frames to answers on the
         # card, warm, host clock around work that ends in a synchronize.

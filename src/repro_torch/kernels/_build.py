@@ -6,7 +6,8 @@ together.  The libraries go to ``kernels/build/`` (ignored by git) under a
 name that carries a hash of every source and flag, so a fresh checkout
 builds them on its first kernel call and an edited source never loads a
 stale library.  ``ptxas -v`` (registers, shared memory, spills) is kept
-beside each library as ``<name>.log``.
+beside each library as ``<name>.log``, and each compiler's wall seconds
+in ``build_seconds``.
 
 There is no fallback: without ``nvcc``, or when a build fails, this raises.
 """
@@ -19,6 +20,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -30,6 +33,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}    # source -> wall seconds of its nvcc
 
 
 def _nvcc() -> str:
@@ -76,23 +80,31 @@ def build_all() -> dict[str, Path]:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
-    for src, out in missing.items():
+
+    def compile_one(src: str, out: Path):
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        procs[src] = (tmp, subprocess.Popen(
+        t0 = time.perf_counter()
+        proc = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ))
-    failed = []
-    for src, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        out = missing[src]
-        out.with_suffix(".log").write_text(log)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        seconds = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(
+            f"{proc.stdout}nvcc took {seconds:.1f} s\n")
         if proc.returncode != 0:
-            failed.append(f"--- {src} (exit {proc.returncode}) ---\n{log}")
             tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)      # atomic: a reader never sees half a file
+            return seconds, f"--- {src} (exit {proc.returncode}) ---\n" \
+                f"{proc.stdout}"
+        os.replace(tmp, out)          # atomic: a reader never sees half a file
+        return seconds, None
+
+    with ThreadPoolExecutor(len(missing)) as pool:   # all compilers at once
+        done = {src: pool.submit(compile_one, src, out)
+                for src, out in missing.items()}
+    failed = []
+    for src, job in done.items():
+        build_seconds[src], error = job.result()
+        if error:
+            failed.append(error)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return targets

@@ -9,7 +9,8 @@ extern "C" int fused_rows_launch(const int* idx, const float* carry,
                                  int h_run, int w, int num_bins, int num_rows,
                                  int bin_block, int threads, int q,
                                  void* stream) {
+  // One strip: the whole walk down to row h_run - 1, no pre-pass.
   return (int)wf_tis_scan::launch<true>(
-      idx, carry, row_slot, out, n, h, h_run, w, num_bins, num_rows,
-      bin_block, threads, q, (cudaStream_t)stream);
+      idx, carry, row_slot, nullptr, out, n, h, h_run, w, num_bins, num_rows,
+      bin_block, threads, q, h_run, (cudaStream_t)stream);
 }

@@ -14,9 +14,10 @@
 // write is 32x the read and the arithmetic is a few adds per float.  The
 // design keeps everything but that write on chip:
 //
-//   * One CTA per (frame, block of BB bins) walks the frame top to bottom.
-//     Carries move along that loop, never between CTAs: no grid order, no
-//     atomics (the TPU kernel's VMEM carries rely on a sequential grid).
+//   * One CTA per (frame, block of BB bins, strip of rows) walks its strip
+//     top to bottom.  Carries move along that loop, never between CTAs: no
+//     grid order, no atomics (the TPU kernel's VMEM carries rely on a
+//     sequential grid).
 //   * Thread t owns 4*Q contiguous columns.  For each of its columns and
 //     bins it keeps the running column count V (the vertical prefix) in
 //     shared memory; the one-hot is formed from the bin id in registers and
@@ -27,13 +28,25 @@
 //     __syncthreads per emitted row (double-buffered warp totals).
 //   * The band carry-in enters as the column differences of the carry row,
 //     seeded into V, so the same prefix reproduces carry[c] + local H.
-//   * FUSED: only rows with row_slot[r] >= 0 are scanned across columns and
-//     written, to output row row_slot[r]; other rows only update V.  The
-//     caller stops the walk after the last requested row.
+//   * Strips (K1 only).  A walk costs about half a microsecond a row, so a
+//     frame walked by one CTA per (frame, bin block) leaves most SMs idle
+//     when there are few frames (one 480x640 frame at 32 bins: 32 CTAs of
+//     480 rows).  Cut into strips of R rows, each CTA walks R rows; a
+//     pre-pass (wf_tis.cu's count_kernel, a launch of its own) first
+//     counts each column's hits of each bin in every strip but the last,
+//     and strip s seeds V with the counts of strips 0..s-1 on top of the
+//     carry's differences.  One strip is the whole walk, which
+//     kernels/wf_tis.py::launch_shape keeps for shapes that already fill
+//     the card (the clip, 1080p, a 4K band) and for runs too low for
+//     strips to pay (a video dirty run); it needs no pre-pass.
+//   * FUSED (K2): one strip; only rows with row_slot[r] >= 0 are scanned
+//     across columns and written, to output row row_slot[r]; other rows
+//     only update V.  The caller stops the walk after the last requested
+//     row.
 //
 // Every value is an integer below 2^24, so fp32 adds are exact in any
 // order and the result equals the plain one-hot + cumsum version bit for
-// bit.  No tensor cores are used.
+// bit, however the rows are cut into strips.  No tensor cores are used.
 
 #pragma once
 
@@ -101,13 +114,47 @@ __device__ __forceinline__ void cta_exclusive_scan(const float (&tot)[BB],
   }
 }
 
+// The column counts of strips [0, strips) at 4 columns from c: a float4
+// per strip, four loads in flight (counts rows are w floats apart).
+__device__ __forceinline__ float4 sum_strips(const float* __restrict__ cnt,
+                                             int strips, int c, int w,
+                                             bool vec) {
+  auto ld = [&](int s) {
+    const float* p = cnt + (size_t)s * w + c;
+    if (vec) return *reinterpret_cast<const float4*>(p);
+    return make_float4(p[0], c + 1 < w ? p[1] : 0.f, c + 2 < w ? p[2] : 0.f,
+                       c + 3 < w ? p[3] : 0.f);
+  };
+  float4 a[4] = {};
+  int s = 0;
+  for (; s + 4 <= strips; s += 4)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 v = ld(s + k);
+      a[k].x += v.x, a[k].y += v.y, a[k].z += v.z, a[k].w += v.w;
+    }
+  for (; s < strips; ++s) {
+    const float4 v = ld(s);
+    a[0].x += v.x, a[0].y += v.y, a[0].z += v.z, a[0].w += v.w;
+  }
+  return make_float4((a[0].x + a[1].x) + (a[2].x + a[3].x),
+                     (a[0].y + a[1].y) + (a[2].y + a[3].y),
+                     (a[0].z + a[1].z) + (a[2].z + a[3].z),
+                     (a[0].w + a[1].w) + (a[2].w + a[3].w));
+}
+
+// The CTA walks strip blockIdx.z of strip_rows rows, seeded from counts
+// (strip 0 from the carry alone); with one strip (gridDim.z == 1 and
+// strip_rows >= h_run, as K2 and a K1 shape that keeps one strip) that is
+// the whole walk [0, h_run).
 template <int BB, int Q, bool FUSED>
 __global__ void __launch_bounds__(1024)
 scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
             const float* __restrict__ carry,   // (n, nb, w) or nullptr
             const int* __restrict__ row_slot,  // (h_run,) FUSED only
+            const float* __restrict__ counts,  // (n, nb, strips - 1, w)
             float* __restrict__ out,           // (n, nb, h_out, w)
-            int h, int h_run, int w, int nb, int h_out) {
+            int h, int h_run, int w, int nb, int h_out, int strip_rows) {
   extern __shared__ float4 smem4[];
   const int threads = blockDim.x;
   const int tid = threadIdx.x;
@@ -115,12 +162,15 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
   const int warp = tid >> 5;
   const int f = blockIdx.x;                  // frames on x: no 65535 cap
   const int b0 = blockIdx.y * BB;
+  const int strip = blockIdx.z;
+  const int r_begin = strip * strip_rows;
+  const int r_end = min(h_run, r_begin + strip_rows);
   const int c_first = tid * 4 * Q;           // first column of this thread
 
   // V[j][q] for this thread lives at smem4[(j * Q + q) * threads + tid]:
   // only the owner touches it, and neighbouring threads hit neighbouring
   // 16-byte words, so the accesses are free of bank conflicts.
-  float4* counts = smem4;
+  float4* V = smem4;
   float* warp_tot = reinterpret_cast<float*>(smem4 + (size_t)BB * Q * threads);
 
   // 16-byte row accesses when every row starts on a 16-byte boundary.
@@ -129,24 +179,36 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
   const bool vec_out =
       (w & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 
-  // Seed V with the column differences of the carry row.
-#pragma unroll
-  for (int j = 0; j < BB; ++j) {
-    const int b = b0 + j;
-    const float* crow =
-        (carry != nullptr && b < nb) ? carry + ((size_t)f * nb + b) * w : nullptr;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c_first + 4 * q + e;
-        float d = 0.f;
-        if (crow != nullptr && c < w) d = crow[c] - (c > 0 ? crow[c - 1] : 0.f);
-        v[e] = d;
+  // Seed V with the column differences of the carry row, plus the column
+  // counts of the strips above this one.  V lies in shared memory, so this
+  // loop over (bin, chunk) stays rolled: unrolled, it would inline the strip
+  // sums BB * Q times, and the largest kernels take seconds to compile.
+  const bool vec_cnt =
+      (w & 3) == 0 && (reinterpret_cast<uintptr_t>(counts) & 15) == 0;
+#pragma unroll 1
+  for (int jq = 0; jq < BB * Q; ++jq) {
+    const int b = b0 + jq / Q;
+    const int c0 = c_first + 4 * (jq % Q);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (b < nb && c0 < w) {
+      if (carry != nullptr) {
+        const float* crow = carry + ((size_t)f * nb + b) * w;
+        const float left = c0 > 0 ? crow[c0 - 1] : 0.f;
+        const float c1 = crow[c0];
+        const float c2 = c0 + 1 < w ? crow[c0 + 1] : 0.f;
+        const float c3 = c0 + 2 < w ? crow[c0 + 2] : 0.f;
+        const float c4 = c0 + 3 < w ? crow[c0 + 3] : 0.f;
+        v = make_float4(c1 - left, c0 + 1 < w ? c2 - c1 : 0.f,
+                        c0 + 2 < w ? c3 - c2 : 0.f, c0 + 3 < w ? c4 - c3 : 0.f);
       }
-      counts[(j * Q + q) * threads + tid] = make_float4(v[0], v[1], v[2], v[3]);
+      if (strip > 0) {
+        const float4 a = sum_strips(
+            counts + ((size_t)f * nb + b) * (gridDim.z - 1) * w, strip, c0, w,
+            vec_cnt);
+        v.x += a.x, v.y += a.y, v.z += a.z, v.w += a.w;
+      }
     }
+    V[jq * threads + tid] = v;
   }
 
   const int* frame = idx + (size_t)f * h * w;
@@ -162,14 +224,14 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
   int4 nxt[Q];
   int slot_cur = 0;
   int slot_nxt = 0;
-  if (h_run > 0) {
-    load_row(0, cur);
-    if (FUSED) slot_cur = __ldg(row_slot);
+  if (r_begin < r_end) {
+    load_row(r_begin, cur);
+    if (FUSED) slot_cur = __ldg(row_slot + r_begin);
   }
   int emitted = 0;
 
-  for (int r = 0; r < h_run; ++r) {
-    if (r + 1 < h_run) {
+  for (int r = r_begin; r < r_end; ++r) {
+    if (r + 1 < r_end) {
       load_row(r + 1, nxt);
       if (FUSED) slot_nxt = __ldg(row_slot + r + 1);
     }
@@ -184,12 +246,12 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
       float t = 0.f;
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
-        float4 v = counts[(j * Q + q) * threads + tid];
+        float4 v = V[(j * Q + q) * threads + tid];
         v.x += cur[q].x == b ? 1.f : 0.f;
         v.y += cur[q].y == b ? 1.f : 0.f;
         v.z += cur[q].z == b ? 1.f : 0.f;
         v.w += cur[q].w == b ? 1.f : 0.f;
-        counts[(j * Q + q) * threads + tid] = v;
+        V[(j * Q + q) * threads + tid] = v;
         t += (v.x + v.y) + (v.z + v.w);
       }
       tot[j] = t;
@@ -211,7 +273,7 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
 #pragma unroll
         for (int q = 0; q < Q; ++q) {
           const int c = c_first + 4 * q;
-          const float4 v = counts[(j * Q + q) * threads + tid];
+          const float4 v = V[(j * Q + q) * threads + tid];
           float4 o;
           o.x = run + v.x;
           o.y = o.x + v.y;
@@ -237,48 +299,58 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
   }
 }
 
-// Launch one instantiation: threads is a multiple of 32, at most 1024.
+// Launch one instantiation: threads is a multiple of 32, at most 1024; a
+// CTA per (frame, bin block, strip of strip_rows rows).
 template <int BB, int Q, bool FUSED>
 cudaError_t launch_bbq(const int* idx, const float* carry, const int* row_slot,
-                       float* out, int n, int h, int h_run, int w, int nb,
-                       int h_out, int threads, cudaStream_t stream) {
+                       const float* counts, float* out, int n, int h,
+                       int h_run, int w, int nb, int h_out, int threads,
+                       int strip_rows, cudaStream_t stream) {
   const size_t smem = smem_bytes(BB, threads, Q);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<BB, Q, FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n, (nb + BB - 1) / BB);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scan_kernel<BB, Q, FUSED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(n, (nb + BB - 1) / BB,
+                  (h_run + strip_rows - 1) / strip_rows);
   scan_kernel<BB, Q, FUSED><<<grid, threads, smem, stream>>>(
-      idx, carry, row_slot, out, h, h_run, w, nb, h_out);
+      idx, carry, row_slot, counts, out, h, h_run, w, nb, h_out, strip_rows);
   return cudaGetLastError();
 }
 
 template <int BB, bool FUSED>
 cudaError_t launch_bb(const int* idx, const float* carry, const int* row_slot,
-                      float* out, int n, int h, int h_run, int w, int nb,
-                      int h_out, int threads, int q, cudaStream_t stream) {
+                      const float* counts, float* out, int n, int h,
+                      int h_run, int w, int nb, int h_out, int threads, int q,
+                      int strip_rows, cudaStream_t stream) {
   switch (q) {
-    case 1: return launch_bbq<BB, 1, FUSED>(idx, carry, row_slot, out, n, h, h_run, w, nb, h_out, threads, stream);
-    case 2: return launch_bbq<BB, 2, FUSED>(idx, carry, row_slot, out, n, h, h_run, w, nb, h_out, threads, stream);
-    case 4: return launch_bbq<BB, 4, FUSED>(idx, carry, row_slot, out, n, h, h_run, w, nb, h_out, threads, stream);
+    case 1: return launch_bbq<BB, 1, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, strip_rows, stream);
+    case 2: return launch_bbq<BB, 2, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, strip_rows, stream);
+    case 4: return launch_bbq<BB, 4, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, strip_rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Dispatch on the bin block and the columns per thread (4*q).
+// Dispatch on the bin block and the columns per thread (4*q).  The scan
+// walks rows [0, h_run) in strips of strip_rows; with more than one strip,
+// counts must hold count_kernel's output for the same strip_rows.
 template <bool FUSED>
 cudaError_t launch(const int* idx, const float* carry, const int* row_slot,
-                   float* out, int n, int h, int h_run, int w, int nb,
-                   int h_out, int bin_block, int threads, int q,
-                   cudaStream_t stream) {
+                   const float* counts, float* out, int n, int h, int h_run,
+                   int w, int nb, int h_out, int bin_block, int threads, int q,
+                   int strip_rows, cudaStream_t stream) {
   if (threads <= 0 || threads > 1024 || (threads & 31) != 0)
     return cudaErrorInvalidValue;
   if ((size_t)threads * 4 * q < (size_t)w) return cudaErrorInvalidValue;
+  if (strip_rows <= 0) return cudaErrorInvalidValue;
+  if (strip_rows < h_run && counts == nullptr) return cudaErrorInvalidValue;
   switch (bin_block) {
-    case 1: return launch_bb<1, FUSED>(idx, carry, row_slot, out, n, h, h_run, w, nb, h_out, threads, q, stream);
-    case 2: return launch_bb<2, FUSED>(idx, carry, row_slot, out, n, h, h_run, w, nb, h_out, threads, q, stream);
-    case 4: return launch_bb<4, FUSED>(idx, carry, row_slot, out, n, h, h_run, w, nb, h_out, threads, q, stream);
-    case 8: return launch_bb<8, FUSED>(idx, carry, row_slot, out, n, h, h_run, w, nb, h_out, threads, q, stream);
+    case 1: return launch_bb<1, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
+    case 2: return launch_bb<2, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
+    case 4: return launch_bb<4, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
+    case 8: return launch_bb<8, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -61,7 +61,7 @@ def hscan_shape(w: int, num_bins: int,
     """(bin_block, threads, chunks) of the hscan launch: K1's column split
     (``4 * chunks`` columns a thread, at most 16,384 columns) and, unless
     given, the largest bin block of 1, 2, 4, 8 that ``num_bins`` fills."""
-    _, threads, chunks = launch_shape(w, num_bins, 1, 1)
+    _, threads, chunks, _ = launch_shape(w, num_bins, 1, 1)
     if bin_block is None:
         bin_block = next(bb for bb in (8, 4, 2, 1) if bb <= num_bins)
     elif bin_block not in (1, 2, 4, 8):

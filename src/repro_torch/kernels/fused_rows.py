@@ -101,7 +101,7 @@ def fused_rows_cuda(idx: torch.Tensor, num_bins: int, row_ids, *,
                       device=idx.device)
     if out.numel() == 0:
         return out
-    bb, threads, chunks = launch_shape(w, num_bins, n, bin_block)
+    bb, threads, chunks, _ = launch_shape(w, num_bins, n, bin_block)
     fn = _lib()
     with torch.cuda.device(idx.device):
         err = fn(idx.data_ptr(),

@@ -8,20 +8,26 @@ Per (batch, head), in fp32::
 
     h_t = exp(dt_t A) h_{t-1} + B_t (dt_t x_t)^T ;   y_t = C_t h_t
 
-computed chunk by chunk in the SSD form, seeded from ``h0`` (zero when
-``None``; the TPU kernel always starts from zero), returning the final
-state ``h_last`` beside ``y``, which prefill stores in the cache.
+seeded from ``h0`` (zero when ``None``; the TPU kernel always starts from
+zero), returning the final state ``h_last`` beside ``y``, which prefill
+stores in the cache.
 
-What bounds it on an H100: operations (fp32 FMAs).  One CTA per (batch,
-head) walks the sequence in 64-step chunks with the (N, P) state in
-shared memory; the TPU kernel's ordered grid and VMEM carry become that
-loop.  Its chunk does not follow ``chunk``: the result does not depend on
-the chunk length apart from rounding, and the TPU's 256-step blocks do
-not fit a CTA's shared memory (csrc/ssd_scan.cu says how it is laid out).
+What bounds it on an H100: operations, on the tensor cores.  One call
+makes two CUDA launches over 64-step chunks: a state scan (the SSD
+algorithm's chunk states and state passing, each CTA walking the chunks
+with its block of the state in registers) writes the state entering each
+chunk, and a chunk scan computes every chunk of every (batch, head) at
+once from it.  The TPU kernel's ordered grid and VMEM carry become the
+state scan's walk.  The four products run as 3xTF32 ``mma.sync`` (an fp32
+operand split into two TF32 halves, three products), which keeps about
+fp32 accuracy where plain TF32 would not.  The kernel's chunk does not
+follow ``chunk``: the result does not depend on the chunk length apart
+from rounding (csrc/ssd_scan.cu says how it is laid out).
 
 ``ssd_scan_cuda`` launches the kernel for a CUDA tensor and runs
 ``ssd_scan_plain`` (a restatement of ``ssd_chunked``'s chunk loop) only
-for a CPU tensor.  ``ssd_scan_cuda.launches`` counts kernel launches.
+for a CPU tensor.  ``ssd_scan_cuda.launches`` counts calls that launched
+the kernel (two CUDA launches each: the state scan and the chunk scan).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 KERNEL_CHUNK = 64               # steps of one chunk inside the kernel
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory one CTA may use
+_GRID_LIMIT = 65535             # CUDA's cap on grid dims y and z
 
 
 def segsum_decay(a_cum: torch.Tensor) -> torch.Tensor:
@@ -113,11 +120,30 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     return y, hstate
 
 
+def scan_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of one chunk-scan CTA (csrc/ssd_scan.cu's
+    ``scan_smem_floats``): C, B (then a head's entering state in its
+    place), xdt and the masked scores of one 64-step chunk and 64 columns
+    of P, padded against bank conflicts, and a head's dt and a_cum."""
+    q, pb = KERNEL_CHUNK, 64
+    n_pad = -(-n // 32) * 32
+    c_rows = q * (n_pad + 4)
+    return 4 * (c_rows + max(n_pad * (pb + 8), c_rows) + q * (pb + 8)
+                + q * (q + 4) + 2 * q)
+
+
+def state_smem_bytes() -> int:
+    """Dynamic shared memory of one state-scan CTA (``state_smem_floats``):
+    three buffers of a chunk's B block (128 state rows), x rows and dt,
+    then the chunk's scales and total."""
+    q, pb, nb, stages = KERNEL_CHUNK, 64, 128, 3
+    return 4 * (stages * (q * (nb + 8) + q * (pb + 8) + q) + q + 4)
+
+
 def smem_bytes(p: int, n: int) -> int:
-    """Dynamic shared memory of one CTA (csrc/ssd_scan.cu's layout and
-    its ``smem_bytes``)."""
-    q, ld = KERNEL_CHUNK, KERNEL_CHUNK + 4
-    return 4 * (2 * n * ld + q * ld + q * p + n * p + 3 * q)
+    """Dynamic shared memory of the larger of K5's two CTAs.  It does not
+    grow with P, which the launches split into blocks of 64 columns."""
+    return max(scan_smem_bytes(n), state_smem_bytes())
 
 
 def _check_kernel_inputs(x, dt, Bm, Cm, h0) -> None:
@@ -135,6 +161,9 @@ def _check_kernel_inputs(x, dt, Bm, Cm, h0) -> None:
     if smem_bytes(p, n) > _SMEM_LIMIT:
         raise NotImplementedError(
             f"P={p}, N={n} needs {smem_bytes(p, n)} B of shared memory")
+    if b * -(-p // 64) > _GRID_LIMIT or h > _GRID_LIMIT:
+        raise NotImplementedError(
+            f"B={b}, H={h}, P={p} exceeds the kernel's grid")
     dense_inner = {
         "x": x.stride(-1) == 1 and (x.stride(-2) == p or h == 1),
         "dt": dt.stride(-1) == 1 or h == 1,
@@ -151,6 +180,13 @@ def _check_kernel_inputs(x, dt, Bm, Cm, h0) -> None:
             "contiguous h0)")
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Rows start on 16 bytes: the base and the batch and sequence strides
+    (in fp32 elements) are multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 and (
+        t.ndim < 2 or t.stride(1) % 4 == 0)
+
+
 def _lib():
     from repro_torch.kernels import _build
 
@@ -158,7 +194,7 @@ def _lib():
     if fn.argtypes is None:
         ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [ptr, ll, ll, ptr, ll, ll, ptr, ptr, ll, ll, ptr, ll,
-                       ll, ptr, ptr, ptr, i, i, i, i, i, ptr]
+                       ll, ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -184,8 +220,16 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     A = A.contiguous()
+    # The kernel copies 16-byte pieces of x, B, C and h0: a view that does
+    # not start (or step) on 16 bytes is copied first.
+    x, Bm, Cm = (t if _aligned16(t) else t.clone() for t in (x, Bm, Cm))
+    if h0 is not None and not _aligned16(h0):
+        h0 = h0.clone()
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    # Scratch: the state entering each 64-step chunk.
+    states = torch.empty((b, h, -(-s // KERNEL_CHUNK), n, p),
+                         dtype=torch.float32, device=x.device)
     fn = _lib()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), x.stride(0), x.stride(1),
@@ -193,7 +237,8 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
                  Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
                  Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
                  None if h0 is None else h0.data_ptr(),
-                 y.data_ptr(), h_last.data_ptr(), b, s, h, p, n,
+                 y.data_ptr(), h_last.data_ptr(), states.data_ptr(),
+                 b, s, h, p, n,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")

@@ -8,19 +8,26 @@ What bounds it on an H100: bytes.  Per pixel it reads a 4-byte bin id
 and writes ``num_bins`` fp32 counts, a few adds each, so at 32 bins the
 least time is the H write over the 3.35 TB/s of device memory.  The
 design writes H once and reads nothing back: one CTA per (frame, bin
-block) walks the rows, keeps the column counts in shared memory, forms
-the one-hot in registers, and scans each row across the frame with warp
-shuffles.  The TPU kernel's carries between grid steps become carries
-along that loop, because CTAs run in no order.
+block, strip of rows) walks its rows, keeps the column counts in shared
+memory, forms the one-hot in registers, and scans each row across the
+frame with warp shuffles.  The TPU kernel's carries between grid steps
+become carries along that loop, because CTAs run in no order.  Where the
+frames and bin blocks leave the card's SMs idle (one frame), the rows are
+cut into strips (``launch_shape``) and a pre-pass counts each strip's
+columns, from which every strip seeds its walk: two CUDA launches in one
+call.  Shapes that fill the card, and short frames, keep one walk.
 
 ``wf_tis_cuda`` launches the kernel for a CUDA tensor and runs
 ``wf_tis_plain`` (the strip scan of ``core/scans.py``: one-hot, two
-cumsums per strip, the carry) only for a CPU tensor.  ``wf_tis_cuda.launches`` counts kernel launches.
+cumsums per strip, the carry) only for a CPU tensor.
+``wf_tis_cuda.launches`` counts calls that launched the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +37,17 @@ _MAX_THREADS = 1024
 _MAX_CHUNKS = 4                 # 4-column chunks per thread (template Q)
 _BIN_BLOCKS = (8, 4, 2, 1)      # instantiated bin blocks (template BB)
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory one CTA may use
+_SMS = 132                      # streaming multiprocessors of an H100 SXM
+_FILL_WARPS = 8 * _SMS          # warps in flight that keep one strip
+_STRIP_CTAS = 4 * _SMS          # CTAs a strip cut aims for
+_MIN_STRIP_ROWS = 4
+# Below this height one CTA's walk (about half a microsecond a row) is
+# shorter than what strips add: the pre-pass's launch and its host steps.
+# chip_smoke's strip sweep (a 640-column run at 32 bins with a carry, on
+# an H100 80GB HBM3 at 700 W, PERF.md): by the median of five sweeps,
+# strips are slower at 80 rows and faster from 96.
+_STRIP_MIN_HEIGHT = 96
+_GRID_LIMIT = 65535             # CUDA's cap on grid dims y and z
 
 
 def wf_tis_plain(idx: torch.Tensor, num_bins: int,
@@ -39,13 +57,43 @@ def wf_tis_plain(idx: torch.Tensor, num_bins: int,
     return scans.wf_tis_ids(idx, num_bins, carry_in=carry)
 
 
+class LaunchShape(NamedTuple):
+    """How the scan is cut: ``bin_block`` bins and ``threads`` threads a
+    CTA, each thread ``4 * chunks`` columns, each CTA ``strip_rows`` rows
+    (0: the whole walk, for callers that give no height)."""
+    bin_block: int
+    threads: int
+    chunks: int
+    strip_rows: int
+
+    def strips(self, h: int) -> int:
+        return -(-h // self.strip_rows) if self.strip_rows else 1
+
+    def ctas(self, n: int, num_bins: int, h: int) -> int:
+        return n * -(-num_bins // self.bin_block) * self.strips(h)
+
+
+def strip_rows_for(h: int, ctas: int) -> int:
+    """The strip height that turns ``ctas`` CTAs of whole walks (frames x
+    bin blocks) into about ``_STRIP_CTAS``, at least ``_MIN_STRIP_ROWS``
+    rows (the pre-pass costs more than thinner strips gain)."""
+    return min(max(h, 1), max(_MIN_STRIP_ROWS, h // -(-_STRIP_CTAS // ctas)))
+
+
+@functools.lru_cache(maxsize=256)
 def launch_shape(w: int, num_bins: int, n: int,
-                 bin_block: int | None = None) -> tuple[int, int, int]:
-    """(bin_block, threads, chunks) for a frame ``w`` wide.
+                 bin_block: int | None = None, *, h: int | None = None,
+                 strip_rows: int | None = None) -> LaunchShape:
+    """The launch for ``n`` frames ``w`` wide (and ``h`` high, for K1).
 
     Each thread owns ``4 * chunks`` contiguous columns.  ``bin_block=None``
     takes the largest block that still gives two CTAs per SM of an H100
-    (132 SMs) and fits shared memory."""
+    (132 SMs) and fits shared memory.  With ``h`` given, a shape whose
+    frames and bin blocks put 8 warps on every SM keeps one strip (no
+    pre-pass): the clip, 1080p and a band of the 4K frame, where strips
+    measured no faster; so does one lower than ``_STRIP_MIN_HEIGHT`` rows
+    (a dirty run of a video frame).  Any other (one frame) is cut into
+    strips (``strip_rows_for``).  ``strip_rows`` given fixes the cut."""
     chunks = 1
     while _MAX_THREADS * 4 * chunks < w:
         chunks *= 2
@@ -63,7 +111,7 @@ def launch_shape(w: int, num_bins: int, n: int,
         fits = [bb for bb in _BIN_BLOCKS if smem(bb) <= _SMEM_LIMIT]
         if not fits:
             raise NotImplementedError(f"width {w} exceeds shared memory")
-        busy = [bb for bb in fits if n * -(-num_bins // bb) >= 2 * 132]
+        busy = [bb for bb in fits if n * -(-num_bins // bb) >= 2 * _SMS]
         bin_block = busy[0] if busy else fits[-1]
     elif bin_block not in _BIN_BLOCKS:
         raise ValueError(f"bin_block must be one of {_BIN_BLOCKS}, "
@@ -71,7 +119,22 @@ def launch_shape(w: int, num_bins: int, n: int,
     elif smem(bin_block) > _SMEM_LIMIT:
         raise ValueError(f"bin_block {bin_block} at width {w} needs "
                          f"{smem(bin_block)} B of shared memory")
-    return bin_block, threads, chunks
+    if h is None:
+        rows = 0
+    elif strip_rows is not None:
+        if strip_rows < 1:
+            raise ValueError(f"strip_rows must be positive, got {strip_rows}")
+        rows = min(strip_rows, max(h, 1))
+    else:
+        ctas = n * -(-num_bins // bin_block)
+        if ctas * threads // 32 >= _FILL_WARPS or h < _STRIP_MIN_HEIGHT:
+            rows = max(h, 1)
+        else:
+            rows = strip_rows_for(h, ctas)
+    if h is not None and -(-h // rows) > _GRID_LIMIT:
+        raise NotImplementedError(
+            f"{-(-h // rows)} strips of {rows} rows exceed the grid")
+    return LaunchShape(bin_block, threads, chunks, rows)
 
 
 def check_inputs(idx: torch.Tensor, num_bins: int,
@@ -100,10 +163,43 @@ def _lib():
     lib = _build.library("wf_tis.cu")
     fn = lib.wf_tis_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(idx: torch.Tensor, num_bins: int, shape: LaunchShape,
+           carry: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 on a CUDA tensor with the given ``shape`` (from
+    ``launch_shape(..., h=h)``): the pre-pass when it cuts strips, then
+    the scan.  ``wf_tis_cuda`` picks the shape and counts its calls; tests
+    pin strip boundaries through this.  Returns (n, num_bins, h, w)."""
+    check_inputs(idx, num_bins, carry)
+    if not idx.is_cuda:
+        raise ValueError("launch runs K1 on a CUDA tensor only")
+    n, h, w = idx.shape
+    out = torch.empty((n, num_bins, h, w), dtype=torch.float32,
+                      device=idx.device)
+    if out.numel() == 0:
+        return out
+    rows = shape.strip_rows or h
+    strips = -(-h // rows)
+    counts = None
+    if strips > 1:
+        counts = torch.empty((n, num_bins, strips - 1, w),
+                             dtype=torch.float32, device=idx.device)
+    fn = _lib()
+    with torch.cuda.device(idx.device):
+        err = fn(idx.data_ptr(),
+                 None if carry is None else carry.data_ptr(),
+                 None if counts is None else counts.data_ptr(),
+                 out.data_ptr(), n, h, w, num_bins, shape.bin_block,
+                 shape.threads, shape.chunks, rows,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"wf_tis kernel launch failed: CUDA error {err}")
+    return out
 
 
 def wf_tis_cuda(idx: torch.Tensor, num_bins: int, *,
@@ -126,19 +222,11 @@ def wf_tis_cuda(idx: torch.Tensor, num_bins: int, *,
     if not idx.is_cuda:
         return wf_tis_plain(idx, num_bins, carry)
     n, h, w = idx.shape
-    out = torch.empty((n, num_bins, h, w), dtype=torch.float32,
-                      device=idx.device)
-    if out.numel() == 0:
-        return out
-    bb, threads, chunks = launch_shape(w, num_bins, n, bin_block)
-    fn = _lib()
-    with torch.cuda.device(idx.device):
-        err = fn(idx.data_ptr(),
-                 None if carry is None else carry.data_ptr(),
-                 out.data_ptr(), n, h, w, num_bins, bb, threads, chunks,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"wf_tis kernel launch failed: CUDA error {err}")
+    if n * h * w * num_bins == 0:
+        return torch.empty((n, num_bins, h, w), dtype=torch.float32,
+                           device=idx.device)
+    out = launch(idx, num_bins, launch_shape(w, num_bins, n, bin_block, h=h),
+                 carry)
     wf_tis_cuda.launches += 1
     return out
 

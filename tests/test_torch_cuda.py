@@ -28,7 +28,12 @@ from repro_torch.kernels.cw_tis import (
 from repro_torch.kernels.delta_apply import delta_apply_cuda, delta_apply_plain
 from repro_torch.kernels.fused_rows import fused_rows_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
-from repro_torch.kernels.wf_tis import wf_tis_cuda, wf_tis_plain
+from repro_torch.kernels.wf_tis import (
+    launch,
+    launch_shape,
+    wf_tis_cuda,
+    wf_tis_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -64,6 +69,46 @@ def test_cuda_kernels_equal_plain(cuda_device, n, h, w, bins, with_carry):
     rows = np.unique(rng.integers(0, h, 5))
     R = fused_rows_cuda(idx, bins, rows, carry=carry)
     assert torch.equal(R, want[..., torch.as_tensor(rows, device=cuda_device), :])
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+@pytest.mark.parametrize("h,w,strip_rows", [
+    (31, 640, 32), (32, 640, 32), (33, 640, 32), (1, 640, 32),
+    (97, 131, 5), (64, 4099, 1),
+])
+@pytest.mark.parametrize("bin_block", [1, 2, 4, 8])
+def test_k1_strip_boundaries_equal_plain(cuda_device, bin_block, h, w,
+                                         strip_rows, with_carry):
+    """K1 cut into strips of ``strip_rows`` rows (counts pre-pass, then
+    seeded walks) equals the plain version bit for bit at heights R - 1,
+    R, R + 1 and 1, ragged widths, every bin block."""
+    bins = 32
+    rng = np.random.default_rng(16)
+    idx = torch.as_tensor(rng.integers(-1, bins + 1, (1, h, w)),
+                          dtype=torch.int32, device=cuda_device)
+    carry = (torch.as_tensor(_carry(16, (1, h, w), bins), device=cuda_device)
+             if with_carry else None)
+    shape = launch_shape(w, bins, 1, bin_block, h=h, strip_rows=strip_rows)
+    got = launch(idx, bins, shape, carry)
+    assert torch.equal(got, wf_tis_plain(idx, bins, carry))
+
+
+@pytest.mark.parametrize("n,h,w,bins,with_carry", [
+    (1, 480, 640, 32, False),       # one frame: strips
+    (1, 48, 640, 32, True),         # a dirty run with its carry: one strip
+    (1, 273, 3840, 128, True),      # a band of the 4K frame: one strip
+    (16, 480, 640, 32, False),      # the clip: one strip
+])
+def test_k1_path_shapes_equal_plain(cuda_device, n, h, w, bins, with_carry):
+    rng = np.random.default_rng(17)
+    idx = torch.as_tensor(rng.integers(-1, bins + 1, (n, h, w)),
+                          dtype=torch.int32, device=cuda_device)
+    carry = (torch.as_tensor(_carry(17, (n, h, w), bins), device=cuda_device)
+             if with_carry else None)
+    before = wf_tis_cuda.launches
+    got = wf_tis_cuda(idx, bins, carry=carry)
+    assert wf_tis_cuda.launches == before + 1     # one call, however cut
+    assert torch.equal(got, wf_tis_plain(idx, bins, carry))
 
 
 def test_engine_on_the_card_launches_the_kernels(cuda_device):
@@ -186,9 +231,9 @@ def test_cw_tis_engine_launches_k4_not_k1(cuda_device):
     assert torch.equal(got.source.dense(), want.source.dense())
 
 
-# K5 against its plain version: fp32 FMAs in another order and 64-step
-# chunks inside the kernel against the plain chunk loop (cuBLAS fp32,
-# TF32 off).
+# K5 against its plain version: 3xTF32 tensor-core products (about fp32)
+# in another order and 64-step chunks inside the kernel against the plain
+# chunk loop (cuBLAS fp32, TF32 off).
 SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
 
 
@@ -222,6 +267,25 @@ def no_tf32():
 def test_ssd_scan_kernel_equals_plain(cuda_device, no_tf32, b, s, h, p, n,
                                       chunk, with_h0):
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(20, b, s, h, p, n, with_h0=with_h0)
+    before = ssd_scan_cuda.launches
+    y, h_last = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 1
+    y_want, h_want = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.testing.assert_close(y, y_want, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(h_last, h_want, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.parametrize("b,h", [(1, 2), (4, 24)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("s,chunk", [(64, 64), (65, 13), (1000, 200),
+                                     (4096, 256)])
+def test_ssd_scan_kernel_chunk_edges(cuda_device, no_tf32, s, chunk, with_h0,
+                                     b, h):
+    """One chunk, one step past it, a ragged last chunk and a long
+    sequence, at a small and at the prefill's B x H (P=64, N=128)."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(24, b, s, h, 64, 128,
+                                       with_h0=with_h0)
     before = ssd_scan_cuda.launches
     y, h_last = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
     torch.cuda.synchronize()

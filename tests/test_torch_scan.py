@@ -192,14 +192,87 @@ def test_row_slot_map_and_plain_k2():
 
 
 def test_launch_shape_fits_the_card():
-    # (bin_block, threads, 4-column chunks per thread)
-    assert launch_shape(640, 32, 16) == (1, 160, 1)
-    bb, threads, chunks = launch_shape(1920, 64, 4)
+    # (bin_block, threads, 4-column chunks per thread); no height, no strips
+    assert launch_shape(640, 32, 16) == (1, 160, 1, 0)
+    bb, threads, chunks, _ = launch_shape(1920, 64, 4)
     assert threads * 4 * chunks >= 1920 and threads <= 1024
-    bb, threads, chunks = launch_shape(8192, 128, 1)
+    bb, threads, chunks, _ = launch_shape(8192, 128, 1)
     assert (threads, chunks) == (1024, 2)
     with pytest.raises(NotImplementedError):
         launch_shape(20000, 8, 1)
+
+
+@pytest.mark.parametrize("n,h,w,bins,strips", [
+    (16, 480, 640, 32, 1),      # the clip: 512 CTAs of 5 warps
+    (4, 1080, 1920, 64, 1),     # 1080p: 256 CTAs of 15 warps
+    (1, 273, 3840, 128, 1),     # a band of the 4K frame: 128 of 30 warps
+    (1, 480, 640, 32, 18),      # one frame: 32 CTAs of 5 warps unless cut
+    (1, 96, 640, 32, 20),       # the lowest run that is cut
+    (1, 95, 640, 32, 1),        # just below the threshold: one strip
+    (1, 48, 640, 32, 1),        # a dirty run: a short walk, host-bound
+    (1, 1, 640, 32, 1),         # a single row cannot be cut
+])
+def test_launch_shape_cuts_strips_where_the_card_is_not_filled(
+        n, h, w, bins, strips):
+    """K1 keeps one strip (one CUDA launch) where frames and bin blocks
+    put 8 warps on each of the H100's 132 SMs or the frame is lower than
+    96 rows (by the median of chip_smoke's sweeps, strips are slower at
+    80 rows and faster at 96), and otherwise cuts the rows into strips so that at least two
+    CTAs run per SM."""
+    shape = launch_shape(w, bins, n, h=h)
+    assert shape.strips(h) == strips
+    ctas = shape.ctas(n, bins, h)
+    if strips == 1:
+        assert shape.strip_rows == h
+    else:
+        assert ctas >= 2 * 132
+        assert shape.strip_rows >= 4                   # not needlessly thin
+    assert launch_shape(w, bins, n, h=h, strip_rows=7).strip_rows == min(7, h)
+    with pytest.raises(ValueError, match="strip_rows"):
+        launch_shape(w, bins, n, h=h, strip_rows=0)
+
+
+def _strip_scan(ids, bins, strip_rows, carry=None):
+    """K1's strips, restated: a pre-pass counts each column's hits of each
+    bin in every strip but the last; strip s seeds its column counts with
+    the carry row's column differences plus the counts of strips above,
+    walks its rows, and scans each row across the columns."""
+    n, h, w = ids.shape
+    onehot = (ids[:, None] == torch.arange(bins)[None, :, None, None])
+    onehot = onehot.to(torch.float32)                  # (n, bins, h, w)
+    starts = range(0, h, strip_rows)
+    counts = [onehot[:, :, r:r + strip_rows].sum(2) for r in starts][:-1]
+    seed0 = torch.zeros((n, bins, w))
+    if carry is not None:
+        seed0 = torch.diff(carry, dim=-1, prepend=torch.zeros((n, bins, 1)))
+    out = []
+    for s, r in enumerate(starts):
+        seed = seed0 + sum(counts[:s], torch.zeros((n, bins, w)))
+        V = seed[:, :, None] + torch.cumsum(onehot[:, :, r:r + strip_rows], 2)
+        out.append(torch.cumsum(V, 3))
+    return torch.cat(out, 2)
+
+
+@pytest.mark.parametrize("shape,bins,strip_rows,with_carry", [
+    ((1, 48, 70), 8, 5, True),       # ragged last strip (3 rows)
+    ((1, 48, 70), 8, 48, False),     # one strip: no pre-pass
+    ((2, 33, 41), 5, 1, True),       # a strip a row
+    ((3, 32, 48), 32, 16, False),    # whole strips
+    ((1, 97, 131), 3, 32, True),     # a last strip of one row
+])
+def test_strip_decomposition_equals_reference(shape, bins, strip_rows,
+                                              with_carry):
+    """The strip cut K1 makes (counts pre-pass + seeds) gives the
+    reference's integral histogram bit for bit, carry-in included."""
+    img = _frames(16, shape)
+    carry = _carry(16, shape, bins) if with_carry else None
+    want = ref_ops.integral_histogram(
+        jnp.asarray(img), bins, method="wf_tis", backend="jnp", tile=16,
+        carry_in=None if carry is None else jnp.asarray(carry))
+    ids = binning.bin_indices(torch.as_tensor(img), bins)
+    got = _strip_scan(ids, bins, strip_rows,
+                      None if carry is None else torch.as_tensor(carry))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
 def test_backend_errors_and_default_device(monkeypatch):

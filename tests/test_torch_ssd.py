@@ -18,9 +18,12 @@ from repro.kernels.ssd_scan import ssd_scan as ref_ssd_scan
 from repro.models.ssm import ssd_chunked as ref_ssd_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import (
+    KERNEL_CHUNK,
+    scan_smem_bytes,
     smem_bytes,
     ssd_scan_cuda,
     ssd_scan_plain,
+    state_smem_bytes,
 )
 from repro_torch.models.ssm import ssd_chunked
 
@@ -148,14 +151,149 @@ def test_kernel_layout_and_shared_memory_limits():
     with pytest.raises(ValueError, match="inner dims dense"):
         ssd_scan_cuda(tx.transpose(2, 3).contiguous().transpose(2, 3),
                       tdt, tA, tB, tC, chunk=16)
-    # The model's geometry fits one CTA; the TPU's whole 256-step blocks
-    # would not.
-    assert smem_bytes(64, 128) <= 227 * 1024
+    # The chunk scan's CTA at the model's geometry: C, B (a head's
+    # entering state later in its place), xdt and the masked scores of one
+    # 64-step chunk and 64 columns of P, padded; two CTAs fit an SM's
+    # 228 KiB.  The state scan's CTA holds three chunks' copies in flight.
+    assert scan_smem_bytes(128) == 4 * (64 * 132 + 128 * 72 + 64 * 72
+                                        + 64 * 68 + 2 * 64)
+    assert 2 * (scan_smem_bytes(128) + 1024) <= 228 * 1024
+    assert state_smem_bytes() == 4 * (3 * (64 * 136 + 64 * 72 + 64) + 68)
+    assert smem_bytes(64, 128) == state_smem_bytes() <= 227 * 1024
+    # P is split into blocks of 64 columns, so only N grows a CTA.
+    assert smem_bytes(256, 128) == smem_bytes(64, 128)
+    assert smem_bytes(64, 256) <= 227 * 1024
     with pytest.raises(NotImplementedError, match="shared memory"):
-        x = torch.zeros((1, 16, 1, 256))
-        B = torch.zeros((1, 16, 1, 256))
+        x = torch.zeros((1, 16, 1, 64))
+        B = torch.zeros((1, 16, 1, 512))
         ssd_scan_cuda(x, torch.zeros((1, 16, 1)), torch.zeros(1), B, B,
                       chunk=16)
+
+
+# K5's design, restated in plain torch: the chunk-parallel SSD form the
+# kernel computes (each chunk's own state, the state passing, each
+# chunk's outputs), with its four products done the way the tensor cores
+# do them.  TF32 keeps 10 explicit mantissa bits.  The kernel's split,
+# by bit masks: hi = x rounded to TF32 (a half-ulp add, then the low 13
+# bits cleared), lo = x - hi with its low 13 bits cleared.
+def _tf32_round(t):
+    return ((t.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _tf32_trunc(t):
+    return (t.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_fp32(a, b):
+    return a @ b
+
+
+def _mm_tf32(a, b):
+    return _tf32_round(a) @ _tf32_round(b)
+
+
+def _mm_3xtf32(a, b):
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+_PRODUCTS = {"fp32": _mm_fp32, "tf32": _mm_tf32, "3xtf32": _mm_3xtf32}
+
+
+def _chunk_parallel_scan(x, dt, A, Bm, Cm, h0, mm, q=KERNEL_CHUNK):
+    """y, h_last of the kernel's three steps; S is padded to whole chunks
+    with identity steps (dt = 0), as the kernel masks its last chunk."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    pad = -s % q
+    if pad:
+        x, dt, Bm, Cm = (torch.nn.functional.pad(
+            t, (0,) * (2 * (t.ndim - 2)) + (0, pad)) for t in (x, dt, Bm, Cm))
+    c = (s + pad) // q
+    xc = x.reshape(b, c, q, h, p).permute(0, 3, 1, 2, 4)      # b h c q p
+    dtc = dt.reshape(b, c, q, h).permute(0, 3, 1, 2)         # b h c q
+    Bc = Bm[:, :, 0].reshape(b, 1, c, q, n)
+    Cc = Cm[:, :, 0].reshape(b, 1, c, q, n)
+    acum = torch.cumsum(dtc * A[None, :, None, None], -1)
+    total = acum[..., -1]
+    # 1. each chunk's own contribution to the state it leaves
+    X = xc * (dtc * torch.exp(total[..., None] - acum))[..., None]
+    S = mm(Bc.transpose(-1, -2), X)                          # b h c n p
+    # 2. the state entering each chunk
+    hs = torch.zeros((b, h, n, p)) if h0 is None else h0
+    enter = []
+    for k in range(c):
+        enter.append(hs)
+        hs = torch.exp(total[..., k])[..., None, None] * hs + S[:, :, k]
+    # 3. each chunk's outputs
+    y = mm(Cc, torch.stack(enter, 2)) * torch.exp(acum)[..., None]
+    L = torch.where(torch.tril(torch.ones(q, q, dtype=torch.bool)),
+                    torch.exp(acum[..., :, None] - acum[..., None, :]), 0.0)
+    y = y + mm(mm(Cc, Bc.transpose(-1, -2)) * L, xc * dtc[..., None])
+    return y.permute(0, 2, 3, 1, 4).reshape(b, s + pad, h, p)[:, :s], hs
+
+
+def _recurrence_fp64(x, dt, A, Bm, Cm):
+    """The scan step by step in fp64, from h = 0."""
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    b, s, h, p = x.shape
+    hs = torch.zeros((b, h, Bm.shape[-1], p), dtype=torch.float64)
+    ys = []
+    for t in range(s):
+        hs = (torch.exp(dt[:, t] * A)[..., None, None] * hs
+              + Bm[:, t, 0][:, None, :, None]
+              * (x[:, t] * dt[:, t, :, None])[:, :, None, :])
+        ys.append(torch.einsum("bn,bhnp->bhp", Cm[:, t, 0], hs))
+    return torch.stack(ys, 1), hs
+
+
+@pytest.mark.parametrize("s,with_h0", [(64, False), (65, True),
+                                       (200, True), (37, False)])
+def test_kernel_decomposition_equals_plain(s, with_h0):
+    """The chunk-parallel form (fp32 products) equals the plain chunk loop
+    up to rounding, h0 and ragged S included."""
+    arrays = _inputs(12, s=s, h=3, p=8, n=16, with_h0=with_h0)
+    tx, tdt, tA, tB, tC, th0 = _t(arrays)
+    chunk = {64: 16, 65: 5, 200: 25, 37: 37}[s]
+    y, h_last = _chunk_parallel_scan(tx, tdt, tA, tB, tC, th0, _mm_fp32)
+    y_want, h_want = ssd_scan_plain(tx, tdt, tA, tB, tC, chunk=chunk, h0=th0)
+    torch.testing.assert_close(y, y_want, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(h_last, h_want, atol=ATOL, rtol=RTOL)
+
+
+# K5's gate on the card (chip_smoke.py's K5_ATOL, K5_RTOL).
+K5_ATOL, K5_RTOL = 1e-4, 1e-4
+
+
+@pytest.mark.parametrize("products,within_gate", [
+    ("fp32", True), ("3xtf32", True), ("tf32", False)])
+def test_3xtf32_products_keep_the_gate_plain_tf32_does_not(products,
+                                                           within_gate):
+    """Why K5 splits each operand: at 1x1024x6x64, N = 128, with the
+    model's input ranges, the chunk-parallel scan with 3xTF32 products
+    stays within K5's gate of an fp64 scan (as fp32 products do; largest
+    error 2.3e-5 here), while plain TF32 products leave 56% of y outside
+    it (largest error 9.8e-3)."""
+    r = np.random.default_rng(9)
+    b, s, h, p, n = 1, 1024, 6, 64, 128
+    arrays = (r.standard_normal((b, s, h, p)),
+              np.log1p(np.exp(r.standard_normal((b, s, h)))),
+              -np.exp(r.standard_normal(h) * 0.2),
+              r.standard_normal((b, s, 1, n)) * 0.3,
+              r.standard_normal((b, s, 1, n)) * 0.3)
+    tx, tdt, tA, tB, tC = (torch.as_tensor(a, dtype=torch.float32)
+                           for a in arrays)
+    y64, h64 = _recurrence_fp64(tx, tdt, tA, tB, tC)
+    y, h_last = _chunk_parallel_scan(tx, tdt, tA, tB, tC, None,
+                                     _PRODUCTS[products])
+    outside = (y.double() - y64).abs() > K5_ATOL + K5_RTOL * y64.abs()
+    if within_gate:
+        assert not bool(outside.any()), float(outside.double().mean())
+        assert torch.allclose(h_last.double(), h64, atol=K5_ATOL,
+                              rtol=K5_RTOL)
+    else:
+        assert float(outside.double().mean()) > 0.4
 
 
 @pytest.mark.parametrize("bad", [
