@@ -16,7 +16,11 @@ non-zero before the result line is printed:
           273x3840x128 band with its carry) and 1080p, with their strips
           and CTAs; and strips of one frame's R rows at heights R - 1, R,
           R + 1 and 1
-  k2      the query-fused kernel against the plain H's rows, and the early
+  k2      the query-fused kernel against the plain H's rows (torch.equal):
+          the clip's fused request, K2_SHAPES (the clip's 62 corner rows,
+          one frame with the same rows, one frame with one rect's rows,
+          the clip at the fuse bound of 120 rows) with each one's chunks
+          and pass-A CTAs (at least two an SM at one frame), and the early
           cut (bands_computed < bands_total)
   k3      the delta_apply kernel against its plain version (torch.equal) at
           the clip's H with a random integer delta, on ragged shapes, and
@@ -31,7 +35,8 @@ non-zero before the result line is printed:
           abs and rel errors against K5_ATOL / K5_RTOL; K5's operation
           bound at the 3xTF32 rate beside the fp32 one
   main    HistogramEngine(num_bins=32).run on the clip: a request that
-          plans "fused" and one that plans "dense"; answers held against
+          plans "fused" and one that plans "dense"; the fused request on
+          one frame (a real-time stream's request); answers held against
           backend="torch" on the same card and against a direct count
   bands   one 2160x3840 frame at 128 bins (dense H 4.25 GB) under a
           512 MiB budget: the engine plans 8 bands of 273 rows and streams
@@ -63,17 +68,19 @@ non-zero before the result line is printed:
           again where serve hands the prefilled cache to decode_loop, so
           prefill and decode are two paths of the kernels line
   timing  each kernel's median time (CUDA events) beside its bound, K1
-          also at K1_SHAPES with its launches per run; K1 at each shape
-          and K5 profiled (torch.profiler: CUDA launches and device time
-          a call); K1 in one strip against strips at K1_SWEEP_HEIGHTS,
-          where launch_shape's strip threshold comes from; then host-clock
-          request times (median of 5): incremental vs full recompute per
-          video frame, the banded request, and the dense request with
-          method="cw_tis" vs "wf_tis" (the paper's Fig. 7/8 pair); a
-          torch.profiler trace of 10 video requests of each kind (kernel
-          launches, device busy and idle share, top CPU ops); the repair
-          step of one video frame with K3 writing into the new H against
-          the same walk joined by a torch.cat
+          also at K1_SHAPES and K2 at K2_SHAPES with their launches per
+          run; K1 and K2 at each shape and K5 profiled (torch.profiler:
+          CUDA launches and device time a call); K1 in one strip against
+          strips at K1_SWEEP_HEIGHTS, where launch_shape's strip threshold
+          comes from; then host-clock request times (median of 5):
+          incremental vs full recompute per video frame, the fused request
+          on the clip and on one frame, the banded request, and the dense
+          request with method="cw_tis" vs "wf_tis" (the paper's Fig. 7/8
+          pair); a torch.profiler trace of 10 requests of each video kind
+          and of the one-frame fused request (kernel launches, device busy
+          and idle share, top CPU ops); the repair step of one video frame
+          with K3 writing into the new H against the same walk joined by a
+          torch.cat
 
 Every request of the main, bands, video, cw_tis and lm phases runs with
 all six launch counters set to 0 just before it and read just after; the
@@ -136,6 +143,18 @@ K1_SHAPES = {
     "dirty run": ((1, 48, 640, 32, True), ("video", "video_bottom")),
     "band": ((1, 273, 3840, 128, True), ("bands", "bands_rows", "spilled")),
     "1080p": ((4, 1080, 1920, 64, False), ()),
+}
+# K2's shapes, (n, h, w, bins, rows), and the paths whose launches each one
+# counts: the clip's fused request (its 62 corner rows: every 8th row and a
+# rect's rows 99 and 219); one frame with the same rows (a real-time
+# stream's request, the main phase's one-frame request); one frame with one
+# rect's rows; and the clip at the fuse bound, h / 4 = 120 rows.
+CLIP_ROWS = tuple(sorted(set(range(7, 480, 8)) | {99, 219}))
+K2_SHAPES = {
+    "clip": ((16, 480, 640, 32, CLIP_ROWS), ("fused",)),
+    "frame": ((1, 480, 640, 32, CLIP_ROWS), ("fused_frame",)),
+    "rect": ((1, 480, 640, 32, (99, 219)), ()),
+    "clip 120": ((16, 480, 640, 32, tuple(range(3, 480, 4))), ()),
 }
 # Heights of a 640-column run at 32 bins with a carry, timed in one strip
 # and in strips: the video's dirty runs, up to the 50% fallback, and a
@@ -283,6 +302,14 @@ def k1_bytes(ids, bins, carry) -> int:
         4 * carry.numel() if carry is not None else 0)
 
 
+def k2_bytes(ids, bins, rows, carry) -> int:
+    """Bytes K2's function moves: the ids of rows [0, rows[-1]] and the
+    carry read once, the requested rows written once."""
+    n, _, w = ids.shape
+    return 4 * n * w * (rows[-1] + 1 + bins * len(rows)) + (
+        4 * carry.numel() if carry is not None else 0)
+
+
 def ssd_inputs(torch, dev, seed, s=K5_SHAPE[1]):
     """K5's inputs at K5_SHAPE with ``s`` steps, in the ranges the model
     hands the scan: x, softplus step sizes dt, A = -exp(small), B and C
@@ -303,8 +330,9 @@ def ssd_inputs(torch, dev, seed, s=K5_SHAPE[1]):
 
 def device_kernels(torch, fn, calls: int = 10):
     """What one call of ``fn`` runs on the device, from a torch.profiler
-    trace: its device events (kernels, copies, sets) a call, and their
-    device µs a call by name, over ``calls`` warm calls inside one
+    trace: its kernel launches a call (copies and sets left out), and the
+    device µs a call of its device events (kernels, copies, sets) by name,
+    over ``calls`` warm calls inside one
     ``record_function`` range.  The range's mark on the device's timeline
     spans the device work of its calls, on the kernels' own clock, and is
     the window (the range on the host's clock where the trace has no such
@@ -338,7 +366,9 @@ def device_kernels(torch, fn, calls: int = 10):
     us: dict[str, float] = {}
     for e in inside:
         us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
-    return len(inside) / calls, us
+    kernels = [e for e in inside if not e.name.startswith(("Memcpy",
+                                                           "Memset"))]
+    return len(kernels) / calls, us
 
 
 def phase(name: str):
@@ -408,7 +438,9 @@ def run(torch) -> list[dict]:
     from repro_torch.kernels.delta_apply import (
         delta_apply_cuda, delta_apply_plain,
     )
-    from repro_torch.kernels.fused_rows import fused_rows_cuda, fused_rows_plain
+    from repro_torch.kernels.fused_rows import (
+        chunk_plan, chunk_shape, fused_rows_cuda, fused_rows_plain,
+    )
     from repro_torch.kernels.ref import region_histogram_ref
     from repro_torch.kernels.ssd_scan import (
         KERNEL_CHUNK, ssd_scan_cuda, ssd_scan_plain,
@@ -557,12 +589,36 @@ def run(torch) -> list[dict]:
     fused_rows = np.asarray(eng_mod._declared_rows(fused_queries, h, w))
 
     with phase("k2: fused_rows kernel vs the plain H's rows"):
+        check(tuple(fused_rows.tolist()) == K2_SHAPES["clip"][0][4],
+              f"the fused request's rows {fused_rows} != K2_SHAPES' clip")
         got = fused_rows_cuda(idx, nb, fused_rows)
         H = wf_tis_plain(idx, nb)
         want = H[..., torch.as_tensor(fused_rows, device=dev), :]
         check(torch.equal(got, want), "K2 != plain H rows (fused request)")
         k2_err = float((got - want).abs().max())
         log(f"   {fused_rows.size} corner rows of {n}x{h}x{w}x{nb}: equal")
+        # The shapes the paths launch K2 at, each with its chunk cut: pass A
+        # runs a CTA per (frame, chunk, bin block).
+        k2_in = {}
+        for label, ((kn, kh, kw, bins, krows), _) in K2_SHAPES.items():
+            ids, _ = k1_inputs(torch, dev, kn, kh, kw, bins, False)
+            krows = np.asarray(krows)
+            k2_in[label] = (ids, bins, krows)
+            got = fused_rows_cuda(ids, bins, krows)
+            want = fused_rows_plain(ids, bins, krows)
+            check(torch.equal(got, want),
+                  f"K2 != plain at the {label} shape {tuple(ids.shape)}")
+            k2_err = max(k2_err, float((got - want).abs().max()))
+            shp = chunk_shape(kw, bins, kn, krows.size, int(krows[-1]) + 1)
+            chunks = chunk_plan(krows, shp.chunk_rows)[0].size
+            ctas = kn * -(-bins // shp.bin_block) * chunks
+            log(f"   {label} {kn}x{kh}x{kw}x{bins}, {krows.size} rows: "
+                f"equal; {chunks} chunks of at most {shp.chunk_rows} rows"
+                f"{' (pass B in place)' if chunks == krows.size else ''}, "
+                f"bin block {shp.bin_block}, pass A {ctas} CTAs of "
+                f"{shp.threads} threads ({ctas / 132:.2f} an SM)")
+            if label == "frame":
+                check(ctas >= 2 * 132, f"pass A at one frame: {ctas} CTAs")
         stats = {}
         early = np.array([10, 100, 200])
         got = ops.fused_corner_rows(clip, nb, early, stats=stats)
@@ -781,7 +837,27 @@ def run(torch) -> list[dict]:
         log(f"   answers equal backend='torch' (maps within rtol "
             f"{MAP_RTOL}, atol {MAP_ATOL}); template found at "
             f"{rect[0].tolist()}")
-        del fused, dense, wins
+
+        # A real-time stream's request: the fused queries on one frame.
+        one, t_one, one_counts = counted(
+            "fused_frame", lambda: engine.run(clip_np[0], fused_queries))
+        check(one_counts == only(fused_rows=1),
+              f"one-frame fused request launched {one_counts}")
+        check(one.plan.representation == "fused"
+              and tuple(one.plan.spec.query_rows) == K2_SHAPES["frame"][0][4],
+              f"one-frame request planned {one.plan.representation} on "
+              f"rows {one.plan.spec.query_rows}")
+        check(torch.equal(one.results[0], regions[0]),
+              "one-frame region histograms != the clip's frame 0")
+        check(torch.allclose(one.results[1], lmap[0], rtol=MAP_RTOL,
+                             atol=MAP_ATOL),
+              "one-frame likelihood map != the clip's frame 0")
+        check(torch.equal(one.results[2][0], rect[0]),
+              "one-frame best rect != the clip's frame 0")
+        log(f"   fused, one frame: {len(one.plan.spec.query_rows)} corner "
+            f"rows, launches {one_counts}; answers equal the clip's frame 0; "
+            f"{t_one * 1e3:.1f} ms end to end")
+        del fused, dense, wins, one
         torch.cuda.empty_cache()
 
     with phase("bands: 2160x3840 at 128 bins under a 512 MiB budget"):
@@ -1106,8 +1182,8 @@ def run(torch) -> list[dict]:
         torch.cuda.empty_cache()
 
     with phase("timing"):
-        # K2 is timed as the main path calls it: host row ids, turned into
-        # the row -> slot map and copied without waiting on the card.
+        # K2 is timed as the main path calls it: host row ids, cut into the
+        # chunk plan and copied without waiting on the card.
         k1_ms = time_ms(lambda: wf_tis_cuda(idx, nb))
         k1_plain = time_ms(lambda: wf_tis_plain(idx, nb), runs=5, launches=2)
         k2_ms = time_ms(lambda: fused_rows_cuda(idx, nb, fused_rows))
@@ -1186,6 +1262,33 @@ def run(torch) -> list[dict]:
         log(f"   wf_tis strip sweep, 1xHx{w}x{nb} + carry, ms a call (best "
             f"of two medians), H: one strip vs strips: " + "; ".join(sweep)
             + f" | launch_shape cuts from {wf_tis_mod._STRIP_MIN_HEIGHT} rows")
+        # K2 at its shapes likewise (k2_bytes), its plain version beside.
+        k2_by_shape, k2_calls = [], {}
+        for label, (ids, bins, krows) in k2_in.items():
+            kn, kh, kw = ids.shape
+            ms = time_ms(lambda: fused_rows_cuda(ids, bins, krows))
+            plain_ms = time_ms(lambda: fused_rows_plain(ids, bins, krows),
+                               runs=5, launches=2)
+            per_call, kernel_us = device_kernels(
+                torch, lambda: fused_rows_cuda(ids, bins, krows))
+            k2_calls[label] = per_call
+            bound = k2_bytes(ids, bins, krows, None) / HBM_BYTES_PER_S * 1e3
+            runs = sum(paths.get(pth, {}).get("fused_rows", 0)
+                       for pth in K2_SHAPES[label][1])
+            k2_by_shape.append({
+                "shape": f"{kn}x{kh}x{kw}x{bins}, {krows.size} rows",
+                "path": label, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "launches_per_run": runs,
+                "device_us": sum(kernel_us.values()) if kernel_us else None})
+            log(f"   fused_rows at the {label} shape {k2_by_shape[-1]['shape']}"
+                f": {ms:.4f} ms | bound {bound:.4f} ms by bytes "
+                f"({k2_bytes(ids, bins, krows, None) / 1e6:.2f} MB), "
+                f"{bound / ms:.1%} of it | plain {plain_ms:.4f} ms | {runs} "
+                "launches in this run's paths | profiled: "
+                + (f"{per_call:g} CUDA launch(es) a call, device µs a call "
+                   + ", ".join(f"{k[:48]} {v:.2f}"
+                               for k, v in kernel_us.items())
+                   if per_call is not None else "not measured"))
         k5_calls, k5_kernel_us = device_kernels(
             torch, lambda: ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq))
         log(f"   ssd_scan profiled: "
@@ -1201,7 +1304,7 @@ def run(torch) -> list[dict]:
         # element.
         work = {
             "wf_tis": (4 * px + 4 * px * nb, 2 * px * nb),
-            "fused_rows": (4 * n * h_run * w + 4 * n * nb * fused_rows.size * w,
+            "fused_rows": (k2_bytes(idx, nb, fused_rows, None),
                            n * nb * h_run * w + n * nb * fused_rows.size * w),
             "delta_apply": (4 * (2 * k3_H.numel() + k3_d.numel()),
                             k3_H.numel()),
@@ -1268,6 +1371,9 @@ def run(torch) -> list[dict]:
             if name == "wf_tis":
                 records[-1].update(cuda_launches_per_call=k1_calls,
                                    shapes=k1_by_shape)
+            if name == "fused_rows":
+                records[-1].update(cuda_launches_per_call=k2_calls,
+                                   shapes=k2_by_shape)
             lib = (f"library_ms {lib_ms:.4f} ({library_call[name]})"
                    if lib_ms is not None else "library_ms: none, no single "
                    "PyTorch call computes the same function")
@@ -1287,14 +1393,16 @@ def run(torch) -> list[dict]:
 
         # End to end: requests from host uint8 frames to answers on the
         # card, warm, host clock around work that ends in a synchronize.
-        for label, eng, queries in (
-                ("fused", engine, fused_queries),
-                ("dense", engine, dense_queries),
-                ("dense, method=cw_tis", cw_engine, dense_queries)):
-            ms = request_ms(lambda: eng.run(clip_np, queries))
-            log(f"   engine.run {label} request, {n}x{h}x{w}x{nb} from host "
-                f"frames: {ms:.3f} ms median of 5 ({n / ms * 1e3:.0f} "
-                "frames/s)")
+        for label, eng, queries, frames, count in (
+                ("fused", engine, fused_queries, clip_np, n),
+                ("fused, one frame", engine, fused_queries, clip_np[0], 1),
+                ("dense", engine, dense_queries, clip_np, n),
+                ("dense, method=cw_tis", cw_engine, dense_queries, clip_np,
+                 n)):
+            ms = request_ms(lambda: eng.run(frames, queries))
+            log(f"   engine.run {label} request, {count}x{h}x{w}x{nb} from "
+                f"host frames: {ms:.3f} ms median of 5 "
+                f"({count / ms * 1e3:.0f} frames/s)")
         ms = request_ms(lambda: banded_engine.run(frame_4k, band_queries))
         log(f"   engine.run banded request, 1x{bh}x{bw}x{bnb} in 8 bands: "
             f"{ms:.3f} ms median of 5")
@@ -1318,6 +1426,11 @@ def run(torch) -> list[dict]:
         for label, prev_given in (("incremental", True), ("full", False)):
             log(f"   video {label} request, torch.profiler over 10: "
                 + profile_requests(torch, lambda: chain(prev_given, 11)))
+        # After every host-clock timing, so that no timed request follows
+        # a profiler session.
+        log("   fused request on one frame, torch.profiler over 10: "
+            + profile_requests(torch, lambda: [
+                engine.run(clip_np[0], fused_queries) for _ in range(10)]))
 
         # The repair step of frame 1 alone: update_dense_ih's K3 walk as
         # the port runs it (one new H, K3 writing the rows below into it)

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time K1 (WF-TiS) and K5 (SSD scan) of any tree of the repo on one GPU.
+"""Time K1 (WF-TiS), K2 (fused rows) and K5 (SSD scan) of any tree of the
+repo on one GPU.
 
     python3 scripts/kernel_times.py [--src DIR] [--label NAME] [--json PATH]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so that another tree, such as a parent commit unpacked with ``git
 archive``, is timed at the shapes ``chip_smoke.py`` times its own at:
-K1 at ``chip_smoke.K1_SHAPES`` and K5 at ``chip_smoke.K5_SHAPE``, with
-chip_smoke's inputs, timer (``time_ms``) and K1 byte bound.  Only the
-wrappers ``wf_tis_cuda`` and ``ssd_scan_cuda`` are called, which every
-tree of the port has.  Run parent, change, change, parent on one machine
-to compare two trees.  Each result is held against its plain version (K1
-bit for bit, K5 within chip_smoke's K5_ATOL / K5_RTOL).  Prints one JSON
-line as its last, and writes it to ``--json`` when given.
+K1 at ``chip_smoke.K1_SHAPES``, K2 at ``chip_smoke.K2_SHAPES`` and K5 at
+``chip_smoke.K5_SHAPE``, with chip_smoke's inputs, timer (``time_ms``),
+byte bounds and profiler count (``device_kernels``: K2's CUDA launches and
+device µs a call).  Only the wrappers ``wf_tis_cuda``,
+``fused_rows_cuda`` and ``ssd_scan_cuda`` and their plain versions are
+called, which every tree of the port has.  Run parent, change, change,
+parent on one machine to compare two trees.  Each result is held against
+its plain version (K1 and K2 bit for bit, K5 within chip_smoke's K5_ATOL /
+K5_RTOL).  Prints one JSON line as its last, and writes it to ``--json``
+when given.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ def main() -> int:
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     torch.backends.cuda.matmul.allow_tf32 = False
     wf = importlib.import_module("repro_torch.kernels.wf_tis")
+    fr = importlib.import_module("repro_torch.kernels.fused_rows")
     ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
     dev = torch.device("cuda")
     result = {"label": args.label, "src": args.src,
@@ -61,6 +66,31 @@ def main() -> int:
               f"{' + carry' if with_carry else ''}: {ms:.4f} ms | bound "
               f"{bound:.4f} ms ({bound / ms:.1%})", flush=True)
         del ids, carry
+        torch.cuda.empty_cache()
+
+    result["k2"] = {}
+    for label, ((n, h, w, bins, rows), _) in smoke.K2_SHAPES.items():
+        ids, _ = smoke.k1_inputs(torch, dev, n, h, w, bins, False)
+
+        def call():
+            return fr.fused_rows_cuda(ids, bins, rows)
+
+        if not torch.equal(call(), fr.fused_rows_plain(ids, bins, rows)):
+            print(f"kernel_times: K2 != plain at {label}", file=sys.stderr)
+            return 1
+        ms = smoke.time_ms(call)
+        per_call, kernel_us = smoke.device_kernels(torch, call)
+        bound = smoke.k2_bytes(ids, bins, rows, None) / smoke.HBM_BYTES_PER_S \
+            * 1e3
+        result["k2"][label] = {
+            "ms": ms, "bound_ms": bound, "cuda_launches_per_call": per_call,
+            "device_us": kernel_us}
+        print(f"K2 {label} {n}x{h}x{w}x{bins}, {len(rows)} rows: {ms:.4f} ms "
+              f"| bound {bound:.4f} ms ({bound / ms:.1%}) | profiled: "
+              f"{per_call} CUDA launch(es) a call, device µs a call "
+              + ", ".join(f"{k[:48]} {v:.2f}" for k, v in kernel_us.items()),
+              flush=True)
+        del ids
         torch.cuda.empty_cache()
 
     x, dt, A, Bm, Cm, _ = smoke.ssd_inputs(torch, dev, 9)

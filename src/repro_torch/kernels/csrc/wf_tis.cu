@@ -85,6 +85,29 @@ cudaError_t launch_counts(const int* idx, float* counts, int n, int h, int w,
   return cudaGetLastError();
 }
 
+// The scan: dispatch on the bin block and the columns per thread (4*q).
+// It walks rows [0, h) in strips of strip_rows; with more than one strip,
+// counts must hold count_kernel's output for the same strip_rows.  Kept
+// here, not in the header, so that the other sources that include
+// wf_tis_scan.cuh do not instantiate its twelve scan kernels.
+cudaError_t launch_scan(const int* idx, const float* carry,
+                        const float* counts, float* out, int n, int h, int w,
+                        int nb, int bin_block, int threads, int q,
+                        int strip_rows, cudaStream_t stream) {
+  if (threads <= 0 || threads > 1024 || (threads & 31) != 0)
+    return cudaErrorInvalidValue;
+  if ((size_t)threads * 4 * q < (size_t)w) return cudaErrorInvalidValue;
+  if (strip_rows <= 0) return cudaErrorInvalidValue;
+  if (strip_rows < h && counts == nullptr) return cudaErrorInvalidValue;
+  switch (bin_block) {
+    case 1: return wf_tis_scan::launch_bb<1>(idx, carry, counts, out, n, h, w, nb, threads, q, strip_rows, stream);
+    case 2: return wf_tis_scan::launch_bb<2>(idx, carry, counts, out, n, h, w, nb, threads, q, strip_rows, stream);
+    case 4: return wf_tis_scan::launch_bb<4>(idx, carry, counts, out, n, h, w, nb, threads, q, strip_rows, stream);
+    case 8: return wf_tis_scan::launch_bb<8>(idx, carry, counts, out, n, h, w, nb, threads, q, strip_rows, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int wf_tis_launch(const int* idx, const float* carry, float* counts,
@@ -99,7 +122,6 @@ extern "C" int wf_tis_launch(const int* idx, const float* carry, float* counts,
         launch_counts(idx, counts, n, h, w, num_bins, strip_rows, st);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)wf_tis_scan::launch<false>(
-      idx, carry, nullptr, counts, out, n, h, h, w, num_bins, h, bin_block,
-      threads, q, strip_rows, st);
+  return (int)launch_scan(idx, carry, counts, out, n, h, w, num_bins,
+                          bin_block, threads, q, strip_rows, st);
 }

@@ -1,10 +1,9 @@
-// WF-TiS integral-histogram scan for Hopper (sm_90a), shared by the dense
-// kernel (wf_tis.cu, K1) and the query-fused kernel (fused_rows.cu, K2).
-// Its row loader and CTA-wide row scan (load_ids, cta_exclusive_scan) are
-// also the horizontal pass of CW-TiS (cw_tis.cu, K4).
+// WF-TiS integral-histogram scan for Hopper (sm_90a), the dense kernel
+// (wf_tis.cu, K1).  Its row loader and CTA-wide row scan (load_ids,
+// cta_exclusive_scan) are also the horizontal pass of CW-TiS (cw_tis.cu,
+// K4) and the chunk pass of the query-fused kernel (fused_rows.cu, K2).
 //
-// Replaces repro/kernels/wf_tis.py::_wf_tis_kernel and
-// repro/kernels/fused_rows.py::_fused_rows_kernel.  What it computes:
+// Replaces repro/kernels/wf_tis.py::_wf_tis_kernel.  What it computes:
 //
 //   H[f, b, r, c] = carry[f, b, c] + #{(r', c') : r' <= r, c' <= c,
 //                                      idx[f, r', c'] == b}
@@ -25,10 +24,10 @@
 //   * Row r of H is the prefix over columns of V[r, :]: a thread-local
 //     prefix over its 4*Q columns, a warp scan of thread totals with
 //     shuffles, and a pass over the per-warp totals in shared memory.  One
-//     __syncthreads per emitted row (double-buffered warp totals).
+//     __syncthreads per row (double-buffered warp totals).
 //   * The band carry-in enters as the column differences of the carry row,
 //     seeded into V, so the same prefix reproduces carry[c] + local H.
-//   * Strips (K1 only).  A walk costs about half a microsecond a row, so a
+//   * Strips.  A walk costs about half a microsecond a row, so a
 //     frame walked by one CTA per (frame, bin block) leaves most SMs idle
 //     when there are few frames (one 480x640 frame at 32 bins: 32 CTAs of
 //     480 rows).  Cut into strips of R rows, each CTA walks R rows; a
@@ -39,10 +38,6 @@
 //     kernels/wf_tis.py::launch_shape keeps for shapes that already fill
 //     the card (the clip, 1080p, a 4K band) and for runs too low for
 //     strips to pay (a video dirty run); it needs no pre-pass.
-//   * FUSED (K2): one strip; only rows with row_slot[r] >= 0 are scanned
-//     across columns and written, to output row row_slot[r]; other rows
-//     only update V.  The caller stops the walk after the last requested
-//     row.
 //
 // Every value is an integer below 2^24, so fp32 adds are exact in any
 // order and the result equals the plain one-hot + cumsum version bit for
@@ -145,16 +140,14 @@ __device__ __forceinline__ float4 sum_strips(const float* __restrict__ cnt,
 
 // The CTA walks strip blockIdx.z of strip_rows rows, seeded from counts
 // (strip 0 from the carry alone); with one strip (gridDim.z == 1 and
-// strip_rows >= h_run, as K2 and a K1 shape that keeps one strip) that is
-// the whole walk [0, h_run).
-template <int BB, int Q, bool FUSED>
+// strip_rows >= h, a shape that keeps one strip) that is the whole walk.
+template <int BB, int Q>
 __global__ void __launch_bounds__(1024)
 scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
             const float* __restrict__ carry,   // (n, nb, w) or nullptr
-            const int* __restrict__ row_slot,  // (h_run,) FUSED only
             const float* __restrict__ counts,  // (n, nb, strips - 1, w)
-            float* __restrict__ out,           // (n, nb, h_out, w)
-            int h, int h_run, int w, int nb, int h_out, int strip_rows) {
+            float* __restrict__ out,           // (n, nb, h, w)
+            int h, int w, int nb, int strip_rows) {
   extern __shared__ float4 smem4[];
   const int threads = blockDim.x;
   const int tid = threadIdx.x;
@@ -164,7 +157,7 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
   const int b0 = blockIdx.y * BB;
   const int strip = blockIdx.z;
   const int r_begin = strip * strip_rows;
-  const int r_end = min(h_run, r_begin + strip_rows);
+  const int r_end = min(h, r_begin + strip_rows);
   const int c_first = tid * 4 * Q;           // first column of this thread
 
   // V[j][q] for this thread lives at smem4[(j * Q + q) * threads + tid]:
@@ -218,25 +211,14 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
     load_ids<Q>(frame + (size_t)r * w, c_first, w, vec_in, dst);
   };
 
-  // The next row's bin ids and output slot are loaded one row ahead, so
-  // their latency overlaps this row's work instead of stalling the walk.
+  // The next row's bin ids are loaded one row ahead, so their latency
+  // overlaps this row's work instead of stalling the walk.
   int4 cur[Q];
   int4 nxt[Q];
-  int slot_cur = 0;
-  int slot_nxt = 0;
-  if (r_begin < r_end) {
-    load_row(r_begin, cur);
-    if (FUSED) slot_cur = __ldg(row_slot + r_begin);
-  }
-  int emitted = 0;
+  if (r_begin < r_end) load_row(r_begin, cur);
 
   for (int r = r_begin; r < r_end; ++r) {
-    if (r + 1 < r_end) {
-      load_row(r + 1, nxt);
-      if (FUSED) slot_nxt = __ldg(row_slot + r + 1);
-    }
-    const int slot = FUSED ? slot_cur : r;
-    const bool emit = !FUSED || slot >= 0;     // uniform across the CTA
+    if (r + 1 < r_end) load_row(r + 1, nxt);
 
     // Vertical step: V += one-hot of this row; thread totals of V.
     float tot[BB];
@@ -257,100 +239,71 @@ scan_kernel(const int* __restrict__ idx,       // (n, h, w) bin ids
       tot[j] = t;
     }
 
-    if (emit) {
-      // Horizontal step: exclusive prefix of the thread totals across the
-      // CTA (warp shuffle scan, then the per-warp totals).
-      float excl[BB];
-      cta_exclusive_scan<BB>(tot, excl, warp_tot + (emitted & 1) * BB * 32,
-                             lane, warp);
+    // Horizontal step: exclusive prefix of the thread totals across the
+    // CTA (warp shuffle scan, then the per-warp totals).
+    float excl[BB];
+    cta_exclusive_scan<BB>(tot, excl, warp_tot + ((r - r_begin) & 1) * BB * 32,
+                           lane, warp);
 
 #pragma unroll
-      for (int j = 0; j < BB; ++j) {
-        const int b = b0 + j;
-        float run = excl[j];
-        if (b >= nb) continue;
-        float* orow = out + (((size_t)f * nb + b) * h_out + slot) * w;
+    for (int j = 0; j < BB; ++j) {
+      const int b = b0 + j;
+      float run = excl[j];
+      if (b >= nb) continue;
+      float* orow = out + (((size_t)f * nb + b) * h + r) * w;
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int c = c_first + 4 * q;
-          const float4 v = V[(j * Q + q) * threads + tid];
-          float4 o;
-          o.x = run + v.x;
-          o.y = o.x + v.y;
-          o.z = o.y + v.z;
-          o.w = o.z + v.w;
-          run = o.w;
-          if (vec_out) {
-            if (c < w) *reinterpret_cast<float4*>(orow + c) = o;
-          } else {
-            if (c < w) orow[c] = o.x;
-            if (c + 1 < w) orow[c + 1] = o.y;
-            if (c + 2 < w) orow[c + 2] = o.z;
-            if (c + 3 < w) orow[c + 3] = o.w;
-          }
+      for (int q = 0; q < Q; ++q) {
+        const int c = c_first + 4 * q;
+        const float4 v = V[(j * Q + q) * threads + tid];
+        float4 o;
+        o.x = run + v.x;
+        o.y = o.x + v.y;
+        o.z = o.y + v.z;
+        o.w = o.z + v.w;
+        run = o.w;
+        if (vec_out) {
+          if (c < w) *reinterpret_cast<float4*>(orow + c) = o;
+        } else {
+          if (c < w) orow[c] = o.x;
+          if (c + 1 < w) orow[c + 1] = o.y;
+          if (c + 2 < w) orow[c + 2] = o.z;
+          if (c + 3 < w) orow[c + 3] = o.w;
         }
       }
-      ++emitted;
     }
 
 #pragma unroll
     for (int q = 0; q < Q; ++q) cur[q] = nxt[q];
-    slot_cur = slot_nxt;
   }
 }
 
 // Launch one instantiation: threads is a multiple of 32, at most 1024; a
 // CTA per (frame, bin block, strip of strip_rows rows).
-template <int BB, int Q, bool FUSED>
-cudaError_t launch_bbq(const int* idx, const float* carry, const int* row_slot,
-                       const float* counts, float* out, int n, int h,
-                       int h_run, int w, int nb, int h_out, int threads,
+template <int BB, int Q>
+cudaError_t launch_bbq(const int* idx, const float* carry, const float* counts,
+                       float* out, int n, int h, int w, int nb, int threads,
                        int strip_rows, cudaStream_t stream) {
   const size_t smem = smem_bytes(BB, threads, Q);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        scan_kernel<BB, Q, FUSED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        scan_kernel<BB, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(n, (nb + BB - 1) / BB,
-                  (h_run + strip_rows - 1) / strip_rows);
-  scan_kernel<BB, Q, FUSED><<<grid, threads, smem, stream>>>(
-      idx, carry, row_slot, counts, out, h, h_run, w, nb, h_out, strip_rows);
+  const dim3 grid(n, (nb + BB - 1) / BB, (h + strip_rows - 1) / strip_rows);
+  scan_kernel<BB, Q><<<grid, threads, smem, stream>>>(idx, carry, counts, out,
+                                                      h, w, nb, strip_rows);
   return cudaGetLastError();
 }
 
-template <int BB, bool FUSED>
-cudaError_t launch_bb(const int* idx, const float* carry, const int* row_slot,
-                      const float* counts, float* out, int n, int h,
-                      int h_run, int w, int nb, int h_out, int threads, int q,
-                      int strip_rows, cudaStream_t stream) {
+template <int BB>
+cudaError_t launch_bb(const int* idx, const float* carry, const float* counts,
+                      float* out, int n, int h, int w, int nb, int threads,
+                      int q, int strip_rows, cudaStream_t stream) {
   switch (q) {
-    case 1: return launch_bbq<BB, 1, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, strip_rows, stream);
-    case 2: return launch_bbq<BB, 2, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, strip_rows, stream);
-    case 4: return launch_bbq<BB, 4, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, strip_rows, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Dispatch on the bin block and the columns per thread (4*q).  The scan
-// walks rows [0, h_run) in strips of strip_rows; with more than one strip,
-// counts must hold count_kernel's output for the same strip_rows.
-template <bool FUSED>
-cudaError_t launch(const int* idx, const float* carry, const int* row_slot,
-                   const float* counts, float* out, int n, int h, int h_run,
-                   int w, int nb, int h_out, int bin_block, int threads, int q,
-                   int strip_rows, cudaStream_t stream) {
-  if (threads <= 0 || threads > 1024 || (threads & 31) != 0)
-    return cudaErrorInvalidValue;
-  if ((size_t)threads * 4 * q < (size_t)w) return cudaErrorInvalidValue;
-  if (strip_rows <= 0) return cudaErrorInvalidValue;
-  if (strip_rows < h_run && counts == nullptr) return cudaErrorInvalidValue;
-  switch (bin_block) {
-    case 1: return launch_bb<1, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
-    case 2: return launch_bb<2, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
-    case 4: return launch_bb<4, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
-    case 8: return launch_bb<8, FUSED>(idx, carry, row_slot, counts, out, n, h, h_run, w, nb, h_out, threads, q, strip_rows, stream);
+    case 1: return launch_bbq<BB, 1>(idx, carry, counts, out, n, h, w, nb, threads, strip_rows, stream);
+    case 2: return launch_bbq<BB, 2>(idx, carry, counts, out, n, h, w, nb, threads, strip_rows, stream);
+    case 4: return launch_bbq<BB, 4>(idx, carry, counts, out, n, h, w, nb, threads, strip_rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,38 +1,50 @@
-"""K2: the query-fused WF-TiS scan — only the requested rows of H.
+"""K2: the query-fused integral histogram — only the requested rows of H.
 
 Replaces ``repro/kernels/fused_rows.py::fused_rows_pallas`` (body
 ``_fused_rows_kernel``, host ``slot_plan``).  Source:
-``csrc/fused_rows.cu`` over the same scan as K1
-(``csrc/wf_tis_scan.cuh``, the ``FUSED`` instantiation).
+``csrc/fused_rows.cu``, built for ``sm_90a`` by ``kernels/_build.py``.
 
-What bounds it on an H100: the walk, not the output.  It writes
-``num_bins * len(rows) * w`` floats, usually a small fraction of H, and
-reads the bin ids of every row down to the last requested one.  The
-design keeps K1's walk, skips the cross-column scan and the store on
-every row that is not requested, and stops after the last requested row
-(rows below it feed no output).  The TPU kernel's per-strip ``(nth, kp)``
-slot slabs and its one-hot selection matmul exist only because a TPU has
-no dynamic sublane gather; here a ``row -> slot`` map, built on the host
-from the row ids and copied with the launch, puts each row straight at
-its place in request order.
+What bounds it on an H100: bytes, once nothing walks.  It reads the bin
+ids of the rows down to the last requested one and writes ``num_bins *
+len(rows) * w`` floats, usually a small fraction of H.  A walk down those
+rows (the TPU kernel's sequential grid, and this port's first K2) costs
+about half a microsecond a row whatever it emits, so the design has none.
+A row scan is linear: row ``rows[i]`` of H is the carry row plus the sum,
+over row chunks above it, of each chunk's row-scanned column counts.  The
+host cuts the rows into chunks that end at every requested row
+(``chunk_plan``, cached by the rows, copied with the launch from pageable
+memory without a stream sync); pass A counts and row-scans every chunk at
+once (one CTA per frame, chunk and bin block), pass B sums them down the
+chunk axis (one thread per frame, bin and 4 columns) from the carry and
+writes the requested rows: two CUDA launches a call, no CTA waiting on
+another.  The TPU kernel's per-strip slot slabs and one-hot selection
+matmul exist only because a TPU has no dynamic sublane gather; here each
+chunk carries the output slot of the row it ends.
 
-``fused_rows_cuda`` launches the kernel for a CUDA tensor and runs
+``fused_rows_cuda`` launches the kernels for a CUDA tensor and runs
 ``fused_rows_plain`` (K1's plain version, then the rows) only for a CPU
-tensor.  ``fused_rows_cuda.launches`` counts kernel launches.
+tensor.  ``fused_rows_cuda.launches`` counts calls that launched them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.wf_tis import (
-    check_inputs,
-    launch_shape,
-    wf_tis_plain,
-)
+from repro_torch.kernels import wf_tis
+from repro_torch.kernels.wf_tis import check_inputs, wf_tis_plain
+
+_BIN_BLOCKS = (8, 4, 2, 1)      # instantiated bin blocks (template BB)
+_MAX_THREADS = 512  # pass A threads (csrc kMaxThreads): 2048 columns a slab
+_FILL_CTAS = 2 * wf_tis._SMS    # pass A CTAs a chunk cut aims for
+_MAX_CHUNK_ROWS = 255           # pass A counts a chunk's hits in one byte
+# K1 scans at most this many columns; K2 keeps the same limit so that a
+# fused and a dense plan take the same frames.
+_MAX_WIDTH = wf_tis._MAX_THREADS * 4 * wf_tis._MAX_CHUNKS
 
 
 def check_rows(row_ids, h: int) -> np.ndarray:
@@ -46,12 +58,76 @@ def check_rows(row_ids, h: int) -> np.ndarray:
     return rows
 
 
-def row_slot_map(rows: np.ndarray, h: int) -> torch.Tensor:
-    """int32 (h,) map: ``map[rows[i]] = i``, -1 for other rows."""
-    slot = torch.full((h,), -1, dtype=torch.int32)
-    slot[torch.as_tensor(rows, dtype=torch.int64)] = torch.arange(
-        len(rows), dtype=torch.int32)
-    return slot
+class ChunkShape(NamedTuple):
+    """How a K2 call is cut: ``bin_block`` bins a pass-A CTA, ``threads``
+    threads of 4 columns each, chunks of at most ``chunk_rows`` rows."""
+    bin_block: int
+    threads: int
+    chunk_rows: int
+
+
+@functools.lru_cache(maxsize=256)
+def chunk_shape(w: int, num_bins: int, n: int, num_rows: int, h_run: int,
+                bin_block: int | None = None) -> ChunkShape:
+    """The launch for ``num_rows`` requested rows, the last ``h_run - 1``,
+    of ``n`` frames ``w`` wide.
+
+    ``bin_block=None`` takes 8, or the smallest block that holds
+    ``num_bins``: eight bins fit pass A's 64 registers a thread (two
+    registers of byte counts a column) and read a chunk's ids a quarter as
+    often as two bins would; the width is taken slab by slab.  Chunks stay
+    whole segments between requested rows (``chunk_rows = h_run``) where
+    those already give pass A two CTAs an SM; otherwise ``chunk_rows`` is
+    cut so that the chunks do (``chunk_plan`` makes at least ``h_run //
+    chunk_rows``).  Either way a chunk holds at most 255 rows, the most
+    pass A counts in a byte."""
+    if w > _MAX_WIDTH:
+        raise NotImplementedError(
+            f"width {w} exceeds the {_MAX_WIDTH} columns one CTA scans; "
+            "wider frames need column strips with a row-carry pre-pass (not "
+            "ported yet)")
+    if bin_block is None:
+        bin_block = min(bb for bb in _BIN_BLOCKS
+                        if bb >= min(num_bins, _BIN_BLOCKS[0]))
+    elif bin_block not in _BIN_BLOCKS:
+        raise ValueError(f"bin_block must be one of {_BIN_BLOCKS}, "
+                         f"got {bin_block}")
+    threads = min(_MAX_THREADS, 32 * max(1, -(-w // 128)))
+    ctas = n * -(-num_bins // bin_block)
+    if ctas * num_rows >= _FILL_CTAS:
+        rows = h_run
+    else:
+        rows = max(1, h_run // -(-_FILL_CTAS // ctas))
+    return ChunkShape(bin_block, threads, min(rows, _MAX_CHUNK_ROWS))
+
+
+def chunk_plan(rows: np.ndarray, chunk_rows: int) -> tuple[np.ndarray,
+                                                           np.ndarray]:
+    """Cut rows ``[0, rows[-1]]`` into chunks that end at every requested
+    row and hold at most ``chunk_rows`` rows.
+
+    Each segment between requested rows is split into as few chunks as
+    that allows, of near-equal length.  Returns int32 ``first`` (M,), each
+    chunk's first row, and ``slot`` (M,): ``i`` for the chunk that ends at
+    ``rows[i]``, -1 for the others."""
+    start = np.concatenate(([0], rows[:-1] + 1))
+    length = rows - start + 1
+    pieces = -(-length // chunk_rows)
+    seg = np.repeat(np.arange(rows.size), pieces)
+    k = np.arange(seg.size) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    first = start[seg] + length[seg] * k // pieces[seg]
+    slot = np.where(k == pieces[seg] - 1, seg, -1)
+    return first.astype(np.int32), slot.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=256)
+def _host_plan(rows_key: bytes, chunk_rows: int) -> np.ndarray:
+    """``chunk_plan`` as one int32 array, ``first`` then ``slot``, cached by
+    the rows' bytes: a stream asks for the same rows frame after frame."""
+    plan = np.concatenate(chunk_plan(np.frombuffer(rows_key, np.int64),
+                                     chunk_rows))
+    plan.flags.writeable = False        # every caller shares this array
+    return plan
 
 
 def fused_rows_plain(idx: torch.Tensor, num_bins: int, row_ids,
@@ -67,10 +143,51 @@ def _lib():
     lib = _build.library("fused_rows.cu")
     fn = lib.fused_rows_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(idx: torch.Tensor, num_bins: int, rows: np.ndarray,
+           shape: ChunkShape, carry: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """K2 on a CUDA tensor with the given ``shape`` (from ``chunk_shape``):
+    the plan's copy, pass A, pass B.  ``fused_rows_cuda`` picks the shape
+    and counts its calls; tests pin chunk cuts through this.  ``rows`` are
+    checked int64 rows (``check_rows``).  Returns (n, num_bins, len(rows),
+    w)."""
+    check_inputs(idx, num_bins, carry)
+    if not idx.is_cuda:
+        raise ValueError("launch runs K2 on a CUDA tensor only")
+    if not 1 <= shape.chunk_rows <= _MAX_CHUNK_ROWS:
+        raise ValueError(f"chunk_rows must be in [1, {_MAX_CHUNK_ROWS}], got "
+                         f"{shape.chunk_rows}")
+    n, h, w = idx.shape
+    out = torch.empty((n, num_bins, rows.size, w), dtype=torch.float32,
+                      device=idx.device)
+    if out.numel() == 0:
+        return out
+    plan = _host_plan(np.ascontiguousarray(rows, np.int64).tobytes(),
+                      shape.chunk_rows)
+    chunks = plan.size // 2
+    plan_dev = torch.empty(plan.shape, dtype=torch.int32, device=idx.device)
+    # Where every chunk ends a requested row, pass A writes the output and
+    # pass B sums it in place.
+    P = out if chunks == rows.size else torch.empty(
+        (n, num_bins, chunks, w), dtype=torch.float32, device=idx.device)
+    fn = _lib()
+    with torch.cuda.device(idx.device):
+        err = fn(idx.data_ptr(),
+                 None if carry is None else carry.data_ptr(),
+                 plan.ctypes.data, plan_dev.data_ptr(), P.data_ptr(),
+                 out.data_ptr(), n, h, int(rows[-1]) + 1, w, num_bins,
+                 chunks, rows.size, shape.bin_block, shape.threads,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"fused_rows kernel launch failed: CUDA error {err}")
+    return out
 
 
 def fused_rows_cuda(idx: torch.Tensor, num_bins: int, row_ids, *,
@@ -82,8 +199,9 @@ def fused_rows_cuda(idx: torch.Tensor, num_bins: int, row_ids, *,
       idx: (n, h, w) contiguous int32 bin ids (any value outside
         [0, num_bins) matches no bin).
       row_ids: sorted unique rows in [0, h), on the host (a sequence, a
-        numpy array or a CPU tensor): they are checked and turned into the
-        kernel's row -> slot map without waiting on the card.
+        numpy array or a CPU tensor): they are checked and cut into the
+        kernels' chunk plan, whose copy does not wait on the card.
+      bin_block: bins a pass-A CTA counts (1, 2, 4 or 8), ``None`` to pick.
       carry: optional (n, num_bins, w) fp32 band carry-in.
 
     Returns:
@@ -95,23 +213,9 @@ def fused_rows_cuda(idx: torch.Tensor, num_bins: int, row_ids, *,
     rows = check_rows(row_ids, h)
     if not idx.is_cuda:
         return fused_rows_plain(idx, num_bins, rows, carry)
-    # A pinned source lets the copy run ahead of the host (no stream sync).
-    slot = row_slot_map(rows, h).pin_memory().to(idx.device, non_blocking=True)
-    out = torch.empty((n, num_bins, rows.size, w), dtype=torch.float32,
-                      device=idx.device)
-    if out.numel() == 0:
-        return out
-    bb, threads, chunks, _ = launch_shape(w, num_bins, n, bin_block)
-    fn = _lib()
-    with torch.cuda.device(idx.device):
-        err = fn(idx.data_ptr(),
-                 None if carry is None else carry.data_ptr(),
-                 slot.data_ptr(), out.data_ptr(), n, h, int(rows[-1]) + 1, w,
-                 num_bins, rows.size, bb, threads, chunks,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"fused_rows kernel launch failed: CUDA error {err}")
+    shape = chunk_shape(w, num_bins, n, rows.size, int(rows[-1]) + 1,
+                        bin_block)
+    out = launch(idx, num_bins, rows, shape, carry)
     fused_rows_cuda.launches += 1
     return out
 

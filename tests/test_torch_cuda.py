@@ -26,7 +26,13 @@ from repro_torch.kernels.cw_tis import (
     cw_tis_vscan_cuda,
 )
 from repro_torch.kernels.delta_apply import delta_apply_cuda, delta_apply_plain
-from repro_torch.kernels.fused_rows import fused_rows_cuda
+from repro_torch.kernels.fused_rows import (
+    check_rows,
+    chunk_shape,
+    fused_rows_cuda,
+    fused_rows_plain,
+)
+from repro_torch.kernels.fused_rows import launch as k2_launch
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.wf_tis import (
     launch,
@@ -109,6 +115,105 @@ def test_k1_path_shapes_equal_plain(cuda_device, n, h, w, bins, with_carry):
     got = wf_tis_cuda(idx, bins, carry=carry)
     assert wf_tis_cuda.launches == before + 1     # one call, however cut
     assert torch.equal(got, wf_tis_plain(idx, bins, carry))
+
+
+def _k2_case(device, seed, n, h, w, bins, with_carry):
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(rng.integers(-1, bins + 1, (n, h, w)),
+                          dtype=torch.int32, device=device)
+    carry = (torch.as_tensor(_carry(seed, (n, h, w), bins), device=device)
+             if with_carry else None)
+    return idx, carry
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+@pytest.mark.parametrize("w", [1, 131, 640, 4099])
+@pytest.mark.parametrize("bin_block", [1, 2, 4, 8])
+def test_k2_bin_blocks_and_widths_equal_plain(cuda_device, bin_block, w,
+                                              with_carry):
+    """K2 at every bin block, at widths that take scalar and 16-byte
+    accesses and one (4099) that pass A covers in three column slabs;
+    rows 0 and h - 1, a run of consecutive rows and a long segment."""
+    idx, carry = _k2_case(cuda_device, 30, 2, 70, w, 32, with_carry)
+    rows = np.array([0, 1, 2, 3, 9, 40, 69])
+    before = fused_rows_cuda.launches
+    got = fused_rows_cuda(idx, 32, rows, bin_block=bin_block, carry=carry)
+    assert fused_rows_cuda.launches == before + 1
+    assert torch.equal(got, fused_rows_plain(idx, 32, rows, carry))
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+@pytest.mark.parametrize("n,h,rows", [
+    (1, 64, (0, 17, 40)),                   # the first row
+    (1, 64, (5, 33, 63)),                   # the last row
+    (1, 64, (20, 21, 22, 23, 50)),          # chunks of one row
+    (3, 64, (31,)),                         # a single row
+    (1, 480, (2, 470)),                     # long segments: 7-row chunks
+    (16, 480, (2, 470)),                    # the same in 94-row chunks
+    (2, 1, (0,)),                           # h = 1
+    (40, 480, (2, 470)),                    # 468 rows: two 234-row chunks
+    (1, 480, tuple(range(3, 480, 4))),      # 120 rows of 480: the fuse bound
+    (16, 480, tuple(range(3, 480, 4))),     # the same on 16 frames, in place
+    (1, 480, (99, 219)),                    # one frame, one rect
+])
+def test_k2_row_sets_equal_plain(cuda_device, n, h, rows, with_carry):
+    idx, carry = _k2_case(cuda_device, 31, n, h, 640, 32, with_carry)
+    got = fused_rows_cuda(idx, 32, rows, carry=carry)
+    assert torch.equal(got, fused_rows_plain(idx, 32, rows, carry))
+
+
+@pytest.mark.parametrize("bin_block", [2, 8])
+@pytest.mark.parametrize("chunk_rows", [1, 3, 70])
+@pytest.mark.parametrize("w,rows", [
+    (640, (0, 1, 2, 9, 30, 31, 47, 69)),
+    (4099, (5, 6, 40, 69)),                 # three column slabs a chunk
+    (640, (60, 69)),                        # 61 rows: 8 row batches a chunk
+])
+def test_k2_chunk_cuts_equal_plain(cuda_device, bin_block, chunk_rows, w,
+                                   rows):
+    """Chunks of at most ``chunk_rows`` rows, from rows one at a time to
+    whole segments (several row batches a chunk), give the same rows."""
+    idx, carry = _k2_case(cuda_device, 33, 2, 70, w, 32, True)
+    rows = check_rows(rows, 70)
+    shape = chunk_shape(w, 32, 2, rows.size, int(rows[-1]) + 1,
+                        bin_block)._replace(chunk_rows=chunk_rows)
+    got = k2_launch(idx, 32, rows, shape, carry)
+    assert torch.equal(got, fused_rows_plain(idx, 32, rows, carry))
+
+
+@pytest.mark.parametrize("chunk_rows,rows", [
+    (255, (254, 299)),          # a chunk of 255 rows, the most a byte counts
+    (255, (40, 299)),           # a segment of 259 rows: two chunks
+])
+def test_k2_counts_fill_a_byte(cuda_device, chunk_rows, rows):
+    """Every id in one bin: pass A's packed counts reach 255 in a column
+    and must not carry into the next bin's byte."""
+    for value in (0, 3, 4, 7, 31):
+        idx = torch.full((1, 300, 131), value, dtype=torch.int32,
+                         device=cuda_device)
+        rows_ = check_rows(rows, 300)
+        shape = chunk_shape(131, 32, 1, rows_.size, 300)._replace(
+            chunk_rows=chunk_rows)
+        got = k2_launch(idx, 32, rows_, shape)
+        assert torch.equal(got, fused_rows_plain(idx, 32, rows_))
+    with pytest.raises(ValueError, match="chunk_rows"):
+        k2_launch(idx, 32, rows_, shape._replace(chunk_rows=256))
+
+
+def test_one_frame_fused_request_launches_k2_once(cuda_device):
+    """A real-time stream's request: one 480x640 frame, one rect.  It plans
+    fused (rows 99 and 219) and launches K2 once, K1 never."""
+    frame = np.random.default_rng(32).integers(0, 256, (480, 640), np.uint8)
+    queries = [RegionQuery(np.array([[100, 120, 219, 279]]))]
+    _zero_counts()
+    got = HistogramEngine(num_bins=32).run(frame, queries)
+    counts = _counts()
+    assert got.plan.representation == "fused"
+    assert list(got.plan.spec.query_rows) == [99, 219]
+    assert counts == {"wf_tis": 0, "fused_rows": 1, "delta_apply": 0,
+                      "cw_tis_hscan": 0, "cw_tis_vscan": 0}, counts
+    want = HistogramEngine(num_bins=32, backend="torch").run(frame, queries)
+    assert torch.equal(got.results[0], want.results[0])
 
 
 def test_engine_on_the_card_launches_the_kernels(cuda_device):

@@ -18,9 +18,10 @@ from repro_torch.core import binning
 from repro_torch.device import as_tensor
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_rows import (
+    chunk_plan,
+    chunk_shape,
     fused_rows_cuda,
     fused_rows_plain,
-    row_slot_map,
 )
 from repro_torch.kernels.wf_tis import launch_shape, wf_tis_cuda, wf_tis_plain
 
@@ -179,9 +180,11 @@ def test_fused_early_cut_stats():
 
 
 def test_row_slot_map_and_plain_k2():
-    slot = row_slot_map(np.array([2, 5, 6]), 8)
-    assert slot.dtype == torch.int32
-    assert slot.tolist() == [-1, -1, 0, -1, -1, 1, 2, -1]
+    # The row -> slot map lives in the chunk plan: each chunk that ends a
+    # requested row carries that row's output slot.
+    first, slot = chunk_plan(np.array([2, 5, 6]), 8)
+    assert first.dtype == slot.dtype == np.int32
+    assert (first.tolist(), slot.tolist()) == ([0, 3, 6], [0, 1, 2])
     idx = binning.bin_indices(torch.as_tensor(_frames(8, (2, 8, 9))), 4)
     R = fused_rows_plain(idx, 4, [2, 5, 6])
     np.testing.assert_array_equal(_np(R), _np(wf_tis_plain(idx, 4)[..., [2, 5, 6], :]))
@@ -189,6 +192,112 @@ def test_row_slot_map_and_plain_k2():
     for bad in ([5, 2], [2, 2], [], [-1, 3], [3, 8]):
         with pytest.raises(ValueError, match="sorted unique"):
             fused_rows_cuda(idx, 4, bad)
+
+
+# Row sets for K2's chunk plan, (h, rows): the first row, the last row,
+# consecutive rows (chunks of one row), a single row, and long segments.
+K2_ROW_SETS = {
+    "first row": (64, (0, 17, 40)),
+    "last row": (64, (5, 33, 63)),
+    "consecutive": (64, (20, 21, 22, 23, 50)),
+    "single row": (64, (31,)),
+    "long segments": (64, (2, 61)),
+}
+
+
+@pytest.mark.parametrize("rows,chunk_rows,first,slot", [
+    ((0, 5), 8, [0, 1], [0, 1]),                        # the first row is 0
+    ((3, 63), 64, [0, 4], [0, 1]),                      # the last row is h - 1
+    ((4, 5, 6), 10, [0, 5, 6], [0, 1, 2]),              # chunks of one row
+    ((9,), 4, [0, 3, 6], [-1, -1, 0]),                  # a single row
+    ((1, 20), 4, [0, 2, 5, 9, 13, 17], [0, -1, -1, -1, -1, 1]),  # cut at R
+    ((1, 20), 64, [0, 2], [0, 1]),                      # whole segments
+])
+def test_chunk_plan(rows, chunk_rows, first, slot):
+    """K2's chunks end at every requested row, hold at most ``chunk_rows``
+    rows (a long segment in near-equal pieces), start at row 0, and carry
+    every output slot once, in request order."""
+    rows = np.asarray(rows)
+    got_first, got_slot = chunk_plan(rows, chunk_rows)
+    assert got_first.tolist() == first and got_slot.tolist() == slot
+    ends = np.append(got_first[1:], rows[-1] + 1)       # one past each chunk
+    assert got_first[0] == 0 and np.all(ends > got_first)
+    assert np.all(ends - got_first <= chunk_rows)
+    assert got_slot[got_slot >= 0].tolist() == list(range(rows.size))
+    np.testing.assert_array_equal(ends[got_slot >= 0] - 1, rows)
+
+
+@pytest.mark.parametrize("n,h,rows,chunks,ctas", [
+    (16, 480, "clip", 62, 3968),    # the clip: whole segments, M = K
+    (1, 480, "clip", 120, 480),     # one frame, the same rows: cut at 7
+    (1, 480, (99, 219), 74, 296),   # one frame, one rect's rows: cut at 3
+    (16, 480, "every 4", 120, 7680),    # the fuse bound, h / 4 rows
+    (1, 1, (0,), 1, 4),             # a single row cannot be cut
+])
+def test_chunk_shape_fills_the_card(n, h, rows, chunks, ctas):
+    """Pass A runs at least two CTAs an SM of the H100 (132 SMs) where the
+    rows allow it: the requested rows' segments alone where they give
+    that, else chunks of at most ``h_run // ceil(264 / CTAs a chunk)``
+    rows.  The bin block is 8 at 32 bins, one CTA covers 640 columns."""
+    rows = np.asarray({"clip": sorted(set(range(7, 480, 8)) | {99, 219}),
+                       "every 4": range(3, 480, 4)}.get(rows, rows))
+    shape = chunk_shape(640, 32, n, rows.size, int(rows[-1]) + 1)
+    assert (shape.bin_block, shape.threads) == (8, 160)
+    first, _ = chunk_plan(rows, shape.chunk_rows)
+    assert first.size == chunks
+    assert n * (32 // shape.bin_block) * chunks == ctas
+    assert ctas >= 2 * 132 or rows[-1] + 1 < 264
+    assert chunk_shape(5000, 3, 1, 1, 1) == (4, 512, 1)  # 3 slabs of columns
+    assert chunk_shape(640, 32, 200, 2, 480).chunk_rows == 255   # one byte
+    assert chunk_shape(640, 32, 1, 1, 1, bin_block=2).bin_block == 2
+    with pytest.raises(ValueError, match="bin_block"):
+        chunk_shape(640, 32, 1, 1, 1, bin_block=3)
+    with pytest.raises(NotImplementedError):
+        chunk_shape(20000, 8, 1, 1, 1)
+
+
+def _chunk_scan(ids, bins, rows, chunk_rows, carry=None):
+    """K2's two passes, restated: pass A counts each chunk's hits of each
+    bin in every column and scans the counts across the row (P); pass B
+    sums P down the chunk axis from the carry row and writes the sum of
+    every chunk that ends a requested row at that row's slot."""
+    n, h, w = ids.shape
+    first, slot = chunk_plan(np.asarray(rows), chunk_rows)
+    ends = np.append(first[1:], rows[-1] + 1)
+    onehot = (ids[:, None] == torch.arange(bins)[None, :, None, None])
+    onehot = onehot.to(torch.float32)                  # (n, bins, h, w)
+    P = torch.stack([torch.cumsum(onehot[:, :, a:b].sum(2), -1)
+                     for a, b in zip(first, ends)], 2)  # (n, bins, M, w)
+    acc = torch.zeros((n, bins, w)) if carry is None else carry.clone()
+    out = torch.empty((n, bins, len(rows), w))
+    for m in range(first.size):
+        acc = acc + P[:, :, m]
+        if slot[m] >= 0:
+            out[:, :, slot[m]] = acc
+    return out
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "jnp"])
+@pytest.mark.parametrize("with_carry", [False, True])
+@pytest.mark.parametrize("chunk_rows", [3, 64])
+@pytest.mark.parametrize("row_set", sorted(K2_ROW_SETS))
+def test_chunk_decomposition_equals_reference(row_set, chunk_rows, with_carry,
+                                              reference):
+    """K2's chunk passes give the reference's fused corner rows bit for
+    bit: its Pallas kernel in interpret mode and its jnp path, with and
+    without a carry-in, with long segments cut (3 rows) and whole (64)."""
+    h, rows = K2_ROW_SETS[row_set]
+    img = _frames(18, (2, h, 96))
+    carry = _carry(18, img.shape, 16) if with_carry else None
+    kwargs = (dict(backend="pallas", tile=32, bin_block=8, interpret=True)
+              if reference == "pallas_interpret" else dict(backend="jnp"))
+    want = ref_ops.fused_corner_rows(
+        jnp.asarray(img), 16, np.asarray(rows),
+        carry_in=None if carry is None else jnp.asarray(carry), **kwargs)
+    ids = binning.bin_indices(torch.as_tensor(img), 16)
+    got = _chunk_scan(ids, 16, rows, chunk_rows,
+                      None if carry is None else torch.as_tensor(carry))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
 def test_launch_shape_fits_the_card():
