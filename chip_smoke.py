@@ -37,12 +37,15 @@ non-zero before the result line is printed:
   main    HistogramEngine(num_bins=32).run on the clip: a request that
           plans "fused" and one that plans "dense"; the fused request on
           one frame (a real-time stream's request); answers held against
-          backend="torch" on the same card and against a direct count
+          backend="torch" on the same card and against a direct count;
+          distances.bin_sum against the in-order loop, and every metric on
+          the card against the CPU's
   bands   one 2160x3840 frame at 128 bins (dense H 4.25 GB) under a
           512 MiB budget: the engine plans 8 bands of 273 rows and streams
           them through K1 (one launch a band); rows of the BandedH and
           ops.integral_histogram(memory_budget_bytes=...) equal one dense
-          K1 launch; a storage="uint16" engine plans "spilled" and answers
+          K1 launch; map_bands(prefetch=1) gives the same rows, with both
+          times; a storage="uint16" engine plans "spilled" and answers
           region queries of at most 65535 px exactly, past the wrap
   video   a low-motion stream of 30 frames of 480x640 at 32 bins, each
           rewriting a 48-row block of its predecessor, through
@@ -54,6 +57,24 @@ non-zero before the result line is printed:
   cw_tis  HistogramEngine(method="cw_tis") on the dense request (hscan and
           vscan once each, K1 never) and on the fused one (4 tile-high
           bands through K4, K2 never); answers equal the WF-TiS engine's
+  stream  64 host uint8 frames of video_frames(480, 640) at 32 bins through
+          HistogramEngine.map_frames at depth 1 and 2 and with
+          adaptive_microbatch: K1 once a dispatch, every staged host buffer
+          pinned, H at frames 0, 31 and 63 equal to K1 on the frame, every
+          frame's histogram in order; frames/s and the adaptive
+          controller's sizes
+  tracker FragmentTracker (16 bins, radius 12, 2x2 fragments) on 480x640,
+          two targets then one, over 32 frames: track, a step loop,
+          step_fused (K2, one target) and track(incremental=True) on a
+          low-motion stream (K1 on the dirty run, K3 below) give the same
+          boxes, and track equals backend="torch" on the card
+  service AnalyticsService over the clip (4 queries a frame: two region
+          queries, a stride-16 likelihood map, a grid of rects; frames 9
+          and 14 again, as cache hits) and a 16-frame low-motion chain:
+          answers equal engine.run's, counts of engine runs, coalesced
+          requests, hits, updates and recomputes as expected, a full queue
+          raises ServiceOverloaded; p50 and p95 latency and requests/s of
+          requests made through submit()
   lm      repro_torch.launch.serve.main on mamba2-130m at full size (24
           layers, d_model 768, vocab 50280), batch 4, 1024-token prompts,
           32 greedy tokens, seed 0: K5 once per layer of the prefill (24)
@@ -80,11 +101,16 @@ non-zero before the result line is printed:
           and of the one-frame fused request (kernel launches, device busy
           and idle share, top CPU ops); the repair step of one video frame
           with K3 writing into the new H against the same walk joined by a
-          torch.cat
+          torch.cat; last, the new phases' profiler sessions: a trace of
+          the stream at each depth (the host-to-device copies on a stream
+          other than K1's, how many overlap a K1 kernel, the device's idle
+          share) and profiles of a stream frame, a tracker step and a
+          service frame group
 
-Every request of the main, bands, video, cw_tis and lm phases runs with
-all six launch counters set to 0 just before it and read just after; the
-kernels line carries each kernel's counts per path (``launches_by_path``).
+Every request of the main, bands, video, cw_tis, stream, tracker, service
+and lm phases runs with all six launch counters set to 0 just before it
+and read just after; the kernels line carries each kernel's counts per
+path (``launches_by_path``).
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the rest of
@@ -139,9 +165,13 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "mamba2-130m", 4, 1024, 32, 0
 # band of the 4K frame with its carry; and 1080p, on no path of this run.
 K1_SHAPES = {
     "clip": ((16, 480, 640, 32, False), ("dense",)),
-    "frame": ((1, 480, 640, 32, False), ("video_first", "video_fallback")),
+    "frame": ((1, 480, 640, 32, False),
+              ("video_first", "video_fallback", "stream_d1", "stream_d2")),
     "dirty run": ((1, 48, 640, 32, True), ("video", "video_bottom")),
-    "band": ((1, 273, 3840, 128, True), ("bands", "bands_rows", "spilled")),
+    "band": ((1, 273, 3840, 128, True),
+             ("bands", "bands_rows", "spilled", "bands_prefetch")),
+    "tracker frame": ((1, 480, 640, 16, False),
+                      ("tracker_init", "tracker_track", "tracker_step")),
     "1080p": ((4, 1080, 1920, 64, False), ()),
 }
 # K2's shapes, (n, h, w, bins, rows), and the paths whose launches each one
@@ -163,6 +193,11 @@ K1_SWEEP_HEIGHTS = (48, 64, 80, 96, 112, 128, 160, 192, 240, 480)
 # K5 at the Mamba2-130M prefill: batch, steps, heads, P, N, and the chunk
 # of the plain loop.
 K5_SHAPE = (4, 1024, 24, 64, 128, 256)
+# The stream phase: host frames of the paper's geometry through
+# HistogramEngine.map_frames.
+STREAM_FRAMES = 64
+# The tracker phase: frames tracked after the first, its bins and radius.
+TRACK_FRAMES, TRACK_BINS, TRACK_RADIUS = 32, 16, 12
 
 
 class SmokeFailure(RuntimeError):
@@ -371,6 +406,58 @@ def device_kernels(torch, fn, calls: int = 10):
     return len(kernels) / calls, us
 
 
+def trace_streams(torch, fn):
+    """Run ``fn`` under torch.profiler and read its device timeline from
+    the exported trace: (host-to-device copies, K1 kernels, every device
+    event), each a list of (stream, start µs, end µs), and the run's wall
+    µs on the host's clock.  K1's kernels are its count pre-pass and its
+    strip scan."""
+    import re
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    k1 = re.compile(r"\b(?:scan|count)_kernel\b")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    copies, kernels, device = [], [], []
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy",
+                                             "gpu_memset"):
+            continue
+        span = (e.get("args", {}).get("stream"), float(e["ts"]),
+                float(e["ts"]) + float(e.get("dur", 0.0)))
+        device.append(span)
+        name = str(e.get("name", ""))
+        if cat == "gpu_memcpy" and "HtoD" in name:
+            copies.append(span)
+        elif cat == "kernel" and k1.search(name.split("(")[0]):
+            kernels.append(span)
+    return copies, kernels, device, wall_us
+
+
+def busy_us(spans) -> float:
+    """Time covered by the union of (stream, start, end) spans."""
+    total, end = 0.0, None
+    for _, a, b in sorted(spans, key=lambda x: x[1]):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
 def phase(name: str):
     import torch
 
@@ -421,6 +508,8 @@ def main() -> int:
 
 
 def run(torch) -> list[dict]:
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.core import bands as bands_mod
@@ -429,6 +518,7 @@ def run(torch) -> list[dict]:
     from repro_torch.core import engine as eng_mod
     from repro_torch.core import region_query as rq
     from repro_torch.core.binning import bin_indices
+    from repro_torch.core.integral_histogram import IntegralHistogram
     from repro_torch.data import video_frames
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.cw_tis import (
@@ -857,6 +947,32 @@ def run(torch) -> list[dict]:
         log(f"   fused, one frame: {len(one.plan.spec.query_rows)} corner "
             f"rows, launches {one_counts}; answers equal the clip's frame 0; "
             f"{t_one * 1e3:.1f} ms end to end")
+
+        # The metrics sum bins in order (distances.bin_sum: one cumsum down
+        # the bin axis on the card): equal to the in-order loop on the
+        # card, and every metric equal to the CPU's, bit for bit.
+        def loop_sum(x):
+            acc = x[..., 0]
+            for i in range(1, x.shape[-1]):
+                acc = acc + x[..., i]
+            return acc
+
+        g = torch.Generator(device=dev).manual_seed(12)
+        planes = torch.rand((n, nb, 27, 37), device=dev, generator=g)
+        for x in (planes.movedim(1, -1), planes[0, :, 0, 0],
+                  planes[:1, :, :1, 0], planes.movedim(1, -1).contiguous()):
+            check(torch.equal(distances.bin_sum(x), loop_sum(x)),
+                  f"bin_sum != the in-order loop at {tuple(x.shape)}")
+        a_hist = planes.movedim(1, -1) * 50
+        t_hist = planes[1, :, 3, 4]
+        for name, metric in {**distances.SIMILARITIES,
+                             **distances.DISTANCES}.items():
+            check(torch.equal(metric(a_hist, t_hist).cpu(),
+                              metric(a_hist.cpu(), t_hist.cpu())),
+                  f"{name} on the card != on the CPU")
+        log("   distances: bin_sum equals the in-order loop on the card "
+            "(window maps, one bin vector, a lone column); all five "
+            "metrics equal the CPU's bit for bit")
         del fused, dense, wins, one
         torch.cuda.empty_cache()
 
@@ -906,6 +1022,29 @@ def run(torch) -> list[dict]:
         torch.cuda.empty_cache()
         log(f"   rows at band edges and integral_histogram(budget): equal "
             f"to one dense K1 launch (H {dense_big.numel() * 4 / 1e9:.2f} GB)")
+        # The §4.4 overlap inside one frame: map_bands(prefetch=1) stages
+        # the next band's rows (pinned buffers, a copy stream) while the
+        # current band's K1 runs.
+        ih_4k = IntegralHistogram(num_bins=bnb)
+
+        def band_rows(prefetch):
+            return eng_mod.BandedH(lambda: ih_4k.map_bands(
+                frame_4k, memory_budget_bytes=budget,
+                prefetch=prefetch)).rows(rows)
+
+        rows0, _, _ = counted(None, lambda: band_rows(0))
+        rows1, _, counts = counted("bands_prefetch", lambda: band_rows(1))
+        check(counts == only(wf_tis=8), f"prefetch=1 launched {counts}")
+        check(torch.equal(rows1, rows0)
+              and torch.equal(rows1, dense_big[:, torch.as_tensor(
+                  rows, device=dev)]),
+              "map_bands(prefetch=1) rows != prefetch=0's")
+        t_pf = {pf: request_ms(lambda: band_rows(pf), reps=3) for pf in (0, 1)}
+        log(f"   map_bands(prefetch=1): rows equal prefetch=0's and the dense "
+            f"K1's; {counts['wf_tis']} K1 launches; rows() over 8 bands "
+            f"{t_pf[0]:.3f} ms at prefetch=0, {t_pf[1]:.3f} ms at prefetch=1 "
+            f"(host clock, median of 3) | card {card_line()}")
+        del rows0, rows1
         spill_engine = eng_mod.HistogramEngine(
             num_bins=bnb, memory_budget_bytes=budget, storage="uint16")
         sp_rects = np.array([[2000, 3000, 2159, 3399],    # 64000 px
@@ -1035,9 +1174,253 @@ def run(torch) -> list[dict]:
         del cw_fused, wf_fused
         torch.cuda.empty_cache()
 
-    with phase(f"lm: {LM_ARCH} serving through repro_torch.launch.serve"):
-        import dataclasses
+    with phase(f"stream: {STREAM_FRAMES} host frames through map_frames"):
+        s_frames = list(video_frames(h, w, STREAM_FRAMES, seed=7))
+        s_hists = torch.as_tensor(np.stack([
+            np.bincount((f.astype(np.int64) * nb // 256).ravel(),
+                        minlength=nb) for f in s_frames]),
+            dtype=torch.float32)
+        stream_engine = eng_mod.HistogramEngine(num_bins=nb)
+        adaptive_engine = eng_mod.HistogramEngine(num_bins=nb,
+                                                  adaptive_microbatch=True)
+        list(stream_engine.map_frames(iter(s_frames[:4])))   # warm-up
+        stream_fps = {}
+        for path, eng, depth in (("stream_d1", stream_engine, 1),
+                                 ("stream_d2", stream_engine, 2),
+                                 ("stream_adaptive", adaptive_engine, 2)):
+            outs, dt, counts = counted(path, lambda: list(
+                eng.map_frames(iter(s_frames), depth=depth)))
+            rt = eng.last_runtime
+            st = rt.last_stats
+            stager = rt.last_stager
+            check(len(outs) == STREAM_FRAMES and st.items == STREAM_FRAMES,
+                  f"{path}: {len(outs)} frames out, {st.items} items")
+            check(eng.last_plan.representation == "dense"
+                  and eng.last_plan.backend == "cuda",
+                  f"{path} planned {eng.last_plan.representation}")
+            check(counts == only(wf_tis=st.dispatches),
+                  f"{path} launched {counts} for {st.dispatches} dispatches")
+            held = [b for b in stager.buffers if b is not None]
+            check(stager.copies == st.dispatches and held
+                  and all(b.is_pinned() for b in held),
+                  f"{path}: {stager.copies} staged copies for "
+                  f"{st.dispatches} dispatches, pinned "
+                  f"{[b.is_pinned() for b in held]}")
+            corners = torch.stack([o[:, -1, -1] for o in outs]).cpu()
+            check(torch.equal(corners, s_hists),
+                  f"{path}: whole-frame histograms out of order or wrong")
+            for f in (0, STREAM_FRAMES // 2 - 1, STREAM_FRAMES - 1):
+                ids = bin_indices(torch.as_tensor(s_frames[f], device=dev),
+                                  nb).contiguous()
+                check(torch.equal(outs[f], wf_tis_cuda(ids[None], nb)[0]),
+                      f"{path}: frame {f}'s H != K1 on that frame")
+            stream_fps[path] = STREAM_FRAMES / dt
+            extra = ""
+            if rt.controller is not None:
+                extra = (f"; adaptive sizes {st.batch_sizes}, settled at "
+                         f"{rt.controller.size} (locked "
+                         f"{rt.controller.locked})")
+            log(f"   {path}: depth {depth}, {st.dispatches} dispatches of "
+                f"{eng.last_plan.microbatch} frame(s) from the plan, "
+                f"{stager.copies} pinned copies in a ring of "
+                f"{len(stager.buffers)}; H at frames 0, "
+                f"{STREAM_FRAMES // 2 - 1}, {STREAM_FRAMES - 1} equal K1, "
+                f"every frame's histogram in order; "
+                f"{STREAM_FRAMES / dt:.0f} frames/s{extra}")
+            del outs
+        del adaptive_engine
+        torch.cuda.empty_cache()
 
+    with phase(f"tracker: FragmentTracker over {TRACK_FRAMES} frames"):
+        from repro_torch.core.tracking import FragmentTracker, TrackerConfig
+
+        tcfg = TrackerConfig(num_bins=TRACK_BINS, search_radius=TRACK_RADIUS)
+        t_clip = video_frames(h, w, TRACK_FRAMES + 1, seed=8)
+        t_lowm = np.stack(low_motion_stream(h, w, TRACK_FRAMES + 1, 48,
+                                            seed=9))
+        two = [[150, 200, 213, 271], [300, 40, 371, 119]]
+        tracker_ms = {}
+        for targets in (two, two[0]):
+            nt = len(targets) if np.ndim(targets) == 2 else 1
+            label = f"{nt} target(s)"
+            tracker = FragmentTracker(tcfg)
+            st0, _, counts = counted(
+                "tracker_init", lambda: tracker.init(t_clip[0], targets))
+            check(counts == only(wf_tis=1), f"init launched {counts}")
+            (_, boxes), dt, counts = counted(
+                "tracker_track",
+                lambda: tracker.track(dict(st0), t_clip[1:]))
+            check(counts == only(wf_tis=TRACK_FRAMES),
+                  f"track ({label}) launched {counts}")
+            tracker_ms[f"track, {label}"] = dt * 1e3 / TRACK_FRAMES
+
+            def step_loop(fn):
+                st, out = dict(st0), []
+                for f in t_clip[1:]:
+                    st = fn(st, f)
+                    out.append(st["bbox"])
+                return torch.stack(out)
+
+            got, dt, counts = counted("tracker_step",
+                                      lambda: step_loop(tracker.step))
+            check(counts == only(wf_tis=TRACK_FRAMES),
+                  f"step loop ({label}) launched {counts}")
+            check(torch.equal(got, boxes), f"step != track ({label})")
+            tracker_ms[f"step, {label}"] = dt * 1e3 / TRACK_FRAMES
+            plain = FragmentTracker(dataclasses.replace(tcfg,
+                                                        backend="torch"))
+            _, want = plain.track(plain.init(t_clip[0], targets), t_clip[1:])
+            check(torch.equal(want, boxes),
+                  f"track ({label}) != backend='torch' on the card")
+            if nt == 1:
+                got, dt, counts = counted(
+                    "tracker_fused", lambda: step_loop(tracker.step_fused))
+                check(tracker._step_engine.last_plan.representation
+                      == "fused", "step_fused did not plan fused")
+                check(counts == only(fused_rows=TRACK_FRAMES),
+                      f"step_fused launched {counts}")
+                check(torch.equal(got, boxes), "step_fused != track")
+                tracker_ms["step_fused, 1 target"] = dt * 1e3 / TRACK_FRAMES
+                t_rows = len(
+                    tracker._step_engine.last_plan.spec.query_rows)
+            lst0 = tracker.init(t_lowm[0], targets)
+            _, want = tracker.track(dict(lst0), t_lowm)
+            (_, got), dt, counts = counted(
+                "tracker_incremental", lambda: tracker.track(
+                    dict(lst0), list(t_lowm), incremental=True))
+            check(tracker._step_engine.last_plan.incremental,
+                  "the last incremental frame did not plan incremental")
+            check(counts["wf_tis"] == TRACK_FRAMES + 1
+                  and 0 < counts["delta_apply"] <= TRACK_FRAMES
+                  and counts == only(wf_tis=counts["wf_tis"],
+                                     delta_apply=counts["delta_apply"]),
+                  f"track(incremental=True) launched {counts}")
+            check(torch.equal(got, want),
+                  f"track(incremental=True) != track ({label})")
+            tracker_ms[f"incremental, {label}"] = dt * 1e3 / (TRACK_FRAMES
+                                                              + 1)
+            log(f"   {label}: track, step loop, backend='torch'"
+                + (", step_fused" if nt == 1 else "")
+                + f" and track(incremental=True) agree; last boxes "
+                f"{boxes[-1].tolist()}")
+        log(f"   step_fused: {t_rows} corner rows a frame (fuse bound "
+            f"{h // 4}); launches by path: " + ", ".join(
+                f"{p} {paths[p]}" for p in paths if p.startswith("tracker")))
+        log("   ms a frame (host clock, one run, first call of each path "
+            "included): " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in tracker_ms.items())
+            + f" | card {card_line()}")
+
+    with phase("service: AnalyticsService over the clip and a video chain"):
+        import threading
+
+        from repro_torch.serve import AnalyticsService, ServiceOverloaded
+
+        grid = np.array([[r, c, r + 31, c + 47] for r in (40, 360)
+                         for c in range(0, 592, 96)])
+        s_queries = [eng_mod.RegionQuery(rects[:1]),
+                     eng_mod.RegionQuery(rects[1:]),
+                     eng_mod.LikelihoodQuery(target, (64, 64), stride=16),
+                     eng_mod.RegionQuery(grid)]
+        store = {("clip", i): clip_np[i] for i in range(n)}
+        svc_engine = eng_mod.HistogramEngine(num_bins=nb)
+        svc = AnalyticsService(svc_engine, store)
+        repeats = [("clip", 9), ("clip", 14)]
+        order = [("clip", i) for i in range(n)] + repeats
+
+        def serve_clip():
+            return [svc.process([(ref, q) for q in s_queries])
+                    for ref in order]
+
+        answers, dt, counts = counted("service", serve_clip)
+        snap = svc.stats.snapshot()
+        check(svc_engine.last_plan.representation == "fused",
+              f"service requests planned {svc_engine.last_plan}")
+        want_counts = dict(requests=4 * len(order), engine_runs=n,
+                           coalesced=3 * len(order),
+                           cache_hits=4 * len(repeats), updated=0,
+                           recomputed=n)
+        check({k: snap[k] for k in want_counts} == want_counts,
+              f"service counts {snap}, want {want_counts}")
+        check(counts == only(fused_rows=n), f"service launched {counts}")
+        for ref, got in zip(order, answers):
+            want = eng_mod.HistogramEngine(num_bins=nb).run(
+                store[ref], s_queries).results
+            for g, w_ in zip(got, want):
+                check(torch.equal(g, w_),
+                      f"service answer for {ref} != engine.run's")
+        log(f"   clip: {len(order)} frames x 4 queries, {n} engine runs "
+            f"(K2 {counts['fused_rows']}), {snap['coalesced']} coalesced, "
+            f"{snap['cache_hits']} cache hits; answers equal engine.run's; "
+            f"{dt * 1e3 / len(order):.3f} ms a frame's group")
+
+        chain_n = 16
+        chain = dict(enumerate(low_motion_stream(h, w, chain_n, 48,
+                                                 seed=10)))
+        c_queries = [eng_mod.LikelihoodQuery(v_target, (24, 24), stride=2)]
+        chain_svc = AnalyticsService(eng_mod.HistogramEngine(num_bins=nb),
+                                     chain)
+        got, _, counts = counted("service_chain", lambda: chain_svc.process(
+            [(i, c_queries[0]) for i in range(chain_n)]))
+        snap = chain_svc.stats.snapshot()
+        check(snap["recomputed"] == 1 and snap["updated"] == chain_n - 1
+              and snap["engine_runs"] == chain_n,
+              f"chain counts {snap}")
+        check(counts["wf_tis"] == chain_n and counts["delta_apply"] >= 1
+              and counts == only(wf_tis=chain_n,
+                                 delta_apply=counts["delta_apply"]),
+              f"chain launched {counts}")
+        for i in (0, chain_n // 2, chain_n - 1):
+            want = v_engine.run(chain[i], c_queries).results[0]
+            check(torch.equal(got[i], want),
+                  f"chained answer {i} != engine.run's")
+        log(f"   video chain: {chain_n} frames, {snap['recomputed']} "
+            f"recomputed, {snap['updated']} updated (K1 {counts['wf_tis']}, "
+            f"K3 {counts['delta_apply']}); answers equal engine.run's")
+
+        gate = threading.Event()
+
+        def slow(ref):
+            gate.wait(timeout=60)
+            return store[ref]
+
+        busy_svc = AnalyticsService(svc_engine, slow, max_pending=2,
+                                    max_coalesce=1).start()
+        futs, overloaded = [], False
+        try:
+            futs.append(busy_svc.submit(("clip", 0), s_queries[0]))
+            deadline = time.time() + 10
+            while time.time() < deadline and not overloaded:
+                try:
+                    futs.append(busy_svc.submit(("clip", 1), s_queries[0]))
+                except ServiceOverloaded:
+                    overloaded = True
+        finally:
+            gate.set()
+            busy_svc.close()
+        for f in futs:
+            f.result(timeout=60)
+        check(overloaded and busy_svc.stats.rejected >= 1,
+              "a full queue did not raise ServiceOverloaded")
+
+        live = AnalyticsService(eng_mod.HistogramEngine(num_bins=nb), store)
+        with live:
+            futs = [live.submit(ref, q, block=True)
+                    for ref in order for q in s_queries]
+            for f in futs:
+                f.result(timeout=120)
+        snap = live.stats.snapshot()
+        check(snap["completed"] == len(futs), f"submit: {snap}")
+        log(f"   submit: {snap['completed']} requests, {snap['engine_runs']} "
+            f"engine runs, {snap['coalesced']} coalesced; latency p50 "
+            f"{snap['latency_p50_s'] * 1e3:.3f} ms, p95 "
+            f"{snap['latency_p95_s'] * 1e3:.3f} ms (submit to answers on "
+            f"the card); {snap['requests_per_s']:.0f} requests/s; a full "
+            f"queue raised ServiceOverloaded | card {card_line()}")
+        del chain_svc, live, answers, got
+        torch.cuda.empty_cache()
+
+    with phase(f"lm: {LM_ARCH} serving through repro_torch.launch.serve"):
         from repro_torch.configs import get_config
         from repro_torch.launch import serve
         from repro_torch.models import api, ssm
@@ -1478,6 +1861,40 @@ def run(torch) -> list[dict]:
             f"host clock, median of 4x5 runs of 20: K3 into the new H "
             f"{statistics.median(walks['in place']):.4f} ms vs pieces + "
             f"torch.cat {statistics.median(walks['cat']):.4f} ms")
+
+        # The new phases' profiler sessions last, after every host-clock
+        # timing (a timing that follows a session reads slower).
+        for depth in (1, 2):
+            copies, kernels, device, wall_us = trace_streams(
+                torch, lambda: [None for _ in stream_engine.map_frames(
+                    iter(s_frames), depth=depth)])
+            copy_streams = {c[0] for c in copies}
+            k1_streams = {k[0] for k in kernels}
+            overlap = sum(1 for _, a, b in copies
+                          if any(ka < b and a < kb for _, ka, kb in kernels))
+            check(copies and kernels, f"depth {depth}: the trace shows "
+                  f"{len(copies)} copies and {len(kernels)} K1 kernels")
+            check(not copy_streams & k1_streams,
+                  f"host-to-device copies on K1's stream {k1_streams}")
+            busy = busy_us(device)
+            log(f"   stream depth {depth}, torch.profiler: {len(copies)} "
+                f"host-to-device copies on stream(s) {sorted(copy_streams)}, "
+                f"{len(kernels)} K1 kernels on {sorted(k1_streams)}; "
+                f"{overlap} copies overlap a K1 kernel; device busy "
+                f"{busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle "
+                f"{1 - busy / wall_us:.1%}) | card {card_line()}")
+        log(f"   stream depth 2, torch.profiler over {STREAM_FRAMES} frames: "
+            + profile_requests(torch, lambda: [
+                None for _ in stream_engine.map_frames(iter(s_frames))],
+                n=STREAM_FRAMES))
+        log("   tracker step loop, 1 target, torch.profiler over 10 frames: "
+            + profile_requests(torch, lambda: [
+                tracker.step(dict(st0), f) for f in t_clip[1:11]]))
+        svc.clear_cache()
+        log("   service clip groups, torch.profiler over 8 frames: "
+            + profile_requests(torch, lambda: [
+                svc.process([(("clip", i), q) for q in s_queries])
+                for i in range(8)], n=8))
     return records
 
 

@@ -1,7 +1,8 @@
 """Core: integral histograms and their O(1) queries, in torch.
 
-The engine and HSource names are re-exported lazily, as in ``repro.core``:
-``core.engine`` imports ``kernels.ops``, which imports this package.
+The engine, HSource, runtime and tracker names are re-exported lazily, as
+in ``repro.core``: ``core.engine`` imports ``kernels.ops``, which imports
+this package.
 """
 
 from repro_torch.core.binning import PAD_BIN, bin_indices, one_hot_bins
@@ -15,11 +16,15 @@ _ENGINE_EXPORTS = {
     "MultiScaleQuery",
 }
 _HSOURCE_EXPORTS = {"HSource", "DenseH", "BandedH", "FusedRowsH", "as_hsource"}
+_RUNTIME_EXPORTS = {"FrameRuntime", "AdaptiveMicrobatch", "RuntimeStats",
+                    "DispatchResult", "stage_stream"}
+_TRACKING_EXPORTS = {"FragmentTracker", "TrackerConfig"}
 
 __all__ = [
     "PAD_BIN", "bin_indices", "one_hot_bins",
     "METHODS", "apply_carry", "cw_b", "cw_sts", "cw_tis", "wf_tis",
     *sorted(_ENGINE_EXPORTS), *sorted(_HSOURCE_EXPORTS),
+    *sorted(_RUNTIME_EXPORTS), *sorted(_TRACKING_EXPORTS),
 ]
 
 
@@ -32,4 +37,12 @@ def __getattr__(name):
         from repro_torch.core import hsource
 
         return getattr(hsource, name)
+    if name in _RUNTIME_EXPORTS:
+        from repro_torch.core import runtime
+
+        return getattr(runtime, name)
+    if name in _TRACKING_EXPORTS:
+        from repro_torch.core import tracking
+
+        return getattr(tracking, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -22,10 +22,10 @@ Three ways to consume the stream, none of which holds the (b, h, w) H:
     storage policy (``float32``, or the modular ``uint32``/``uint16``);
   * reduce — ``reduce_banded_ih`` folds bands while holding one.
 
-The reference runs its loop through ``runtime.FrameRuntime``, which can
-stage band slices ahead of the one computing (``prefetch``).  That runtime
-is ROADMAP 1.5; until it is ported the loop here is a plain one, and
-``prefetch >= 1`` raises.
+The band loop is ``runtime.FrameRuntime`` with the bottom-row carry
+threaded between dispatches; ``prefetch >= 1`` stages the next bands' rows
+through pinned buffers on a copy stream while the current band's kernel
+runs.
 """
 
 from __future__ import annotations
@@ -174,21 +174,14 @@ def iter_banded_ih(
     bottom row of each band is the next band's ``carry_in``.
 
     ``compute_fn(band_image, carry_in) -> H_band`` overrides the kernel
-    call.  ``prefetch >= 1`` (staging band slices ahead of the one
-    computing) and a staging placement as ``device`` (the reference's
-    ``Device`` or ``Sharding``) come with the streaming runtime,
-    ROADMAP 1.5."""
-    if prefetch >= 1:
-        raise NotImplementedError(
-            "prefetch >= 1 stages band slices through the streaming "
-            "runtime (FrameRuntime), which is not ported to repro_torch "
-            "yet (ROADMAP 1.5)")
-    if device is not None and not isinstance(device, (str, int,
-                                                      torch.device)):
-        raise NotImplementedError(
-            f"device={device!r} is not a torch device: staging band slices "
-            "on a placement comes with the streaming runtime, which is not "
-            "ported to repro_torch yet (ROADMAP 1.5)")
+    call.  ``prefetch >= 1`` keeps that many band slices staged on the
+    device ahead of the one computing (``runtime.Stager``: pinned host
+    buffers, a copy stream, an event the compute stream waits on).  A
+    mesh placement as ``device`` (the reference's ``Sharding``) raises:
+    multi-GPU is ROADMAP 1.7."""
+    from repro_torch.core.runtime import FrameRuntime, check_placement
+
+    check_placement(device)
     h, w = image.shape[-2:]
     num_frames = int(np.prod(image.shape[:-2], dtype=np.int64)) or 1
     if plan is None:
@@ -202,12 +195,20 @@ def iter_banded_ih(
                 tile=tile, bin_block=bin_block, value_range=value_range,
                 carry_in=carry, device=device)
 
-    carry = carry_in
-    for i, (r0, r1) in enumerate(plan.spans):
-        H_band = compute_fn(image[..., r0:r1, :], carry)
-        carry = H_band[..., -1, :]
-        yield BandH(index=i, num_bands=plan.num_bands, r0=r0, r1=r1,
-                    frame_h=h, H=H_band, carry=carry)
+    def step(band_img, carry):
+        H_band = compute_fn(band_img, carry)
+        return H_band, H_band[..., -1, :]
+
+    runtime = FrameRuntime(
+        step, depth=1, carry_in=carry_in, device=device,
+        stage_inputs=prefetch >= 1, stage_ahead=max(prefetch, 0),
+        block=False)
+    slices = (image[..., r0:r1, :] for r0, r1 in plan.spans)
+    for d in runtime.run(slices, batched=False,
+                         meta=lambda i, c, ch: plan.spans[i]):
+        r0, r1 = d.meta
+        yield BandH(index=d.index, num_bands=plan.num_bands, r0=r0, r1=r1,
+                    frame_h=h, H=d.out, carry=d.carry)
 
 
 def banded_integral_histogram(image, num_bins: int, **kwargs) -> torch.Tensor:

@@ -15,17 +15,23 @@ ROADMAP 1.7, which raises ``NotImplementedError``): incremental updates
 of a cached predecessor (-1; K1 or K4 on the dirty rows, K3 on the clean
 rows below), query fusion (0; K2), band streaming (2) and host spill (3)
 under a memory budget or storage policy, dense H (4; K1, or K4 for
-``cw_tis``).  No priors file is read: tiles and thresholds tuned on a TPU
-do not transfer, so the dirty-fraction threshold is the constant 0.35.
+``cw_tis``).  A tuned-config priors file of the port's own
+(core/autotune.py, ``$REPRO_TORCH_TUNED_CONFIGS``) may set K1's bin block
+and the dirty-fraction threshold (0.35 without one); the reference's
+TPU-tuned file is never read.  ``map_frames`` streams dense per-frame H's
+through the runtime (core/runtime.py) with the planner's microbatch,
+fixed or adaptive.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+import itertools
+from typing import Iterable, Iterator
 
 import numpy as np
 
+from repro_torch.core import autotune
 from repro_torch.core import delta as delta_mod
 from repro_torch.core.bands import (
     STORAGE_POLICIES,
@@ -93,7 +99,8 @@ class WorkloadSpec:
     ``dirty_fraction`` the share of frame rows in dirty bands against a
     cached predecessor (``engine.run`` fills both).  ``device`` is where
     the request runs (``None`` = the GPU); it decides what backend
-    ``"auto"`` means."""
+    ``"auto"`` means.  ``adaptive_microbatch`` makes the plan's microbatch
+    the starting size of the runtime's online controller."""
 
     height: int
     width: int
@@ -107,6 +114,7 @@ class WorkloadSpec:
     bin_block: int | None = None
     memory_budget_bytes: int | None = None
     storage: str | None = None
+    adaptive_microbatch: bool = False   # retune batch size online
     mesh: object | None = None
     query_rows: tuple[int, ...] | None = None
     dirty_fraction: float | None = None
@@ -135,6 +143,8 @@ class ExecutionPlan:
     band_plan: BandPlan | None = None
     storage: str | None = None
     incremental: bool = False           # update a cached predecessor H
+    microbatch_mode: str = "fixed"      # "fixed" | "adaptive"
+    tuned: str | None = None            # autotune priors key, if applied
 
     def explain(self) -> str:
         """Human-readable plan rationale."""
@@ -177,8 +187,11 @@ class ExecutionPlan:
         bb = "auto" if self.bin_block is None else self.bin_block
         lines += [
             f"  method/backend  : {self.method} / {self.backend}",
-            f"  tile/bin_block  : {self.tile} / {bb}",
-            f"  microbatch      : {self.microbatch} frame(s)/dispatch",
+            f"  tile/bin_block  : {self.tile} / {bb}"
+            + (f" (tuned prior {self.tuned})" if self.tuned else ""),
+            f"  microbatch      : {self.microbatch} frame(s)/dispatch"
+            + (" (adaptive start)" if self.microbatch_mode == "adaptive"
+               else ""),
         ]
         if self.band_plan is None:
             budget = s.memory_budget_bytes
@@ -230,7 +243,9 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
 
     Microbatch comes from the per-frame H footprint (auto_batch_size),
     capped by ``num_frames``; banded/spilled/fused plans take the whole
-    request.
+    request.  A priors file (core/autotune.py) supplies K1's bin block
+    when the spec leaves it at ``None``, and the dirty-fraction threshold;
+    the plan's ``tuned`` names the entry applied.
 
     >>> p = plan(WorkloadSpec(height=64, width=64, num_bins=8,
     ...                       device="cpu"))
@@ -249,8 +264,16 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
     microbatch = auto_batch_size(spec.num_bins, spec.height, spec.width)
     if nf is not None:
         microbatch = max(1, min(microbatch, nf))
-    common = dict(spec=spec, method=spec.method, backend=backend,
-                  tile=spec.tile, bin_block=spec.bin_block)
+    bin_block, tuned = spec.bin_block, None
+    prior = autotune.prior_for(spec)
+    if prior:
+        bb = prior.get("bin_block", bin_block)
+        bin_block = None if bb is None else int(bb)
+        tuned = autotune.config_key(spec.height, spec.width, spec.num_bins)
+    common = dict(
+        spec=spec, method=spec.method, backend=backend, tile=spec.tile,
+        bin_block=bin_block, tuned=tuned,
+        microbatch_mode="adaptive" if spec.adaptive_microbatch else "fixed")
 
     incremental = False
     if spec.dirty_fraction is not None:
@@ -258,7 +281,9 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
             raise ValueError(
                 f"dirty_fraction must be within [0, 1], got "
                 f"{spec.dirty_fraction}")
-        incremental = spec.dirty_fraction <= _DELTA_DIRTY_THRESHOLD
+        threshold = float(
+            (prior or {}).get("delta_threshold", _DELTA_DIRTY_THRESHOLD))
+        incremental = spec.dirty_fraction <= threshold
 
     if spec.query_rows is not None and not incremental:
         rows = spec.query_rows
@@ -505,9 +530,12 @@ class HistogramEngine:
         out.results              # one entry per query
 
     ``device=None`` runs on the GPU; ``device="cpu"`` runs the plain
-    torch versions.  ``engine.last_plan`` keeps the most recent plan.
-    ``memory_budget_bytes`` bands an H that breaks it; ``storage`` spills
-    it to the host under that policy.
+    torch versions.  ``engine.last_plan`` keeps the most recent plan and
+    ``engine.last_runtime`` the ``FrameRuntime`` of the last
+    ``map_frames``.  ``memory_budget_bytes`` bands an H that breaks it;
+    ``storage`` spills it to the host under that policy;
+    ``adaptive_microbatch`` lets ``map_frames`` retune its microbatch
+    online.
     """
 
     def __init__(
@@ -521,6 +549,7 @@ class HistogramEngine:
         value_range: int | None = 256,
         memory_budget_bytes: int | None = None,
         storage: str | None = None,
+        adaptive_microbatch: bool = False,
         mesh=None,
         device=None,
     ):
@@ -532,9 +561,11 @@ class HistogramEngine:
         self.value_range = value_range
         self.memory_budget_bytes = memory_budget_bytes
         self.storage = storage
+        self.adaptive_microbatch = adaptive_microbatch
         self.mesh = mesh
         self.device = None if device is None else str(device)
         self.last_plan: ExecutionPlan | None = None
+        self.last_runtime = None        # FrameRuntime from map_frames
 
     # -- planning -----------------------------------------------------------
     def spec_for(
@@ -554,7 +585,9 @@ class HistogramEngine:
             value_range=self.value_range, method=self.method,
             backend=self.backend, tile=self.tile, bin_block=self.bin_block,
             memory_budget_bytes=self.memory_budget_bytes,
-            storage=self.storage, mesh=self.mesh, device=self.device,
+            storage=self.storage,
+            adaptive_microbatch=self.adaptive_microbatch, mesh=self.mesh,
+            device=self.device,
         )
 
     def plan_for(self, frames) -> ExecutionPlan:
@@ -759,3 +792,49 @@ class HistogramEngine:
             target = prefetch_rows(source, queries) or source
         results = [q.apply(target) for q in queries]
         return EngineResult(plan=p, source=source, results=results)
+
+    # -- streaming ----------------------------------------------------------
+    def runtime_for(self, p: ExecutionPlan, step=None, *, depth: int = 2,
+                    **kw):
+        """A ``FrameRuntime`` (core/runtime.py) configured from a plan:
+        microbatch size and fixed/adaptive mode come from the planner,
+        the in-flight window from the caller.  ``step`` defaults to the
+        engine's dense compute lifted to the runtime signature."""
+        from repro_torch.core.runtime import FrameRuntime
+
+        if step is None:
+            step = FrameRuntime.stateless(self.compute_dense)
+        return FrameRuntime(
+            step, depth=depth, microbatch=p.microbatch,
+            adaptive=(p.microbatch_mode == "adaptive"), device=self.device,
+            **kw)
+
+    def map_frames(self, frames: Iterable, *, depth: int = 2) -> Iterator:
+        """Stream per-frame H's with planner-chosen microbatching and
+        ``depth`` dispatches in flight (paper §4.4 double buffering): host
+        frames are staged through pinned buffers on a copy stream while
+        earlier frames compute.  An ``adaptive_microbatch`` engine hands
+        the runtime the plan's size as a starting point and lets its
+        online controller retune it from measured per-dispatch latency.
+        A plan that is not dense is refused."""
+        frames = iter(frames)
+        try:
+            first = next(frames)
+        except StopIteration:
+            return iter(())
+        p = plan(self.spec_for(np.shape(first),
+                               getattr(first, "dtype", "uint8"),
+                               num_frames=None))
+        self.last_plan = p
+        if p.representation != "dense":
+            # Streaming yields one dense (b, h, w) H per frame; executing
+            # a banded/spilled plan here would silently ignore the budget
+            # or storage the engine was configured with.
+            raise ValueError(
+                f"map_frames streams dense per-frame H's, but the plan "
+                f"chose {p.representation!r} for {p.spec.height}x"
+                f"{p.spec.width}x{p.spec.num_bins}; run each frame "
+                "through engine.run()/compute() instead")
+        runtime = self.runtime_for(p, depth=depth)
+        self.last_runtime = runtime
+        return runtime.map_frames(itertools.chain([first], frames))

@@ -9,13 +9,15 @@ Port of ``repro/core/integral_histogram.py``:
 >>> wins = ih.sliding_windows(Hs, (24, 24))  # (n, n_r, n_c, 32)
 
 >>> bands = ih.map_bands(big, memory_budget_bytes=512 << 20)  # BandH stream
-
-``map_frames`` (streaming) comes with ROADMAP 1.5.
+>>> for H in ih.map_frames(video_frames):  # streamed, §4.4 overlap
+...     ...
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+from typing import Iterable, Iterator
 
 from repro_torch.core import region_query
 from repro_torch.kernels.ops import integral_histogram as _compute
@@ -56,6 +58,49 @@ class IntegralHistogram:
             device=self.device,
         )
 
+    def map_frames(
+        self,
+        frames: Iterable,
+        *,
+        batch_size: int | str = "auto",
+        depth: int = 2,
+    ) -> Iterator:
+        """Stream integral histograms over a frame sequence.
+
+        Microbatches ``batch_size`` frames per dispatch and keeps ``depth``
+        dispatches in flight (paper §4.4's dual-buffering, through
+        ``core/runtime.py``: host frames are staged through pinned buffers
+        on a copy stream), yielding one (num_bins, h, w) H per frame in
+        order.  ``batch_size="auto"`` asks the planner (core/engine.py) to
+        size the microbatch from the per-frame H footprint;
+        ``"adaptive"`` starts from the planner's size and lets the runtime
+        retune it online from measured per-dispatch latency.
+        """
+        from repro_torch.core.runtime import FrameRuntime
+
+        frames = iter(frames)
+        try:
+            first = next(frames)
+        except StopIteration:
+            return iter(())
+        adaptive = batch_size == "adaptive"
+        if isinstance(batch_size, str):
+            if batch_size not in ("auto", "adaptive"):
+                raise ValueError(
+                    f'batch_size must be an int, "auto" or "adaptive", '
+                    f"got {batch_size!r}")
+            from repro_torch.core import engine as _engine
+
+            h, w = first.shape[-2:]
+            batch_size = _engine.plan(_engine.WorkloadSpec(
+                height=h, width=w, num_bins=self.num_bins, num_frames=None,
+                method=self.method, backend=self.backend,
+                device=self.device)).microbatch
+        runtime = FrameRuntime(
+            FrameRuntime.stateless(self), depth=depth, device=self.device,
+            microbatch=batch_size, adaptive=adaptive)
+        return runtime.map_frames(itertools.chain([first], frames))
+
     def map_bands(
         self,
         image,
@@ -70,8 +115,8 @@ class IntegralHistogram:
         yields ``BandH`` chunks, each with the band's H and its (b, w)
         bottom-row carry, equal bit for bit to the monolithic result.
         Wrap the stream in ``BandedH`` (or hand a zero-arg factory of it)
-        for O(1) analytics that never hold H.  ``prefetch >= 1`` comes
-        with the streaming runtime (ROADMAP 1.5) and raises until then.
+        for O(1) analytics that never hold H.  ``prefetch >= 1`` stages
+        the next band's rows while the current band computes.
         """
         from repro_torch.core import bands
 

@@ -3,10 +3,12 @@
 H is computed once by the reference (numpy out of JAX) and handed to both
 packages: that is how state crosses between them, since this system has
 no weights.  Histograms are integer-valued fp32 and must match bit for
-bit.  Likelihood maps and scores are compared with rtol 1e-6 / atol 1e-7:
-``normalize`` and the metric sums reduce over bins in a different order
-in XLA and in torch.  The reference's analytics run under ``jax.jit``
-(one compile per shape instead of one per eager op).
+bit.  Likelihood maps and scores are compared with rtol 1e-6 / atol 1e-7
+where the reference runs under ``jax.jit`` (one compile per shape instead
+of one per eager op), which may fuse the metrics into another order.  The
+port's metrics sum their bins in order, as XLA:CPU does up to 32 bins, so
+against the eager reference they are bit-equal there
+(``test_distances_bit_exact_up_to_32_bins``, the multi-scale near-tie).
 """
 
 import jax
@@ -252,3 +254,72 @@ def test_as_hsource_and_dense_h():
     np.testing.assert_array_equal(_np(dense.rows([0, 31])), H[:, [0, 31]])
     with pytest.raises(TypeError):
         hsource.as_hsource(object())
+
+
+@pytest.mark.parametrize("bins", [8, 16, 32])
+@pytest.mark.parametrize("metric", METRICS)
+def test_distances_bit_exact_up_to_32_bins(metric, bins):
+    """Every metric equals the eager reference bit for bit: bins are summed
+    in order, 0 to b - 1, as XLA:CPU sums them, and square roots are
+    correctly rounded."""
+    rng = np.random.default_rng(bins)
+    a = rng.random((50, 40, bins)).astype(np.float32)
+    counts = rng.integers(0, 50, (50, 40, bins)).astype(np.float32)
+    target = rng.random(bins).astype(np.float32)
+    for x in (a, counts):
+        want = _metric(ref_dist, metric)(jnp.asarray(x), jnp.asarray(target))
+        got = _metric(distances, metric)(torch.as_tensor(x),
+                                         torch.as_tensor(target))
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+    h = rng.random((7, bins)).astype(np.float32)
+    np.testing.assert_array_equal(
+        _np(distances.normalize(torch.as_tensor(h))),
+        np.asarray(ref_dist.normalize(jnp.asarray(h))))
+
+
+def test_multi_scale_near_tie_picks_the_reference_rect():
+    """Frame 5 of the 480x640 clip, a random 32-bin target, windows 16, 32
+    and 48 at stride 1: two positions of the 48x48 map differ by one ulp.
+    Summed in another order they swapped and the rect moved one column;
+    summed in XLA's order the maps are bit-equal and the rect is the
+    reference's."""
+    from repro.core.engine import HistogramEngine as RefEngine
+    from repro.core.engine import MultiScaleQuery as RefMultiScale
+    from repro_torch.core.engine import HistogramEngine, MultiScaleQuery
+    from repro_torch.data import video_frames
+
+    frame = video_frames(480, 640, 8)[5]
+    target = np.random.default_rng(1).random(32).astype(np.float32)
+    windows = ((16, 16), (32, 32), (48, 48))
+    want_rect, want_score, want_maps = RefEngine(
+        num_bins=32, backend="jnp").run(
+            frame, [RefMultiScale(target, windows)]).results[0]
+    rect, score, maps = HistogramEngine(num_bins=32, device="cpu").run(
+        frame, [MultiScaleQuery(target, windows)]).results[0]
+    assert _np(rect).tolist() == [265, 171, 312, 218]
+    np.testing.assert_array_equal(_np(rect), np.asarray(want_rect))
+    np.testing.assert_array_equal(_np(score), np.asarray(want_score))
+    for g, w in zip(maps, want_maps):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
+def test_multi_scale_above_32_bins_scores_within_rtol_of_the_best():
+    """At 64 bins XLA sums in another order, so a near-tie may pick another
+    rect.  The contract: the port's rect scores, in the reference's own
+    map, within rtol 1e-6 of the reference's best."""
+    img, H, src = _H((2, 64, 80), 64, seed=9)
+    target = np.random.default_rng(2).random(64).astype(np.float32)
+    windows = ((8, 8), (16, 16), (24, 24))
+    want_rect, want_score, want_maps = ref_search(
+        jnp.asarray(H), jnp.asarray(target), windows, ref_dist.intersection, 1)
+    rect, score, maps = region_query.multi_scale_search(
+        src, target, windows, distances.intersection, 1)
+    sizes = [wh for wh, _ in windows]
+    for f in range(H.shape[0]):
+        r0, c0, r1, _ = _np(rect)[f].tolist()
+        ref_map = np.asarray(want_maps[sizes.index(r1 - r0 + 1)])[f]
+        best = float(np.asarray(want_score)[f])
+        assert ref_map[r0, c0] >= best * (1 - 1e-6)
+    for g, w in zip(maps, want_maps):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)

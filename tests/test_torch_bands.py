@@ -144,21 +144,29 @@ def test_reduce_banded_and_budget_banding():
 
 
 def test_prefetch_and_unknown_stream_raise():
+    """``prefetch >= 1`` stages band slices through the frame runtime (no
+    longer refused) and equals the reference's prefetching stream; an
+    unknown stream still raises."""
     img = _img(3, 16, 16)
-    with pytest.raises(NotImplementedError, match=r"1\.5"):
-        next(bands.iter_banded_ih(img, 4, band_h=4, prefetch=1,
-                                  device="cpu"))
-    with pytest.raises(NotImplementedError, match=r"1\.5"):
-        list(IntegralHistogram(num_bins=4, device="cpu").map_bands(
-            img, band_h=4, prefetch=2))
+    want = [np.asarray(b.H) for b in ref_bands.iter_banded_ih(
+        img, 4, band_h=4, backend="jnp", prefetch=1)]
+    got = [b.H for b in bands.iter_banded_ih(img, 4, band_h=4, prefetch=1,
+                                             device="cpu")]
+    got_ih = [b.H for b in IntegralHistogram(num_bins=4, device="cpu")
+              .map_bands(img, band_h=4, prefetch=2)]
+    assert len(got) == len(got_ih) == len(want) == 4
+    for g, gi, w in zip(got, got_ih, want):
+        np.testing.assert_array_equal(_np(g), w)
+        np.testing.assert_array_equal(_np(gi), w)
     with pytest.raises(TypeError, match="cannot interpret"):
         as_hsource(3.0)
 
 
 def test_iter_banded_ih_device_names_where_bands_compute():
     """``device`` means what it means at every port entry point: where the
-    bands compute.  The reference's staging placement (a jax Device) is
-    refused, naming ROADMAP 1.5, instead of being taken for a device."""
+    bands compute.  A placement that is not a torch device (the
+    reference's jax ``Device`` or ``Sharding``) is refused, naming ROADMAP
+    1.7 (multi-GPU), instead of being taken for a device."""
     import jax
 
     img = _img(3, 16, 16)
@@ -167,7 +175,7 @@ def test_iter_banded_ih_device_names_where_bands_compute():
         assert len(got) == 4
         assert all(b.H.device.type == b.carry.device.type == "cpu"
                    for b in got)
-    with pytest.raises(NotImplementedError, match=r"1\.5"):
+    with pytest.raises(NotImplementedError, match=r"1\.7"):
         next(bands.iter_banded_ih(img, 4, band_h=4,
                                   device=jax.devices("cpu")[0]))
     if not torch.cuda.is_available():

@@ -18,6 +18,7 @@ from repro_torch.core.engine import (
     RegionQuery,
     SlidingWindowQuery,
 )
+from repro_torch.kernels import ops
 from repro_torch.kernels.cw_tis import (
     cw_tis_cuda,
     cw_tis_hscan_cuda,
@@ -455,3 +456,141 @@ def test_mamba2_prefill_launches_k5_once_per_layer(cuda_device, no_tf32):
     nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
     api.decode_step(params, nxt, cfg, cache)
     assert ssd_scan_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the streaming runtime, tracker and service on the card
+# ---------------------------------------------------------------------------
+def _host_frames(n, h=480, w=640, seed=30):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h, w), dtype=np.uint8) for _ in range(n)]
+
+
+def _k1(frame, bins, device):
+    from repro_torch.core.binning import bin_indices
+
+    ids = bin_indices(torch.as_tensor(frame, device=device), bins)
+    return wf_tis_cuda(ids.contiguous()[None], bins)[0]
+
+
+def test_staged_buffers_are_pinned_and_copied_on_a_side_stream(cuda_device):
+    from repro_torch.core.runtime import Stager
+
+    frames = _host_frames(3, 64, 96)
+    stager = Stager(cuda_device, 3)
+    staged = [stager.stage(f) for f in frames]
+    assert stager._stream != torch.cuda.current_stream(cuda_device)
+    assert all(b.is_pinned() for b in stager.buffers)
+    assert all(event is not None for _, event in staged)
+    for f, s in zip(frames, staged):
+        t = stager.ready(s)
+        assert t.is_cuda and torch.equal(t.cpu(), torch.as_tensor(f))
+    assert stager.copies == 3
+    on_card = torch.zeros(4, 4, device=cuda_device)
+    assert stager.stage(on_card)[0] is on_card          # not copied again
+
+
+def test_ring_is_not_refilled_before_its_copy_completes(cuda_device):
+    """A 2-deep ring under stage_ahead=2: every stage refills the buffer of
+    the copy two before it, which must have landed first.  4 MB frames
+    that all differ, so a refill racing its copy shows in what lands."""
+    from repro_torch.core.runtime import FrameRuntime, Stager
+
+    frames = _host_frames(8, 2048, 2048, seed=31)
+    stager = Stager(cuda_device, 2)
+    staged = [stager.stage(f) for f in frames]
+    for f, s in zip(frames, staged):
+        assert torch.equal(stager.ready(s).cpu(), torch.as_tensor(f))
+    small = _host_frames(9, seed=32)
+    rt = FrameRuntime(FrameRuntime.stateless(
+        lambda x: ops.integral_histogram(x, 16)), depth=1, stage_ahead=2)
+    outs = list(rt.map_frames(small))
+    assert len(rt.last_stager.buffers) == 4
+    for f, got in zip(small, outs):
+        assert torch.equal(got, _k1(f, 16, cuda_device))
+
+
+def test_map_frames_and_band_prefetch_equal_k1(cuda_device):
+    from repro_torch.core.hsource import BandedH
+    from repro_torch.core.integral_histogram import IntegralHistogram
+
+    frames = _host_frames(6)
+    for eng in (HistogramEngine(32), HistogramEngine(
+            32, adaptive_microbatch=True)):
+        before = wf_tis_cuda.launches
+        outs = list(eng.map_frames(iter(frames), depth=2))
+        stats = eng.last_runtime.last_stats
+        assert wf_tis_cuda.launches - before == stats.dispatches
+        assert all(b.is_pinned() for b in eng.last_runtime.last_stager
+                   .buffers if b is not None)
+        for f, got in zip(frames, outs):
+            assert torch.equal(got, _k1(f, 32, cuda_device))
+    big = _host_frames(1, 700, 900, seed=33)[0]
+    ih = IntegralHistogram(num_bins=64)
+    want = _k1(big, 64, cuda_device)
+    rows = np.array([0, 99, 100, 350, 699])
+    for prefetch in (0, 1, 2):
+        got = BandedH(lambda: ih.map_bands(
+            big, band_h=100, prefetch=prefetch)).rows(rows)
+        assert torch.equal(got, want[:, torch.as_tensor(rows,
+                                                        device=cuda_device)])
+
+
+def test_tracker_paths_agree_on_the_card(cuda_device):
+    from repro_torch.core.tracking import FragmentTracker, TrackerConfig
+    from repro_torch.data import video_frames
+
+    clip = video_frames(240, 320, 9, seed=3)
+    cfg = TrackerConfig(num_bins=16, search_radius=6)
+    tracker = FragmentTracker(cfg)
+    plain = FragmentTracker(TrackerConfig(num_bins=16, search_radius=6,
+                                          backend="torch"))
+    cpu = FragmentTracker(cfg, device="cpu")
+    for box in ([60, 80, 107, 143], [[60, 80, 107, 143], [20, 200, 83, 271]]):
+        st = tracker.init(clip[0], box)
+        _, boxes = tracker.track(dict(st), clip[1:])
+        _, want = plain.track(plain.init(clip[0], box), clip[1:])
+        _, on_cpu = cpu.track(cpu.init(clip[0], box), clip[1:])
+        assert torch.equal(boxes, want) and torch.equal(boxes.cpu(), on_cpu)
+        _, inc = tracker.track(dict(st), list(clip[1:]), incremental=True)
+        assert torch.equal(inc, boxes)
+        s1 = dict(st)
+        for f, b in zip(clip[1:], boxes):
+            s1 = tracker.step_fused(s1, f)
+            assert torch.equal(s1["bbox"], b)
+
+
+def test_service_answers_equal_engine_run(cuda_device):
+    from repro_torch.serve import AnalyticsService
+
+    frames = dict(enumerate(_host_frames(4, 240, 320, seed=34)))
+    queries = [RegionQuery(np.array([[10, 20, 99, 149]])),
+               LikelihoodQuery(np.ones(32, np.float32), (32, 32), stride=8),
+               SlidingWindowQuery((16, 16), 4)]
+    with AnalyticsService(HistogramEngine(32), frames) as svc:
+        futs = [svc.submit(ref, q, block=True) for ref in (0, 1, 0, 2, 3)
+                for q in queries]
+        got = [f.result(timeout=120) for f in futs]
+    for i, ref in enumerate((0, 1, 0, 2, 3)):
+        want = HistogramEngine(32).run(frames[ref], queries).results
+        for g, w in zip(got[3 * i:3 * i + 3], want):
+            assert torch.equal(g, w)
+    snap = svc.stats.snapshot()
+    assert snap["completed"] == 15 and snap["latency_p95_s"] > 0
+
+
+def test_bin_sum_and_metrics_equal_the_cpu(cuda_device):
+    from repro_torch.core import distances
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for bins in (8, 32, 64):
+        planes = torch.rand((3, bins, 17, 29), device=cuda_device,
+                            generator=g)
+        for x in (planes.movedim(1, -1), planes[0, :, 0, 0],
+                  planes[:1, :, :1, 0]):
+            assert torch.equal(distances.bin_sum(x).cpu(),
+                               distances.bin_sum(x.cpu()))
+        a, t = planes.movedim(1, -1) * 40, planes[1, :, 2, 5]
+        for metric in (*distances.SIMILARITIES.values(),
+                       *distances.DISTANCES.values()):
+            assert torch.equal(metric(a, t).cpu(), metric(a.cpu(), t.cpu()))
