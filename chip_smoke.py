@@ -75,6 +75,23 @@ non-zero before the result line is printed:
           requests, hits, updates and recomputes as expected, a full queue
           raises ServiceOverloaded; p50 and p95 latency and requests/s of
           requests made through submit()
+  mesh    meshes that list the card 4 times (logical shards,
+          launch.mesh.make_host_mesh): HistogramEngine(mesh=...).run on
+          the 2160x3840x128 frame bin-sharded, spatially sharded (4 strips
+          of 540 rows) and banded under 512 MiB both ways; each H and its
+          region histograms equal one dense K1 launch bit for bit, K1
+          once a shard a band; bin-sharded cw_tis (K4) and spatial bands
+          staged at prefetch=1 with the ppermute scan equal it too.  The
+          paper's §4.6 frame, 8192x8192 at 128 bins (32 GiB of H), dense
+          with no mesh, bin-sharded and spatially sharded (4 strips of
+          2048 rows): H's bottom row against per-column bincounts of the
+          frame, its last column against per-row bincount prefix sums, 64
+          seeded regions against direct counts, the largest bin at most
+          2^24 px; ms by CUDA events and host clock, frames/s and the
+          share of the byte bound.  DistributedAnalyticsService on a 2x2
+          mesh (2 replica groups x 2 bin shards: K1) and on 4 one-device
+          replicas (K2 a frame; the video chain pinned to one replica, K1
+          and K3) against one AnalyticsService on the clip's trace
   lm      repro_torch.launch.serve.main on mamba2-130m at full size (24
           layers, d_model 768, vocab 50280), batch 4, 1024-token prompts,
           32 greedy tokens, seed 0: K5 once per layer of the prefill (24)
@@ -104,13 +121,14 @@ non-zero before the result line is printed:
           torch.cat; last, the new phases' profiler sessions: a trace of
           the stream at each depth (the host-to-device copies on a stream
           other than K1's, how many overlap a K1 kernel, the device's idle
-          share) and profiles of a stream frame, a tracker step and a
-          service frame group
+          share) and profiles of a stream frame, a tracker step, a
+          service frame group and the §4.6 frame dense, bin-sharded and
+          spatially sharded
 
-Every request of the main, bands, video, cw_tis, stream, tracker, service
-and lm phases runs with all six launch counters set to 0 just before it
-and read just after; the kernels line carries each kernel's counts per
-path (``launches_by_path``).
+Every request of the main, bands, video, cw_tis, stream, tracker,
+service, mesh and lm phases runs with all six launch counters set to 0
+just before it and read just after; the kernels line carries each
+kernel's counts per path (``launches_by_path``).
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the rest of
@@ -162,7 +180,9 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "mamba2-130m", 4, 1024, 32, 0
 # K1's shapes, (n, h, w, bins, with a carry), and the paths whose launches
 # each one counts: the dense clip; one frame (the first video frame and
 # the 50% fallback); a video frame's 48-row dirty run with its carry; one
-# band of the 4K frame with its carry; and 1080p, on no path of this run.
+# band of the 4K frame with its carry; a bin shard and a row strip of the
+# §4.6 frame over 4 shards (the strip with its prefix as the carry); and
+# 1080p, on no path of this run.
 K1_SHAPES = {
     "clip": ((16, 480, 640, 32, False), ("dense",)),
     "frame": ((1, 480, 640, 32, False),
@@ -172,6 +192,8 @@ K1_SHAPES = {
              ("bands", "bands_rows", "spilled", "bands_prefetch")),
     "tracker frame": ((1, 480, 640, 16, False),
                       ("tracker_init", "tracker_track", "tracker_step")),
+    "4.6 bin shard": ((1, 8192, 8192, 32, False), ("mesh_frame_bin",)),
+    "4.6 row strip": ((1, 2048, 8192, 128, True), ("mesh_frame_spatial",)),
     "1080p": ((4, 1080, 1920, 64, False), ()),
 }
 # K2's shapes, (n, h, w, bins, rows), and the paths whose launches each one
@@ -193,6 +215,10 @@ K1_SWEEP_HEIGHTS = (48, 64, 80, 96, 112, 128, 160, 192, 240, 480)
 # K5 at the Mamba2-130M prefill: batch, steps, heads, P, N, and the chunk
 # of the plain loop.
 K5_SHAPE = (4, 1024, 24, 64, 128, 256)
+# The mesh phase: logical shards of one card, and the paper's §4.6 frame
+# (FRAME_46 x FRAME_46 at 128 bins, 32 GiB of H).
+MESH_SHARDS = 4
+FRAME_46 = 8192
 # The stream phase: host frames of the paper's geometry through
 # HistogramEngine.map_frames.
 STREAM_FRAMES = 64
@@ -1420,6 +1446,221 @@ def run(torch) -> list[dict]:
         del chain_svc, live, answers, got
         torch.cuda.empty_cache()
 
+    with phase("mesh: sharded H over 4 logical shards of one card"):
+        from repro_torch.core import distributed
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.serve import (
+            DistributedAnalyticsService, sharded_engine_factory,
+        )
+
+        card0 = torch.device("cuda", 0)
+        bins4 = make_host_mesh((1, MESH_SHARDS), devices=[card0] * MESH_SHARDS)
+        rows4 = make_host_mesh((MESH_SHARDS, 1), devices=[card0] * MESH_SHARDS)
+        dense_big = wf_tis_cuda(big_ids[None], bnb)[0]      # one K1 launch
+        m_rects = np.array([[0, 0, bh - 1, bw - 1], [100, 200, 1500, 3000],
+                            [539, 0, 540, bw - 1], [1079, 7, 1620, 3838]])
+        want_r = rq.region_histogram(dense_big, m_rects)
+        # Bit-equality with the dense path, through the engine: bins over
+        # "model", row strips over "data", and both under the budget.
+        for path, mesh, sharding, m_budget in (
+                ("mesh_bin", bins4, "bin", None),
+                ("mesh_spatial", rows4, "spatial", None),
+                ("mesh_banded_bin", bins4, "bin", budget),
+                ("mesh_banded_spatial", rows4, "spatial", budget)):
+            m_engine = eng_mod.HistogramEngine(
+                num_bins=bnb, mesh=mesh, sharding=sharding,
+                memory_budget_bytes=m_budget)
+            out, t_m, counts = counted(path, lambda: m_engine.run(
+                frame_4k, [eng_mod.RegionQuery(m_rects)]))
+            p_m = out.plan
+            bands_n = 1 if p_m.band_plan is None else p_m.band_plan.num_bands
+            check(p_m.representation == "sharded" and p_m.sharding == sharding,
+                  f"{path} planned {p_m.representation}/{p_m.sharding}")
+            check(counts == only(wf_tis=MESH_SHARDS * bands_n),
+                  f"{path} launched {counts}")
+            check(torch.equal(out.results[0], want_r),
+                  f"{path} region histograms != the dense H's")
+            got = out.source.dense()
+            check(torch.equal(got, dense_big), f"{path} H != dense K1")
+            del out, got
+            torch.cuda.empty_cache()
+            log(f"   {path}: {p_m.sharding} over {MESH_SHARDS} shards"
+                + (f", {bands_n} bands of {p_m.band_plan.band_h} rows"
+                   if p_m.band_plan is not None else "")
+                + f"; H and regions equal the dense K1 launch bit for bit; "
+                f"K1 launches {counts['wf_tis']}; {t_m * 1e3:.1f} ms end to "
+                "end (first call)")
+        shards = distributed.bin_sharded_ih(frame_4k, bnb, bins4,
+                                            method="cw_tis")
+        check(torch.equal(torch.cat(shards, dim=0), dense_big),
+              "bin-sharded cw_tis (K4) H != dense K1")
+        banded = list(distributed.iter_banded_sharded_ih(
+            frame_4k, bnb, rows4, sharding="spatial",
+            memory_budget_bytes=budget, prefetch=1,
+            scan_impl="ppermute"))
+        for band in banded:
+            check(torch.equal(band.H.dense(),
+                              dense_big[:, band.r0:band.r1]),
+                  f"spatial band {band.r0}:{band.r1} (prefetch=1, "
+                  "ppermute) != dense K1")
+        log(f"   bin-sharded cw_tis (K4) and {len(banded)} spatial bands "
+            "staged at prefetch=1 with the ppermute scan: equal to the "
+            "dense K1 launch")
+        del shards, banded, dense_big, want_r
+        torch.cuda.empty_cache()
+
+        # Paper §4.6: one 8192x8192 frame at 128 bins, 32 GiB of H.  Two H
+        # of it do not sit on the card together, so each is held against
+        # counts taken from the frame itself.
+        fh = fw = FRAME_46
+        fnb = 128
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(46)
+        frame46 = torch.randint(0, 256, (fh, fw), generator=gen, device=dev,
+                                dtype=torch.uint8)
+        ids46 = bin_indices(frame46, fnb).to(torch.int64)
+        ar_h = torch.arange(fh, device=dev)[:, None]
+        ar_w = torch.arange(fw, device=dev)[None, :]
+        per_col = torch.bincount((ar_w * fnb + ids46).reshape(-1),
+                                 minlength=fw * fnb).reshape(fw, fnb)
+        per_row = torch.bincount((ar_h * fnb + ids46).reshape(-1),
+                                 minlength=fh * fnb).reshape(fh, fnb)
+        bottom_want = per_col.cumsum(0).T.to(torch.float32)     # (b, w)
+        right_want = per_row.cumsum(0).T.to(torch.float32)      # (b, h)
+        largest = int(per_col.sum(0).max())
+        check(largest <= 1 << 24,
+              f"a bin holds {largest} pixels, past the fp32 exact-count "
+              "bound 2^24")
+        del per_col, per_row
+        # Seeded rects of at most 4095 x 4095 px: a query must read fewer
+        # than 2^24 px to be exact in fp32 (engine.validate_queries).
+        r46 = np.random.default_rng(46)
+        top, left = r46.integers(0, fh, 64), r46.integers(0, fw, 64)
+        rects46 = np.stack([
+            top, left,
+            np.minimum(top + r46.integers(0, 4095, 64), fh - 1),
+            np.minimum(left + r46.integers(0, 4095, 64), fw - 1)], axis=1)
+        want46 = torch.stack([
+            torch.bincount(ids46[r0:r1 + 1, c0:c1 + 1].reshape(-1),
+                           minlength=fnb)
+            for r0, c0, r1, c1 in rects46.tolist()]).to(torch.float32)
+        del ids46
+        torch.cuda.empty_cache()
+
+        def check46(label, bottom, right, regions):
+            check(torch.equal(bottom, bottom_want),
+                  f"{label}: H's bottom row != per-column counts")
+            check(torch.equal(right, right_want),
+                  f"{label}: H's last column != per-row counts")
+            check(torch.equal(regions, want46),
+                  f"{label}: 64 region histograms != direct counts")
+
+        times46 = {}
+        Hd, _, counts = counted("frame_dense", lambda: ops.integral_histogram(
+            frame46, fnb))
+        check(counts == only(wf_tis=1), f"dense 8192^2 launched {counts}")
+        check46("dense", Hd[:, -1], Hd[:, :, -1],
+                rq.region_histogram(Hd, rects46))
+        del Hd
+        torch.cuda.empty_cache()
+        times46["dense, no mesh"] = (
+            time_ms(lambda: ops.integral_histogram(frame46, fnb), runs=5,
+                    launches=1),
+            request_ms(lambda: ops.integral_histogram(frame46, fnb), reps=3))
+        for path, mesh, sharding, fn in (
+                ("mesh_frame_bin", bins4, "bin",
+                 lambda: distributed.bin_sharded_ih(frame46, fnb, bins4)),
+                ("mesh_frame_spatial", rows4, "spatial",
+                 lambda: distributed.spatial_sharded_ih(frame46, fnb,
+                                                        rows4))):
+            f_engine = eng_mod.HistogramEngine(num_bins=fnb, mesh=mesh,
+                                               sharding=sharding)
+            torch.cuda.reset_peak_memory_stats()
+            out, _, counts = counted(path, lambda: f_engine.run(
+                frame46, [eng_mod.RegionQuery(rects46)]))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check(out.plan.sharding == sharding
+                  and counts == only(wf_tis=MESH_SHARDS),
+                  f"{path}: {out.plan.sharding}, launched {counts}")
+            grid = out.source.grid
+            right = torch.cat([torch.cat([s[:, :, -1] for s in strip], dim=0)
+                               for strip in grid], dim=-1)
+            check46(path, out.source.rows([fh - 1])[:, 0], right,
+                    out.results[0])
+            check(out.source.nbytes == 4 * fnb * fh * fw,
+                  f"{path}: {out.source.nbytes} B of H")
+            del out, right, grid
+            torch.cuda.empty_cache()
+            times46[f"{sharding}-sharded, {MESH_SHARDS} logical shards"] = (
+                time_ms(fn, runs=5, launches=1), request_ms(fn, reps=3))
+            log(f"   {path}: bottom row, last column and 64 regions equal "
+                f"the frame's counts; K1 launches {counts['wf_tis']}; peak "
+                f"{peak:.2f} GiB allocated")
+        f_bytes = fh * fw * (1 + 4 * fnb)        # the frame read, H written
+        f_bound = f_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"   8192x8192x128 (H {4 * fnb * fh * fw / 2**30:.0f} GiB), "
+            f"largest bin {largest} px (<= 2^24); K1 byte bound "
+            f"{f_bound:.3f} ms a frame ({f_bound / MESH_SHARDS:.3f} a shard"
+            ") | card " + card_line())
+        for label, (ev_ms, host_ms) in times46.items():
+            log(f"   {label}: {ev_ms:.3f} ms by CUDA events (median of 5), "
+                f"{host_ms:.3f} ms host clock (median of 3), "
+                f"{1e3 / ev_ms:.1f} frames/s, {f_bound / ev_ms:.1%} of the "
+                "bound")
+
+        # The service over a 2x2 mesh (2 replica groups x 2 bin shards:
+        # K1) and over 4 one-device groups (K2 per frame, K1 + K3 on the
+        # chain), each against one AnalyticsService on the same trace.
+        single = AnalyticsService(eng_mod.HistogramEngine(num_bins=nb), store)
+        want = [single.process([(ref, q) for q in s_queries])
+                for ref in order]
+        for path, svc_kw, want_counts in (
+                ("mesh_service_2x2", dict(mesh=make_host_mesh(
+                    (2, 2), devices=[card0] * 4)), only(wf_tis=2 * n)),
+                ("mesh_service_replicas", dict(num_replicas=4),
+                 only(fused_rows=n))):
+            d_svc = DistributedAnalyticsService(sharded_engine_factory(nb),
+                                                store, **svc_kw)
+            got, dt, counts = counted(path, lambda: [
+                d_svc.process([(ref, q) for q in s_queries])
+                for ref in order])
+            check(counts == want_counts, f"{path} launched {counts}")
+            for ref, g_all, w_all in zip(order, got, want):
+                for k, (g, w_) in enumerate(zip(g_all, w_all)):
+                    same = (torch.allclose(g, w_, rtol=MAP_RTOL,
+                                           atol=MAP_ATOL)
+                            if k == 2 else torch.equal(g, w_))
+                    check(same, f"{path}: answer {k} for {ref} != "
+                          "AnalyticsService's")
+            snap, one = d_svc.snapshot(), single.stats.snapshot()
+            keys = ("requests", "engine_runs", "cache_hits", "coalesced")
+            check({k: snap[k] for k in keys} == {k: one[k] for k in keys},
+                  f"{path} counts {snap}")
+            log(f"   {path}: {snap['num_replicas']} replica group(s); "
+                f"answers equal one AnalyticsService's; {snap['engine_runs']}"
+                f" engine runs, {snap['cache_hits']} hits; launches "
+                f"{ {k: v for k, v in counts.items() if v} }; "
+                f"{dt * 1e3 / len(order):.3f} ms a frame's group")
+        r_svc = DistributedAnalyticsService(sharded_engine_factory(nb), chain,
+                                            num_replicas=4)
+        got, _, counts = counted("mesh_service_chain", lambda: r_svc.process(
+            [(i, c_queries[0]) for i in range(chain_n)]))
+        snap = r_svc.snapshot()
+        check(snap["updated"] == chain_n - 1
+              and sum(1 for p_ in snap["replicas"] if p_["updated"]) == 1
+              and counts == only(wf_tis=chain_n,
+                                 delta_apply=counts["delta_apply"]),
+              f"chain on 4 replicas: {snap['updated']} updated, {counts}")
+        for i in (0, chain_n - 1):
+            check(torch.equal(got[i], v_engine.run(chain[i],
+                                                   c_queries).results[0]),
+                  f"replicated chain answer {i} != engine.run's")
+        log(f"   mesh_service_chain: {chain_n} frames pinned to one of 4 "
+            f"replicas, {snap['updated']} updated (K1 {counts['wf_tis']}, "
+            f"K3 {counts['delta_apply']}); answers equal engine.run's")
+        del single, want, got, d_svc, r_svc
+        torch.cuda.empty_cache()
+
     with phase(f"lm: {LM_ARCH} serving through repro_torch.launch.serve"):
         from repro_torch.configs import get_config
         from repro_torch.launch import serve
@@ -1895,6 +2136,19 @@ def run(torch) -> list[dict]:
             + profile_requests(torch, lambda: [
                 svc.process([(("clip", i), q) for q in s_queries])
                 for i in range(8)], n=8))
+
+        def frames46(fn, k=3):
+            for _ in range(k):          # each 32 GiB H is freed at once
+                fn()
+
+        for label, fn in (
+                ("dense", lambda: ops.integral_histogram(frame46, fnb)),
+                ("bin-sharded", lambda: distributed.bin_sharded_ih(
+                    frame46, fnb, bins4)),
+                ("spatially sharded", lambda: distributed.spatial_sharded_ih(
+                    frame46, fnb, rows4))):
+            log(f"   8192x8192x128 {label} frame, torch.profiler over 3: "
+                + profile_requests(torch, lambda: frames46(fn), n=3))
     return records
 
 

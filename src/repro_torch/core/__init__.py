@@ -11,11 +11,12 @@ from repro_torch.core.scans import (
 )
 
 _ENGINE_EXPORTS = {
-    "WorkloadSpec", "ExecutionPlan", "plan", "HistogramEngine",
+    "WorkloadSpec", "ExecutionPlan", "MeshLayout", "plan", "HistogramEngine",
     "EngineResult", "RegionQuery", "SlidingWindowQuery", "LikelihoodQuery",
     "MultiScaleQuery",
 }
-_HSOURCE_EXPORTS = {"HSource", "DenseH", "BandedH", "FusedRowsH", "as_hsource"}
+_HSOURCE_EXPORTS = {"HSource", "DenseH", "BandedH", "FusedRowsH", "ShardedH",
+                    "as_hsource"}
 _RUNTIME_EXPORTS = {"FrameRuntime", "AdaptiveMicrobatch", "RuntimeStats",
                     "DispatchResult", "stage_stream"}
 _TRACKING_EXPORTS = {"FragmentTracker", "TrackerConfig"}

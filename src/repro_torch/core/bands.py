@@ -36,7 +36,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.hsource import HSource
+from repro_torch.core.hsource import HSource, ShardedH
 from repro_torch.kernels.ops import integral_histogram
 
 # fp32 represents consecutive integers exactly only below 2**24; beyond it
@@ -70,7 +70,7 @@ def validate_storage_policy(storage: str, h: int, w: int) -> None:
         raise ValueError(
             f"{h}x{w} frame accumulates counts up to {h * w}, beyond the "
             f"fp32 exact-integer range 2**24; no storage policy recovers "
-            "exactness — use spatial sharding (ROADMAP 1.7)")
+            "exactness — use spatial sharding (core/distributed.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,8 +132,10 @@ class BandH:
 
     ``H`` is the full-frame H restricted to rows [r0, r1), shape
     (..., b, r1 - r0, w), on the device that computed it; ``carry`` is its
-    bottom row (..., b, w), the only state the next band needs.
-    ``frame_h`` is the full frame height."""
+    bottom row (..., b, w), the only state the next band needs.  A
+    sharded band (``distributed.iter_banded_sharded_ih``) holds a
+    ``ShardedH`` and one bottom row a bin shard.  ``frame_h`` is the full
+    frame height."""
 
     index: int
     num_bands: int
@@ -145,7 +147,7 @@ class BandH:
 
     @property
     def nbytes(self) -> int:
-        return self.H.numel() * self.H.element_size()
+        return self.H.nbytes
 
 
 def iter_banded_ih(
@@ -176,9 +178,11 @@ def iter_banded_ih(
     ``compute_fn(band_image, carry_in) -> H_band`` overrides the kernel
     call.  ``prefetch >= 1`` keeps that many band slices staged on the
     device ahead of the one computing (``runtime.Stager``: pinned host
-    buffers, a copy stream, an event the compute stream waits on).  A
-    mesh placement as ``device`` (the reference's ``Sharding``) raises:
-    multi-GPU is ROADMAP 1.7."""
+    buffers, a copy stream, an event the compute stream waits on).
+    ``device`` may be a ``runtime.MeshPlacement`` with a sharded
+    ``compute_fn`` (``distributed.iter_banded_sharded_ih``): staged
+    slices then reach it as ``Placed`` strips, as the single-device
+    stream's reach its kernel."""
     from repro_torch.core.runtime import FrameRuntime, check_placement
 
     check_placement(device)
@@ -197,6 +201,8 @@ def iter_banded_ih(
 
     def step(band_img, carry):
         H_band = compute_fn(band_img, carry)
+        if isinstance(H_band, ShardedH):
+            return H_band, H_band.bottom_rows()
         return H_band, H_band[..., -1, :]
 
     runtime = FrameRuntime(

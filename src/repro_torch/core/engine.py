@@ -1,5 +1,5 @@
-"""Plan/execute engine over the dense, banded, spilled and query-fused
-representations.
+"""Plan/execute engine over the dense, banded, spilled, mesh-sharded and
+query-fused representations.
 
 Port of ``repro/core/engine.py``:
 
@@ -10,10 +10,10 @@ Port of ``repro/core/engine.py``:
 
 ``HistogramEngine`` composes plan -> compute -> query: ``engine.run``
 returns an ``HSource`` (core/hsource.py) plus the results of its queries.
-The reference's decisions are ported but for the mesh (decision 1,
-ROADMAP 1.7, which raises ``NotImplementedError``): incremental updates
-of a cached predecessor (-1; K1 or K4 on the dirty rows, K3 on the clean
-rows below), query fusion (0; K2), band streaming (2) and host spill (3)
+Every decision of the reference is ported: incremental updates of a
+cached predecessor (-1; K1 or K4 on the dirty rows, K3 on the clean rows
+below), query fusion (0; K2), sharding over a ``device.Mesh`` (1; K1 or
+K4 a shard, core/distributed.py), band streaming (2) and host spill (3)
 under a memory budget or storage policy, dense H (4; K1, or K4 for
 ``cw_tis``).  A tuned-config priors file of the port's own
 (core/autotune.py, ``$REPRO_TORCH_TUNED_CONFIGS``) may set K1's bin block
@@ -46,10 +46,11 @@ from repro_torch.core.hsource import (
     FusedRowsH,
     HSource,
     PrefetchedRowsH,
+    ShardedH,
 )
 from repro_torch.device import dtype_name, resolve_device
 
-REPRESENTATIONS = ("dense", "banded", "spilled", "fused")
+REPRESENTATIONS = ("dense", "banded", "spilled", "sharded", "fused")
 
 # Fuse the queries into the scan (never store H) when the request's
 # corner-row union is at most 1/_FUSE_ROW_FRACTION of the frame height.
@@ -65,11 +66,6 @@ _AUTO_BATCH_BYTES = 4 << 20
 # fp32 counts are exact below this; a query reading a larger region is
 # refused before any dispatch (the reference's plancheck query-validity).
 FP32_EXACT_COUNT = 1 << 24
-
-# Spec fields whose execution paths come with later ROADMAP items.
-_UNPORTED = (
-    ("mesh", "multi-GPU sharding (ROADMAP 1.7)"),
-)
 
 
 class PlanValidationError(ValueError):
@@ -95,11 +91,13 @@ class WorkloadSpec:
     ``memory_budget_bytes`` bounds the live H footprint (banding);
     ``storage`` selects a host spill policy (core/bands.py
     STORAGE_POLICIES) and implies the spilled representation.
-    ``query_rows`` is the corner-row union of the request's queries and
-    ``dirty_fraction`` the share of frame rows in dirty bands against a
-    cached predecessor (``engine.run`` fills both).  ``device`` is where
-    the request runs (``None`` = the GPU); it decides what backend
-    ``"auto"`` means.  ``adaptive_microbatch`` makes the plan's microbatch
+    ``mesh`` (a ``device.Mesh``) switches to the sharded mappings over
+    ``bin_axis`` or ``row_axis`` (``sharding``: "auto", "bin" or
+    "spatial").  ``query_rows`` is the corner-row union of the request's
+    queries and ``dirty_fraction`` the share of frame rows in dirty bands
+    against a cached predecessor (``engine.run`` fills both).  ``device``
+    is where the request runs (``None`` = the GPU); it decides what
+    backend ``"auto"`` means.  ``adaptive_microbatch`` makes the plan's microbatch
     the starting size of the runtime's online controller."""
 
     height: int
@@ -115,7 +113,10 @@ class WorkloadSpec:
     memory_budget_bytes: int | None = None
     storage: str | None = None
     adaptive_microbatch: bool = False   # retune batch size online
-    mesh: object | None = None
+    mesh: object | None = None          # device.Mesh
+    sharding: str = "auto"              # "auto" | "bin" | "spatial"
+    bin_axis: str = "model"
+    row_axis: str = "data"
     query_rows: tuple[int, ...] | None = None
     dirty_fraction: float | None = None
     device: str | None = None
@@ -130,11 +131,52 @@ class WorkloadSpec:
 # plan
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """The planner's 2-D serving layout over a mesh (paper §4.6 run as a
+    serving system): frame-parallel **replica groups** along every mesh
+    axis the shard mapping does not consume, times bin or spatial
+    sharding within each group.  ``explain()`` renders it and
+    ``serve.DistributedAnalyticsService`` runs it, one ``AnalyticsService``
+    a replica group (``distributed.replica_meshes``)."""
+
+    kind: str                        # "bin" | "spatial" (within-group)
+    shard_axis: str                  # mesh axis the shard mapping uses
+    shards_per_group: int            # devices per replica group
+    replica_axes: tuple              # frame-parallel axes (may be empty)
+    num_groups: int                  # product of the replica axes' sizes
+
+    def describe(self) -> str:
+        over = (" x ".join(repr(a) for a in self.replica_axes)
+                or "(no free axis)")
+        return (
+            f"{self.num_groups} replica group(s) over {over} x "
+            f"{self.kind} sharding over {self.shard_axis!r} "
+            f"({self.shards_per_group} device(s)/group)")
+
+
+def choose_layout(mesh, kind: str, *, bin_axis: str = "model",
+                  row_axis: str = "data") -> MeshLayout:
+    """The replica x shard layout from the mesh's shape: the shard mapping
+    consumes one axis (bins or row strips); every other axis is
+    frame-parallel replication."""
+    shape = dict(mesh.shape)
+    shard_axis = bin_axis if kind == "bin" else row_axis
+    replica_axes = tuple(a for a in mesh.axis_names if a != shard_axis)
+    num_groups = 1
+    for a in replica_axes:
+        num_groups *= shape[a]
+    return MeshLayout(
+        kind=kind, shard_axis=shard_axis,
+        shards_per_group=shape.get(shard_axis, 1),
+        replica_axes=replica_axes, num_groups=num_groups)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """The planner's resolved decisions; equal specs give equal plans."""
 
     spec: WorkloadSpec
-    representation: str                 # dense | banded | spilled | fused
+    representation: str         # dense | banded | spilled | sharded | fused
     method: str
     backend: str                        # resolved: "cuda" | "torch"
     tile: int
@@ -145,6 +187,8 @@ class ExecutionPlan:
     incremental: bool = False           # update a cached predecessor H
     microbatch_mode: str = "fixed"      # "fixed" | "adaptive"
     tuned: str | None = None            # autotune priors key, if applied
+    sharding: str | None = None         # None | "bin" | "spatial"
+    layout: MeshLayout | None = None    # replica x shard serving layout
 
     def explain(self) -> str:
         """Human-readable plan rationale."""
@@ -211,16 +255,18 @@ class ExecutionPlan:
             lines.append(
                 f"  storage         : host spill {self.storage} "
                 f"(exact regions <= {bound} px)")
-        lines.append("  sharding        : none")
+        if self.sharding is None:
+            lines.append("  sharding        : none")
+        else:
+            axis = s.bin_axis if self.sharding == "bin" else s.row_axis
+            size = dict(s.mesh.shape)[axis]
+            lines.append(
+                f"  sharding        : {self.sharding} over mesh axis "
+                f"{axis!r} ({size} devices)")
+            if self.layout is not None:
+                lines.append(
+                    f"  mesh layout     : {self.layout.describe()}")
         return "\n".join(lines)
-
-
-def _check_ported(spec: WorkloadSpec) -> None:
-    for field, what in _UNPORTED:
-        if getattr(spec, field) is not None:
-            raise NotImplementedError(
-                f"WorkloadSpec.{field} is set, but {what} is not ported "
-                "to repro_torch yet")
 
 
 def plan(spec: WorkloadSpec) -> ExecutionPlan:
@@ -234,7 +280,11 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
          pinning another path, row slab within any budget) -> fused:
          compute only those corner rows straight out of the scan (K2),
          never store H.
-      1. mesh given -> sharded: ROADMAP 1.7, raises for now.
+      1. mesh given -> sharded.  "auto" picks the paper's bin mapping
+         when num_bins divides the bin axis, else the spatial (row-strip)
+         mapping, which takes one frame a request.  A memory budget on
+         top bands the stream (whole row strips a band).  A mesh plan
+         never fuses, updates incrementally or spills.
       2. budget given -> band-plan the frame; more than one band means the
          monolithic H breaks the budget: banded (stream) or, with a
          storage policy, spilled.  One band fits: dense.
@@ -255,7 +305,6 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
     from repro_torch.core import scans
     from repro_torch.kernels.ops import resolve_backend
 
-    _check_ported(spec)
     if spec.method not in scans.METHODS:
         raise ValueError(f"unknown method {spec.method!r}")
     backend = resolve_backend(spec.backend, spec.method,
@@ -283,7 +332,7 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
                 f"{spec.dirty_fraction}")
         threshold = float(
             (prior or {}).get("delta_threshold", _DELTA_DIRTY_THRESHOLD))
-        incremental = spec.dirty_fraction <= threshold
+        incremental = spec.mesh is None and spec.dirty_fraction <= threshold
 
     if spec.query_rows is not None and not incremental:
         rows = spec.query_rows
@@ -299,16 +348,55 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
         fits = (spec.memory_budget_bytes is None
                 or rows_bytes <= spec.memory_budget_bytes)
         if 0 < k <= spec.height // _FUSE_ROW_FRACTION \
-                and spec.storage is None and fits:
+                and spec.storage is None and spec.mesh is None and fits:
             return ExecutionPlan(
                 representation="fused",
                 microbatch=(microbatch if nf is None else nf), **common)
 
     if spec.storage is not None:
         validate_storage_policy(spec.storage, spec.height, spec.width)
+        if spec.mesh is not None:
+            raise ValueError(
+                "storage policies spill host-side; combine them with "
+                "banding, not with a mesh")
 
     band_frames = 1 if nf is None else nf
     band_plan = None
+    if spec.mesh is not None:
+        mesh_shape = dict(spec.mesh.shape)
+        sharding = spec.sharding
+        if sharding == "auto":
+            divisible = (spec.bin_axis in mesh_shape
+                         and spec.num_bins % mesh_shape[spec.bin_axis] == 0)
+            sharding = "bin" if divisible else "spatial"
+        if sharding not in ("bin", "spatial"):
+            raise ValueError(
+                f"unknown sharding {spec.sharding!r} (auto|bin|spatial)")
+        if sharding == "spatial" and nf is not None and nf != 1:
+            # Row strips shard the rows of one (h, w) frame; an open
+            # stream (nf None) is one frame at a time, which is fine.
+            raise ValueError(
+                "spatial (row-strip) sharding is single-frame; this "
+                f"request has num_frames={spec.num_frames} — make "
+                f"num_bins divisible by the {spec.bin_axis!r} mesh axis "
+                "for bin sharding, or submit frames one at a time")
+        row_multiple = (mesh_shape[spec.row_axis] if sharding == "spatial"
+                        else 1)
+        if spec.memory_budget_bytes is not None:
+            band_plan = plan_bands(
+                spec.height, spec.width, spec.num_bins,
+                memory_budget_bytes=spec.memory_budget_bytes,
+                num_frames=band_frames, row_multiple=row_multiple)
+            if band_plan.num_bands == 1:
+                band_plan = None
+        return ExecutionPlan(
+            representation="sharded", microbatch=microbatch,
+            band_plan=band_plan, sharding=sharding,
+            layout=choose_layout(spec.mesh, sharding,
+                                 bin_axis=spec.bin_axis,
+                                 row_axis=spec.row_axis),
+            **common)
+
     if spec.memory_budget_bytes is not None:
         band_plan = plan_bands(
             spec.height, spec.width, spec.num_bins,
@@ -535,7 +623,12 @@ class HistogramEngine:
     ``map_frames``.  ``memory_budget_bytes`` bands an H that breaks it;
     ``storage`` spills it to the host under that policy;
     ``adaptive_microbatch`` lets ``map_frames`` retune its microbatch
-    online.
+    online.  ``mesh`` (a ``device.Mesh``, e.g.
+    ``launch.mesh.make_host_mesh``) shards H over its devices
+    (``sharding``, ``bin_axis``, ``row_axis``: core/distributed.py); the
+    engine's ``device`` is then the mesh's first device, where rows and
+    answers land.  Each shard computes once, at index 0 of the mesh axes
+    its mapping does not use.
     """
 
     def __init__(
@@ -551,6 +644,9 @@ class HistogramEngine:
         storage: str | None = None,
         adaptive_microbatch: bool = False,
         mesh=None,
+        sharding: str = "auto",
+        bin_axis: str = "model",
+        row_axis: str = "data",
         device=None,
     ):
         self.num_bins = num_bins
@@ -563,6 +659,11 @@ class HistogramEngine:
         self.storage = storage
         self.adaptive_microbatch = adaptive_microbatch
         self.mesh = mesh
+        self.sharding = sharding
+        self.bin_axis = bin_axis
+        self.row_axis = row_axis
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = None if device is None else str(device)
         self.last_plan: ExecutionPlan | None = None
         self.last_runtime = None        # FrameRuntime from map_frames
@@ -587,7 +688,8 @@ class HistogramEngine:
             memory_budget_bytes=self.memory_budget_bytes,
             storage=self.storage,
             adaptive_microbatch=self.adaptive_microbatch, mesh=self.mesh,
-            device=self.device,
+            sharding=self.sharding, bin_axis=self.bin_axis,
+            row_axis=self.row_axis, device=self.device,
         )
 
     def plan_for(self, frames) -> ExecutionPlan:
@@ -640,6 +742,8 @@ class HistogramEngine:
                                 width=p.spec.width)
             source.last_fused_stats = stats
             return source
+        if p.representation == "sharded":
+            return self._compute_sharded(frames, p)
         if p.representation == "spilled":
             return bands_mod.spill_banded_ih(
                 frames, self.num_bins, storage=p.storage, plan=p.band_plan,
@@ -648,6 +752,27 @@ class HistogramEngine:
             return BandedH(lambda: bands_mod.iter_banded_ih(
                 frames, self.num_bins, plan=p.band_plan, **kw))
         return DenseH(integral_histogram(frames, self.num_bins, **kw))
+
+    def _compute_sharded(self, frames, p: ExecutionPlan) -> HSource:
+        """The mesh plan: a ``ShardedH``, or a ``BandedH`` of sharded bands
+        under a budget (core/distributed.py)."""
+        from repro_torch.core import distributed
+
+        s = p.spec
+        kw = dict(method=p.method, backend=p.backend,
+                  value_range=s.value_range)
+        if p.band_plan is not None:
+            return BandedH(lambda: distributed.iter_banded_sharded_ih(
+                frames, self.num_bins, s.mesh, sharding=p.sharding,
+                band_h=p.band_plan.band_h, bin_axis=s.bin_axis,
+                row_axis=s.row_axis, **kw))
+        if p.sharding == "bin":
+            shards = distributed.bin_sharded_ih(
+                frames, self.num_bins, s.mesh, bin_axis=s.bin_axis, **kw)
+        else:
+            shards = distributed.spatial_sharded_ih(
+                frames, self.num_bins, s.mesh, row_axis=s.row_axis, **kw)
+        return ShardedH(shards, s.mesh, kind=p.sharding)
 
     # -- incremental video path (core/delta.py) -----------------------------
     def _delta_spans(self, spec: WorkloadSpec, prev_source: HSource):
@@ -828,8 +953,8 @@ class HistogramEngine:
         self.last_plan = p
         if p.representation != "dense":
             # Streaming yields one dense (b, h, w) H per frame; executing
-            # a banded/spilled plan here would silently ignore the budget
-            # or storage the engine was configured with.
+            # a banded/spilled/sharded plan here would silently ignore the
+            # budget, storage or mesh the engine was configured with.
             raise ValueError(
                 f"map_frames streams dense per-frame H's, but the plan "
                 f"chose {p.representation!r} for {p.spec.height}x"

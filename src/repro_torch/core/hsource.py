@@ -1,8 +1,8 @@
 """One H-representation protocol for every way the port holds an H.
 
 Port of ``repro/core/hsource.py`` for the dense, band-streamed,
-host-spilled (``core/bands.SpilledIH``) and query-fused representations
-(the sharded one comes with ROADMAP 1.7).  Eq. 2 only ever reads corner
+host-spilled (``core/bands.SpilledIH``), mesh-sharded and query-fused
+representations.  Eq. 2 only ever reads corner
 *rows* of H, so one protocol serves every representation:
 
     class HSource:
@@ -18,7 +18,8 @@ below 2**24, modular for the integer spill policies.
 
 The reference returns host (numpy) rows to dodge a jax 0.4.37 bug in
 concatenating row-sharded device arrays; torch has no such bug, so rows
-stay on the source's device here (the host, for a spill).
+stay on the source's device here (the host, for a spill; the first
+shard's device, for a sharded H).
 """
 
 from __future__ import annotations
@@ -345,25 +346,25 @@ class BandedH(HSource):
         num_bands = 0
         peak_band = 0
         for band in self._take_stream():
-            Hb = band.H
+            Hb = as_hsource(band.H)          # a tensor, or a ShardedH band
             if out is None:
-                out = torch.zeros(Hb.shape[:-2] + (len(row_ids), Hb.shape[-1]),
+                out = torch.zeros(Hb.lead + (Hb.num_bins, len(row_ids),
+                                             Hb.width),
                                   dtype=torch.float32, device=Hb.device)
             num_bands = band.num_bands
             peak_band = max(peak_band, band.nbytes)
             pos = np.flatnonzero((row_ids >= band.r0) & (row_ids < band.r1))
             if pos.size:
-                local = torch.as_tensor(row_ids[pos] - band.r0,
-                                        device=Hb.device)
                 out[..., torch.as_tensor(pos, device=Hb.device), :] = \
-                    Hb[..., local, :]
+                    Hb.rows(row_ids[pos] - band.r0)
         self.last_stream_stats = {"num_bands": num_bands,
                                   "band_bytes": peak_band}
         return out
 
     def dense(self) -> torch.Tensor:
         """Assemble the full H on the bands' device."""
-        return torch.cat([band.H for band in self._take_stream()], dim=-2)
+        return torch.cat([as_hsource(band.H).dense()
+                          for band in self._take_stream()], dim=-2)
 
     def update_bands(self, next_frame, report, *, recompute,
                      apply_fn=None) -> "BandedH":
@@ -481,6 +482,93 @@ class FusedRowsH(HSource):
             "this H was query-fused: only the requested corner rows were "
             "ever computed and the dense (b, h, w) H does not exist; "
             "re-plan without query fusion to materialize it")
+
+
+class ShardedH(HSource):
+    """A mesh-sharded H (core/distributed.py), one tensor a shard.
+
+    ``kind="bin"``: ``shards[j]`` holds bins ``j * b/D ..`` of every row
+    (``bin_sharded_ih``).  ``kind="spatial"``: ``shards[r][j]`` holds row
+    strip ``r`` of bin shard ``j`` (``spatial_sharded_ih``).  ``rows()``
+    takes each shard's rows where it lives (bin shards index their own
+    rows, row shards give the rows they own) and concatenates them on the
+    first shard's device, so the only copy is the (.., b, k, w) slab.
+    Region queries on a bin-sharded H run per shard and concatenate over
+    bins.  ``mesh`` is the ``device.Mesh`` the shards came from."""
+
+    def __init__(self, shards, mesh, *, kind: str = "bin"):
+        if kind not in ("bin", "spatial"):
+            raise ValueError(f"unknown sharding kind {kind!r} (bin|spatial)")
+        self.grid = ([list(shards)] if kind == "bin"
+                     else [list(strip) for strip in shards])
+        self.mesh = mesh
+        self.kind = kind
+
+    @property
+    def num_bins(self) -> int:
+        return sum(s.shape[-3] for s in self.grid[0])
+
+    @property
+    def height(self) -> int:
+        return sum(strip[0].shape[-2] for strip in self.grid)
+
+    @property
+    def width(self) -> int:
+        return self.grid[0][0].shape[-1]
+
+    @property
+    def lead(self) -> tuple:
+        return tuple(self.grid[0][0].shape[:-3])
+
+    @property
+    def shape(self) -> tuple:
+        return self.lead + (self.num_bins, self.height, self.width)
+
+    @property
+    def device(self) -> torch.device:
+        return self.grid[0][0].device
+
+    @property
+    def nbytes(self) -> int:
+        # The real footprint, summed over shards: the service's byte-aware
+        # cache eviction charges sources by it.
+        return sum(s.nbytes for strip in self.grid for s in strip)
+
+    def bottom_rows(self) -> list:
+        """The last row of every bin shard, on its device: the carry a
+        band stream hands the next band."""
+        return [s[..., -1, :] for s in self.grid[-1]]
+
+    def rows(self, row_ids) -> torch.Tensor:
+        row_ids = np.asarray(row_ids, np.int64).reshape(-1)
+        out = torch.empty(self.lead + (self.num_bins, row_ids.size,
+                                       self.width),
+                          dtype=self.grid[0][0].dtype, device=self.device)
+        r0 = 0
+        for strip in self.grid:
+            hs = strip[0].shape[-2]
+            pos = np.flatnonzero((row_ids >= r0) & (row_ids < r0 + hs))
+            if pos.size:
+                dst = torch.as_tensor(pos, device=self.device)
+                b0 = 0
+                for s in strip:
+                    b1 = b0 + s.shape[-3]
+                    local = torch.as_tensor(row_ids[pos] - r0,
+                                            device=s.device)
+                    out[..., b0:b1, dst, :] = s[..., local, :].to(self.device)
+                    b0 = b1
+            r0 += hs
+        return out
+
+    def dense(self) -> torch.Tensor:
+        return torch.cat([torch.cat([s.to(self.device) for s in strip],
+                                    dim=-3) for strip in self.grid], dim=-2)
+
+    def region_histogram(self, rects) -> torch.Tensor:
+        if self.kind != "bin":
+            return super().region_histogram(rects)
+        return torch.cat([rq.region_histogram(s, rects).to(self.device)
+                          for s in self.grid[0]], dim=-1)
 
 
 def as_hsource(H, device=None) -> HSource:

@@ -37,8 +37,11 @@ ahead.  That wait gives backpressure and the latencies the adaptive
 controller feeds on.  ``block=False`` hands back tensors with no wait.
 
 On the CPU (``device="cpu"``) staging is a plain tensor conversion and
-there is nothing to wait for.  A mesh placement (the reference's
-``Sharding``) raises ``NotImplementedError``: multi-GPU is ROADMAP 1.7.
+there is nothing to wait for.  ``device`` may also be a ``MeshPlacement``
+(the reference's ``NamedSharding``, from
+``distributed.band_input_sharding``): each chunk is then staged as the
+sharded compute reads it, one ``Stager`` per (row strip, device) it
+lands on, and a step receives a ``Placed``.
 """
 
 from __future__ import annotations
@@ -54,15 +57,68 @@ import torch
 from repro_torch.device import as_tensor, resolve_device
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshPlacement:
+    """How a frame or band is laid out over a mesh before a sharded
+    compute reads it (``distributed.band_input_sharding`` builds one):
+    ``grid[r, j]`` is the device of shard ``j`` of row strip ``r``.  One
+    strip is the whole frame, replicated over its shards (bin sharding);
+    more cut the rows into equal strips (spatial sharding).  A strip is
+    placed once per distinct device that reads it, not once per logical
+    shard."""
+
+    grid: np.ndarray                    # (strips, shards) of torch.device
+
+    @property
+    def strips(self) -> int:
+        return self.grid.shape[0]
+
+    @property
+    def devices(self) -> list:
+        """The distinct devices, in grid order."""
+        return list(dict.fromkeys(self.grid.ravel()))
+
+    def targets(self) -> list:
+        """Every distinct ``(strip, device)`` a piece is placed at."""
+        return [(r, d) for r in range(self.strips)
+                for d in dict.fromkeys(self.grid[r])]
+
+    def strip(self, x, r: int):
+        """Rows of strip ``r`` of ``x`` (``(..., h, w)``)."""
+        if self.strips == 1:
+            return x
+        h = x.shape[-2]
+        if h % self.strips:
+            raise ValueError(
+                f"height {h} not divisible by {self.strips} row shards")
+        hs = h // self.strips
+        return x[..., r * hs:(r + 1) * hs, :]
+
+    def place(self, x) -> "Placed":
+        """``x`` laid out on the mesh with plain copies (no staging)."""
+        return Placed({(r, d): as_tensor(self.strip(x, r), d)
+                       for r, d in self.targets()})
+
+
+class Placed(dict):
+    """A frame or band laid out by a ``MeshPlacement``: ``(strip,
+    device) -> tensor``."""
+
+
 def check_placement(device) -> None:
-    """Refuse a placement that is not a torch device: the reference's
-    ``Sharding`` stages over a mesh, which is multi-GPU (ROADMAP 1.7)."""
-    if device is not None and not isinstance(device, (str, int,
-                                                      torch.device)):
-        raise NotImplementedError(
-            f"device={device!r} is not a torch device: staging on a mesh "
-            "placement is multi-GPU sharding, which is not ported to "
-            "repro_torch yet (ROADMAP 1.7)")
+    """Refuse a placement that is neither a torch device nor a
+    ``MeshPlacement`` (a jax ``Device`` or ``Sharding``, say)."""
+    if device is not None and not isinstance(
+            device, (str, int, torch.device, MeshPlacement)):
+        raise TypeError(
+            f"device={device!r} is neither a torch device nor a "
+            "MeshPlacement (core/distributed.band_input_sharding)")
+
+
+def _card_devices(device) -> list:
+    """The CUDA devices a runtime on ``device`` dispatches to."""
+    devs = device.devices if isinstance(device, MeshPlacement) else [device]
+    return [d for d in devs if d.type == "cuda"]
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +190,7 @@ class Stager:
         if not self.on_card:
             return as_tensor(chunk, self.device), None
         if isinstance(chunk, torch.Tensor) and chunk.device.type == "cuda":
-            return chunk, None
+            return chunk.to(self.device), None   # a copy from another card
         host = as_tensor(chunk, "cpu")
         i = self._next
         self._next = (i + 1) % len(self.buffers)
@@ -164,13 +220,42 @@ class Stager:
         return tensor
 
 
+class MeshStager:
+    """``Stager``'s counterpart for a ``MeshPlacement``: one ``Stager``
+    per (strip, device) target, each staging its strip of every chunk;
+    ``ready`` hands back the chunk as a ``Placed``."""
+
+    def __init__(self, placement: MeshPlacement, slots: int):
+        self.placement = placement
+        self.stagers = {t: Stager(t[1], slots)
+                        for t in placement.targets()}
+
+    def stage(self, chunk):
+        return [(t, s.stage(self.placement.strip(chunk, t[0])))
+                for t, s in self.stagers.items()]
+
+    def ready(self, staged) -> Placed:
+        return Placed({t: self.stagers[t].ready(s) for t, s in staged})
+
+
+def make_stager(device, slots: int):
+    """A ``Stager`` for a torch device, a ``MeshStager`` for a
+    ``MeshPlacement``."""
+    if isinstance(device, MeshPlacement):
+        return MeshStager(device, slots)
+    return Stager(device, slots)
+
+
 def stage_stream(items: Iterable, size: int = 2, device=None) -> Iterator:
     """Stage host arrays onto the device ahead of consumption.  Exactly
     ``size`` items are staged before the first yield and at most ``size``
     are ever resident beyond the one in the consumer's hands.  ``device``
-    is a torch device (``None`` = the card)."""
+    is a torch device (``None`` = the card) or a ``MeshPlacement``, which
+    yields each item as a ``Placed``."""
     check_placement(device)
-    stager = Stager(resolve_device(device), size + 1)
+    if not isinstance(device, MeshPlacement):
+        device = resolve_device(device)
+    stager = make_stager(device, size + 1)
     queue: collections.deque = collections.deque()
     for item in items:
         queue.append(stager.stage(item))
@@ -293,7 +378,9 @@ class FrameRuntime:
       carry_in: initial carry (``None`` for stateless pipelines); the
         final carry lands in ``self.last_carry`` when the run drains.
       device: where chunks are staged and steps run, a torch device
-        (``None`` = the card).
+        (``None`` = the card) or a ``MeshPlacement`` (steps then receive
+        ``Placed`` chunks, and a dispatch retires on an event of each of
+        its cards).
       stage_inputs: stage each chunk (``Stager``) before ``step``.
       stage_ahead: chunks staged beyond the dispatch window.
       block: wait on each dispatch's event as it retires.  Required by
@@ -338,7 +425,8 @@ class FrameRuntime:
             AdaptiveMicrobatch(microbatch, max_size=max_microbatch)
             if adaptive else None)
         self.carry_in = carry_in
-        self.device = resolve_device(device)
+        self.device = (device if isinstance(device, MeshPlacement)
+                       else resolve_device(device))
         self.stage_inputs = stage_inputs
         self.stage_ahead = stage_ahead
         self.block = block
@@ -392,7 +480,7 @@ class FrameRuntime:
         if not self.stage_inputs:
             yield from chunks
             return
-        stager = self.last_stager = Stager(
+        stager = self.last_stager = make_stager(
             self.device, self.depth + self.stage_ahead + 1)
         queue: collections.deque = collections.deque()
         # the deque holds staged chunks the dispatch loop has not taken
@@ -424,15 +512,15 @@ class FrameRuntime:
         stats = RuntimeStats()
         self.last_stats = stats
         self.last_stager = None
-        on_card = self.device.type == "cuda"
+        cards = _card_devices(self.device)
         t_run = self.clock()
         inflight: collections.deque = collections.deque()
         carry = self.carry_in
 
         def retire(d):
             if self.block:
-                if d._done is not None:
-                    d._done.synchronize()
+                for event in d._done:
+                    event.synchronize()
                 d.latency_s = self.clock() - d._t0
                 stats.latencies_s.append(d.latency_s)
                 if self.controller is not None:
@@ -454,10 +542,12 @@ class FrameRuntime:
             out, carry = self.step(chunk, carry)
             d = DispatchResult(index=index, count=count, out=out,
                                carry=carry, meta=tag)
-            d._done = None
-            if on_card and self.block:
-                d._done = torch.cuda.Event()
-                d._done.record(torch.cuda.current_stream(self.device))
+            d._done = []
+            if self.block:
+                for card in cards:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(card))
+                    d._done.append(event)
             d._t0 = t0
             d._built = built
             inflight.append(d)

@@ -17,8 +17,8 @@ step, whose single-step recurrence is plain torch.
 
 Shapes: d_inner = expand * d_model; H = d_inner / ssm_head_dim heads;
 B/C projections are per group (ssm_groups, ssm_state).  fp32 state math.
-The sequence-parallel scan (``ssd_seq_parallel``) is multi-GPU work
-(ROADMAP 1.7): ``cfg.ssm_seq_parallel`` raises.
+The sequence-parallel scan (``ssd_seq_parallel``) comes with training
+(ROADMAP 1.9): ``cfg.ssm_seq_parallel`` raises.
 """
 
 from __future__ import annotations
@@ -237,7 +237,7 @@ def forward(params: Mamba2LM, tokens, cfg, *, prefix_embeds=None,
     if cfg.ssm_seq_parallel:
         raise NotImplementedError(
             "ssm_seq_parallel: the sequence-parallel SSD scan "
-            "(ssd_seq_parallel) is multi-GPU work, ROADMAP 1.7")
+            "(ssd_seq_parallel) is not ported yet, ROADMAP 1.9")
     dtype = L.as_dtype(cfg.dtype)
     p = L.cast_params(params.param_tree(), dtype)
     x = p["embed"][tokens].to(dtype)

@@ -48,7 +48,8 @@ Two entry points share all of that logic:
     effect of Koppaka et al., here at the request level: the batch grows
     exactly when the service is behind).
 
-The mesh-scale layer (``DistributedAnalyticsService``) is ROADMAP 1.7.
+The mesh-scale layer, one of these a replica group, is
+``DistributedAnalyticsService`` (serve/distributed.py).
 """
 
 from __future__ import annotations

@@ -164,9 +164,9 @@ def test_prefetch_and_unknown_stream_raise():
 
 def test_iter_banded_ih_device_names_where_bands_compute():
     """``device`` means what it means at every port entry point: where the
-    bands compute.  A placement that is not a torch device (the
-    reference's jax ``Device`` or ``Sharding``) is refused, naming ROADMAP
-    1.7 (multi-GPU), instead of being taken for a device."""
+    bands compute.  A placement that is neither a torch device nor the
+    port's ``MeshPlacement`` (the reference's jax ``Device`` or
+    ``Sharding``) is refused instead of being taken for a device."""
     import jax
 
     img = _img(3, 16, 16)
@@ -175,7 +175,7 @@ def test_iter_banded_ih_device_names_where_bands_compute():
         assert len(got) == 4
         assert all(b.H.device.type == b.carry.device.type == "cpu"
                    for b in got)
-    with pytest.raises(NotImplementedError, match=r"1\.7"):
+    with pytest.raises(TypeError, match="MeshPlacement"):
         next(bands.iter_banded_ih(img, 4, band_h=4,
                                   device=jax.devices("cpu")[0]))
     if not torch.cuda.is_available():

@@ -594,3 +594,71 @@ def test_bin_sum_and_metrics_equal_the_cpu(cuda_device):
         for metric in (*distances.SIMILARITIES.values(),
                        *distances.DISTANCES.values()):
             assert torch.equal(metric(a, t).cpu(), metric(a.cpu(), t.cpu()))
+
+
+def _card_mesh(device, rows, cols):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh((rows, cols), devices=[device] * (rows * cols))
+
+
+@pytest.mark.parametrize("sharding,budget", [
+    ("bin", None), ("spatial", None), ("bin", 8 << 20), ("spatial", 8 << 20),
+])
+def test_sharded_engine_on_logical_shards_equals_k1(cuda_device, sharding,
+                                                    budget):
+    """A mesh that lists the card 4 times: bin- and spatially sharded H,
+    banded or not, equal one dense K1 launch bit for bit, K1 once a
+    shard a band."""
+    frame = _host_frames(1, 272, 640, seed=41)[0]
+    want = _k1(frame, 64, cuda_device)
+    mesh = (_card_mesh(cuda_device, 1, 4) if sharding == "bin"
+            else _card_mesh(cuda_device, 4, 1))
+    eng = HistogramEngine(64, mesh=mesh, sharding=sharding,
+                          memory_budget_bytes=budget)
+    rects = np.array([[0, 0, 271, 639], [60, 7, 200, 500]])
+    before = wf_tis_cuda.launches
+    out = eng.run(frame, [RegionQuery(rects)])
+    bp = out.plan.band_plan
+    assert out.plan.sharding == sharding
+    assert wf_tis_cuda.launches - before == 4 * (1 if bp is None
+                                                  else bp.num_bands)
+    assert torch.equal(out.source.dense(), want)
+    from repro_torch.core import region_query as rq
+
+    assert torch.equal(out.results[0], rq.region_histogram(want, rects))
+
+
+def test_exclusive_axis_scans_agree_on_the_card(cuda_device):
+    from repro_torch.core import distributed
+
+    rng = np.random.default_rng(42)
+    xs = rng.integers(0, 1 << 20, (5, 32, 640)).astype(np.float32)
+    want = np.cumsum(xs, axis=0) - xs
+    ts = [torch.as_tensor(x, device=cuda_device) for x in xs]
+    for impl in ("allgather", "ppermute"):
+        got = distributed.exclusive_axis_scan(ts, impl)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.cpu().numpy(), w)
+
+
+def test_distributed_service_on_logical_shards(cuda_device):
+    from repro_torch.serve import (
+        AnalyticsService,
+        DistributedAnalyticsService,
+        sharded_engine_factory,
+    )
+
+    frames = dict(enumerate(_host_frames(4, 128, 192, seed=43)))
+    queries = [RegionQuery(np.array([[3 * i, 2, 3 * i + 1, 90]
+                                     for i in range(20)])),
+               SlidingWindowQuery((16, 16), 8)]
+    trace = [(r, q) for r in (0, 1, 2, 1, 3) for q in queries]
+    want = AnalyticsService(HistogramEngine(32), frames).process(trace)
+    for kw in (dict(mesh=_card_mesh(cuda_device, 2, 2)),
+               dict(num_replicas=4)):
+        svc = DistributedAnalyticsService(sharded_engine_factory(32),
+                                          frames, **kw)
+        for g, w in zip(svc.process(trace), want):
+            assert torch.equal(g, w)
+        assert svc.snapshot()["engine_runs"] == 4

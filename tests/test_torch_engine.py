@@ -58,22 +58,24 @@ def test_plan_matches_reference(height, num_frames):
                 want.explain().splitlines()[:n]
 
 
+class _MeshShape:
+    """All the planner reads of a mesh: its axis names and sizes."""
+
+    axis_names = ("data", "model")
+    shape = {"data": 2, "model": 4}
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("memory_budget_bytes", 1 << 20, "1.2"),
     ("storage", "uint16", "1.2"),
-    ("mesh", object(), "1.7"),
+    ("mesh", _MeshShape(), "1.7"),
     ("dirty_fraction", 0.1, "1.3"),
 ])
 def test_unported_spec_fields_raise(field, value, item):
-    """Only the mesh (ROADMAP 1.7) is still refused; the fields of items
-    1.2 and 1.3 plan as the reference plans them."""
+    """No spec field is refused any more: the fields of items 1.2, 1.3
+    and 1.7 (the mesh) plan as the reference plans them."""
     spec = engine.WorkloadSpec(height=32, width=32, device="cpu",
                                **{field: value})
-    if field == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match=item.replace(".", r"\.")):
-            engine.plan(spec)
-        return
     want = ref_engine.plan(ref_engine.WorkloadSpec(
         height=32, width=32, backend="jnp", **{field: value}))
     got = engine.plan(spec)
@@ -86,7 +88,8 @@ def test_unported_spec_fields_raise(field, value, item):
     assert decisions(got) == decisions(want)
 
     def lines(p):
-        keys = ("representation", "incremental", "bands", "storage")
+        keys = ("representation", "incremental", "bands", "storage",
+                "sharding", "mesh layout")
         return [ln for ln in p.explain().splitlines()
                 if ln.split(":")[0].strip() in keys]
 

@@ -261,7 +261,7 @@ def test_decode_loop_greedy_tokens_equal_reference(ref_params):
 def test_seq_parallel_raises(ref_params):
     _, cfg = _cfgs()
     params = _port_params(ref_params, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
         api.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
                     dataclasses.replace(cfg, ssm_seq_parallel=True))
 

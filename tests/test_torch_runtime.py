@@ -366,7 +366,8 @@ def test_runtime_adapters_emit_no_deprecation_warnings():
 
 
 # ---------------------------------------------------------------------------
-# a mesh placement (the reference's Sharding) is ROADMAP 1.7
+# a jax placement (the reference's Sharding) is not a port placement: the
+# port's is runtime.MeshPlacement (tests/test_torch_distributed.py)
 # ---------------------------------------------------------------------------
 def _named_sharding():
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -375,17 +376,17 @@ def _named_sharding():
 
 
 def test_stage_stream_refuses_a_sharding():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
+    with pytest.raises(TypeError, match="MeshPlacement"):
         next(stage_stream(iter([np.zeros(3)]), device=_named_sharding()))
 
 
 def test_frame_runtime_refuses_a_sharding():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
+    with pytest.raises(TypeError, match="MeshPlacement"):
         FrameRuntime(lambda c, s: (c, s), device=_named_sharding())
 
 
 def test_iter_banded_ih_refuses_a_sharding():
     img = np.zeros((24, 16), np.uint8)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
+    with pytest.raises(TypeError, match="MeshPlacement"):
         next(bands.iter_banded_ih(img, 8, band_h=8, prefetch=1,
                                   device=_named_sharding()))
