@@ -92,6 +92,23 @@ non-zero before the result line is printed:
           mesh (2 replica groups x 2 bin shards: K1) and on 4 one-device
           replicas (K2 a frame; the video chain pinned to one replica, K1
           and K3) against one AnalyticsService on the clip's trace
+  analysis every plan that the main, bands, video, cw_tis, stream,
+          tracker, service and mesh phases ran passed the engines' deep
+          gate (run and map_frames validate before the first launch:
+          analysis/plancheck.py with analysis/kernelcheck.py's proofs);
+          kernelcheck proves K1-K4's specs at the default geometries and
+          at K1_SHAPES, K2_SHAPES and the clip's K3 and K4 shapes, each
+          verdict printed; three requests are refused with
+          PlanValidationError and every launch counter at 0 (a 64-frame
+          microbatch under a 1 MiB budget from a planner forced to it, a
+          400x400 region on a uint16 engine, a 1x20000 frame); the gate's
+          host µs warm, on a video frame's new plan and on its first call,
+          beside the one-frame fused request; python -m
+          repro_torch.analysis --check exits 0.  Its launch check comes at
+          the end of timing: each spec's grid, threads and shared bytes
+          against the kernel events of an exported torch.profiler trace of
+          one call at each of those shapes, the shared memory against the
+          card's opt-in limit, registers x threads against an SM's 65,536
   lm      repro_torch.launch.serve.main on mamba2-130m at full size (24
           layers, d_model 768, vocab 50280), batch 4, 1024-token prompts,
           32 greedy tokens, seed 0: K5 once per layer of the prefill (24)
@@ -123,7 +140,7 @@ non-zero before the result line is printed:
           other than K1's, how many overlap a K1 kernel, the device's idle
           share) and profiles of a stream frame, a tracker step, a
           service frame group and the §4.6 frame dense, bin-sharded and
-          spatially sharded
+          spatially sharded; then the analysis phase's launch check
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
 service, mesh and lm phases runs with all six launch counters set to 0
@@ -138,6 +155,7 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -471,6 +489,60 @@ def trace_streams(torch, fn):
     return copies, kernels, device, wall_us
 
 
+def traced_launches(torch, fn, per_call: int) -> list[dict]:
+    """The CUDA launches of one call of ``fn`` as an exported
+    torch.profiler trace records them: each kernel event's name, grid,
+    block, shared memory and registers per thread.  ``fn`` runs twice in
+    the trace (its first launches can be missed as the trace starts); the
+    last ``per_call`` kernel events are the second call's."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    kernels = sorted((e for e in events if e.get("ph") == "X" and str(
+        e.get("cat", "")).lower() == "kernel"), key=lambda e: e["ts"])
+    out = []
+    for e in kernels[-per_call:] if per_call else []:
+        a = e.get("args", {})
+        out.append({"name": str(e.get("name", "")),
+                    "grid": a.get("grid"), "block": a.get("block"),
+                    "smem": a.get("shared memory"),
+                    "regs": a.get("registers per thread")})
+    return out
+
+
+def smem_optin_bytes(torch) -> tuple[int, str]:
+    """The card's opt-in shared memory a block may use, and where it was
+    read: the device properties, else ``cudaDeviceGetAttribute``
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin) from the CUDA runtime."""
+    import ctypes
+
+    props = torch.cuda.get_device_properties(0)
+    value = getattr(props, "shared_memory_per_block_optin", None)
+    if value:
+        return int(value), "torch.cuda.get_device_properties"
+    for name in ("libcudart.so", "/usr/local/cuda/lib64/libcudart.so"):
+        try:
+            lib = ctypes.CDLL(name)
+        except OSError:
+            continue
+        out = ctypes.c_int(0)
+        if lib.cudaDeviceGetAttribute(ctypes.byref(out), 97, 0) == 0:
+            return out.value, "cudaDeviceGetAttribute"
+    raise SmokeFailure("could not read the card's opt-in shared memory")
+
+
 def busy_us(spans) -> float:
     """Time covered by the union of (stream, start, end) spans."""
     total, end = 0.0, None
@@ -490,6 +562,7 @@ def phase(name: str):
     class _Phase:
         def __enter__(self):
             self.t0 = time.perf_counter()
+            phase.current = name
             log(f"== {name}")
 
         def __exit__(self, *exc):
@@ -499,6 +572,9 @@ def phase(name: str):
             return False
 
     return _Phase()
+
+
+phase.current = None        # the name of the phase that is running
 
 
 def main() -> int:
@@ -603,6 +679,20 @@ def run(torch) -> list[dict]:
         want = dict.fromkeys(wrappers, 0)
         want.update(launches)
         return want
+
+    # Every deep verdict of the engines' gate (run and map_frames validate
+    # their plan with deep=True before the first launch), with its phase.
+    gate_log: list = []
+    gate_validate = eng_mod.HistogramEngine.validate
+
+    def recording_validate(self, p=None, queries=(), *, deep=False):
+        verdict = gate_validate(self, p, queries, deep=deep)
+        if deep:
+            gate_log.append((phase.current, self.last_plan if p is None
+                             else p, verdict))
+        return verdict
+
+    eng_mod.HistogramEngine.validate = recording_validate
 
     log(f"device: {torch.cuda.get_device_name(0)} | torch "
         f"{torch.__version__} | CUDA {torch.version.cuda}")
@@ -1533,7 +1623,7 @@ def run(torch) -> list[dict]:
               "bound 2^24")
         del per_col, per_row
         # Seeded rects of at most 4095 x 4095 px: a query must read fewer
-        # than 2^24 px to be exact in fp32 (engine.validate_queries).
+        # than 2^24 px to be exact in fp32 (plancheck's query-validity).
         r46 = np.random.default_rng(46)
         top, left = r46.integers(0, fh, 64), r46.integers(0, fw, 64)
         rects46 = np.stack([
@@ -1660,6 +1750,148 @@ def run(torch) -> list[dict]:
             f"K3 {counts['delta_apply']}); answers equal engine.run's")
         del single, want, got, d_svc, r_svc
         torch.cuda.empty_cache()
+
+    with phase("analysis: the plan gate, the kernels' proofs, the lint"):
+        from repro_torch.analysis import kernelcheck, plancheck
+        from repro_torch.kernels.specs import KernelGeometry
+
+        # Every plan of the earlier phases passed the deep gate.
+        by_phase: dict[str, list] = {}
+        for name, p, v in gate_log:
+            by_phase.setdefault(name.split(":")[0], []).append((p, v))
+        for key in ("main", "bands", "video", "cw_tis", "stream", "tracker",
+                    "service", "mesh"):
+            seen = by_phase.get(key, [])
+            check(seen, f"no plan of the {key} phase went through the gate")
+            bad = [v.render() for _, v in seen if not v.ok]
+            check(not bad, f"{key}: a rejected plan ran: {bad[:1]}")
+            proved = sum(1 for _, v in seen if any(
+                c.name == "kernel-carry" and c.status == "ok"
+                for c in v.checks))
+            log(f"   {key}: {len(seen)} gated requests, "
+                f"{len(set(p for p, _ in seen))} distinct plans, all OK "
+                f"deep; {proved} with the kernels' proofs (cuda plans)")
+
+        # The kernels' proofs at the default geometries and at the shapes
+        # this run launches K1-K4 at.
+        geoms = [("wf_tis", KernelGeometry(*shape[:4]))
+                 for shape, _ in K1_SHAPES.values()]
+        geoms += [("fused_rows", KernelGeometry(*shape[:4], rows=shape[4]))
+                  for shape, _ in K2_SHAPES.values()]
+        kn, knb, kh, kw = k3_H.shape
+        geoms += [("delta_apply", KernelGeometry(kn, kh, kw, knb)),
+                  ("cw_tis", KernelGeometry(n, h, w, nb))]
+        t0 = time.perf_counter()
+        verdicts = kernelcheck.check_kernels() + [
+            kernelcheck.check_method(m, g) for m, g in geoms]
+        for v in verdicts:
+            log("   " + v.render().replace("\n", "\n   "))
+        failed = [v.method for v in verdicts if not v.ok]
+        check(not failed, f"kernelcheck rejected {failed}")
+        log(f"   kernelcheck: {len(verdicts)} verdicts, all OK, in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # Three requests the gate refuses before any launch.
+        def refused(what, fn, check_name):
+            def request():
+                try:
+                    fn()
+                except eng_mod.PlanValidationError as e:
+                    return str(e)
+                return None
+            msg, _, counts = counted(None, request)
+            check(msg is not None and check_name in msg,
+                  f"{what}: not refused by {check_name}: {msg}")
+            check(counts == only(), f"{what}: launched {counts}")
+            line = next(ln for ln in msg.splitlines() if "FAIL" in ln)
+            log(f"   refused, launches {counts}: {what}: {line.strip()}")
+
+        real_plan = eng_mod.plan
+        eng_mod.plan = lambda spec: dataclasses.replace(real_plan(spec),
+                                                        microbatch=64)
+        try:
+            refused("a microbatch of 64 frames of 64x64x32 under a 1 MiB "
+                    "budget (a planner fault the gate must stop)",
+                    lambda: eng_mod.HistogramEngine(
+                        num_bins=32, memory_budget_bytes=1 << 20).run(
+                            np.zeros((2, 64, 64), np.uint8)),
+                    "memory-budget")
+        finally:
+            eng_mod.plan = real_plan
+        refused("a 400x400 region on a uint16 engine",
+                lambda: eng_mod.HistogramEngine(
+                    num_bins=16, storage="uint16",
+                    memory_budget_bytes=1 << 20).run(
+                        np.zeros((512, 512), np.uint8),
+                        [eng_mod.RegionQuery(np.array([[0, 0, 400, 400]]))]),
+                "query-validity")
+        refused("a 1x20000 frame",
+                lambda: eng_mod.HistogramEngine(num_bins=32).run(
+                    np.zeros((1, 20000), np.uint8)), "h-shape")
+
+        # What the gate costs on the host: warm (the verdict cached by
+        # plan), a video frame's plan (a new dirty fraction: the structural
+        # checks miss, the meta evaluations hit), and the first call.
+        one = engine.run(clip_np[0], fused_queries)
+        p_one = one.plan
+        seed = v_engine.run(stream[0], v_queries)
+        v_engine.run(stream[1], v_queries, prev=(stream[0], seed))
+        p_inc = v_engine.last_plan
+        check(p_one.representation == "fused" and p_inc.incremental
+              and p_one.backend == p_inc.backend == "cuda",
+              "gate timing: plans are not the fused and incremental ones")
+
+        def gate_us(eng, plans, queries, k=1000):
+            times = []
+            for i in range(k):
+                t0 = time.perf_counter()
+                eng.validate(plans[i % len(plans)], queries, deep=True)
+                times.append(time.perf_counter() - t0)
+            return statistics.median(times) * 1e6
+
+        def clear_caches():
+            for fn in (plancheck._structural_checks, plancheck._kernel_checks,
+                       plancheck._launch_checks, plancheck._eval_kernel,
+                       plancheck._eval_fused, kernelcheck.check_method,
+                       kernelcheck.smem_required):
+                fn.cache_clear()
+
+        warm_one = gate_us(engine, [p_one], fused_queries)
+        warm_inc = gate_us(v_engine, [p_inc], v_queries)
+        new_inc = gate_us(v_engine, [dataclasses.replace(
+            p_inc, spec=dataclasses.replace(
+                p_inc.spec, dirty_fraction=0.3 * i / 1000 + 1e-6))
+            for i in range(1000)], v_queries)
+        first = {}
+        for label, eng, p_, q_ in (("one-frame fused", engine, p_one,
+                                    fused_queries),
+                                   ("incremental video", v_engine, p_inc,
+                                    v_queries)):
+            clear_caches()
+            t0 = time.perf_counter()
+            eng.validate(p_, q_, deep=True)
+            first[label] = (time.perf_counter() - t0) * 1e3
+        one_ms = request_ms(lambda: engine.run(clip_np[0], fused_queries),
+                            reps=21)
+        log(f"   gate, host µs (median of 1000): one-frame fused plan warm "
+            f"{warm_one:.2f}, incremental video plan warm {warm_inc:.2f}, "
+            f"a video frame's new plan (dirty fraction changed) "
+            f"{new_inc:.2f}; first, uncached call: " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in first.items())
+            + f" | the one-frame fused request {one_ms:.3f} ms (median of "
+            f"21): the warm gate is {warm_one / 1e3 / one_ms:.2%} of it | "
+            f"card {card_line()}")
+        del one, seed
+
+        # The port's lint, as a user runs it.
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--check"],
+            cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(SRC)},
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"lint --check exited {proc.returncode}: {proc.stdout[-500:]}")
+        log(f"   python -m repro_torch.analysis --check: exit 0; "
+            f"{proc.stdout.strip().splitlines()[-1]}")
 
     with phase(f"lm: {LM_ARCH} serving through repro_torch.launch.serve"):
         from repro_torch.configs import get_config
@@ -2149,6 +2381,81 @@ def run(torch) -> list[dict]:
                     frame46, fnb, rows4))):
             log(f"   8192x8192x128 {label} frame, torch.profiler over 3: "
                 + profile_requests(torch, lambda: frames46(fn), n=3))
+
+        # The analysis phase's last part, with the profiler sessions: each
+        # kernel spec against the launch the card ran, from an exported
+        # trace of one call at every shape above (grid, block, shared
+        # memory), the shared memory against the card's opt-in limit and
+        # the registers against an SM's 65,536.
+        import re
+
+        from repro_torch.kernels.specs import KernelGeometry, REGISTERS_PER_SM
+
+        optin, optin_src = smem_optin_bytes(torch)
+        calls = [("wf_tis", label, KernelGeometry(*ids.shape, bins),
+                  lambda ids=ids, bins=bins, cin=cin: wf_tis_cuda(
+                      ids, bins, carry=cin))
+                 for label, (ids, bins, cin) in k1_in.items()]
+        calls += [("fused_rows", label, KernelGeometry(
+                       *ids.shape, bins, rows=tuple(int(r) for r in krows)),
+                   lambda ids=ids, bins=bins, krows=krows: fused_rows_cuda(
+                       ids, bins, krows))
+                  for label, (ids, bins, krows) in k2_in.items()]
+        kn, knb, kh, kw = k3_H.shape
+        calls += [("delta_apply", "clip", KernelGeometry(kn, kh, kw, knb),
+                   lambda: delta_apply_cuda(k3_H, k3_d)),
+                  ("cw_tis", "clip", KernelGeometry(n, h, w, nb),
+                   lambda: cw_tis_cuda(idx, nb))]
+        static_read, launch_checks = set(), {}
+        for method, label, geom, fn in calls:
+            specs = ops.KERNEL_SPECS[method](geom)
+            events = traced_launches(torch, fn, len(specs))
+            check(len(events) == len(specs),
+                  f"{method} at {label}: {len(events)} traced kernels, "
+                  f"{len(specs)} in its spec")
+            for spec, ev in zip(specs, events):
+                what = f"{spec.name} at {label}"
+                check(None not in (ev["grid"], ev["block"], ev["smem"],
+                                   ev["regs"]),
+                      f"{what}: the trace lacks a launch field: {ev}")
+                check(re.search(rf"\b{spec.kernel}\b", ev["name"]),
+                      f"{what}: traced kernel {ev['name'][:80]}")
+                check(list(ev["grid"]) == list(spec.cuda_grid),
+                      f"{what}: grid {ev['grid']} != spec {spec.cuda_grid}")
+                check(list(ev["block"]) == [spec.threads, 1, 1],
+                      f"{what}: block {ev['block']} != {spec.threads}")
+                if spec.smem_static and not spec.smem_dynamic:
+                    static_read.add(ev["smem"] == spec.smem_static)
+                check(ev["smem"] in (spec.smem_bytes(), spec.smem_dynamic),
+                      f"{what}: shared memory {ev['smem']} != spec "
+                      f"{spec.smem_detail()}")
+                check(spec.smem_bytes() <= optin,
+                      f"{what}: {spec.smem_bytes()} B > the card's {optin}")
+                check(ev["regs"] * spec.threads <= REGISTERS_PER_SM,
+                      f"{what}: {ev['regs']} registers x {spec.threads} "
+                      "threads pass an SM's")
+                key = (spec.name.replace("/", "_") if method == "cw_tis"
+                       else method)
+                launch_checks.setdefault(key, []).append({
+                    "shape": label, "kernel": spec.kernel,
+                    "ctas": spec.ctas, "threads": spec.threads,
+                    "smem_bytes": ev["smem"], "regs_per_thread": ev["regs"]})
+                log(f"   launch {what}: grid {ev['grid']}, {spec.ctas} "
+                    f"CTAs x {spec.threads} threads, shared {ev['smem']} B "
+                    f"({spec.smem_detail()}), {ev['regs']} registers a "
+                    f"thread: equal to its spec")
+        check(len(static_read) == 1,
+              f"the trace's shared memory reads static bytes inconsistently")
+        log(f"   the trace's \"shared memory\" is "
+            + ("static plus dynamic" if static_read == {True}
+               else "the dynamic part only")
+            + f" (kernels with only static shared memory read "
+            f"{'their static bytes' if static_read == {True} else '0'}); "
+            f"the card's opt-in limit {optin} B ({optin_src}) | card "
+            f"{card_line()}")
+        for rec in records:
+            if rec["name"] in launch_checks:
+                rec["launch_checks"] = launch_checks[rec["name"]]
     return records
 
 

@@ -10,10 +10,13 @@ so that another tree, such as a parent commit unpacked with ``git
 archive``, answers the same requests: ``HistogramEngine(num_bins=32).run``
 on chip_smoke's 16-frame 480x640 clip with its fused queries (two rects, a
 stride-16 likelihood map, a 3-scale search) and its dense query (24x24
-windows), the fused queries on the clip's first frame alone, and those
+windows), the fused queries on the clip's first frame alone, those
 queries applied to that frame's fused source with no scan at all (the
-analytics alone).  Each reading is the median and quartiles over
-``--reps`` calls (after 3 warm-up calls), each call ended by a
+analytics alone), and chip_smoke's video stream (30 frames of 480x640 at
+32 bins, each rewriting a 48-row block, a stride-2 24x24 likelihood map)
+run incrementally, each frame with its predecessor (``prev=``), read as
+ms a frame.  Each reading is the median and quartiles over ``--reps``
+calls (after 3 warm-up calls), each call ended by a
 ``torch.cuda.synchronize()``.  Run parent, change, change, parent on one
 machine to compare two trees.  Prints one JSON line as its last, and
 writes it to ``--json`` when given.
@@ -69,17 +72,32 @@ def main() -> int:
     dense_queries = [eng_mod.SlidingWindowQuery((24, 24), stride=1)]
     engine = eng_mod.HistogramEngine(num_bins=nb)
     source = engine.run(clip_np[0], fused_queries).source
+    video = smoke.low_motion_stream(h, w, 30, 48, seed=4)
+    patch = video[0][200:224, 300:324].astype(np.int64)
+    v_target = np.bincount((patch * nb // 256).ravel(),
+                           minlength=nb).astype(np.float32)
+    v_queries = [eng_mod.LikelihoodQuery(v_target, (24, 24), stride=2)]
+    v_engine = eng_mod.HistogramEngine(num_bins=nb)
+    v_seed = v_engine.run(video[0], v_queries)
 
+    def video_chain():
+        out = v_seed
+        for t in range(1, len(video)):
+            out = v_engine.run(video[t], v_queries, prev=(video[t - 1], out))
+
+    # label -> (request, frames it answers: a reading is ms a frame)
     requests = {
-        "fused clip": lambda: engine.run(clip_np, fused_queries),
-        "fused one frame": lambda: engine.run(clip_np[0], fused_queries),
-        "dense clip": lambda: engine.run(clip_np, dense_queries),
-        "analytics one frame": lambda: [q.apply(source)
-                                        for q in fused_queries],
+        "fused clip": (lambda: engine.run(clip_np, fused_queries), 1),
+        "fused one frame": (lambda: engine.run(clip_np[0], fused_queries),
+                            1),
+        "dense clip": (lambda: engine.run(clip_np, dense_queries), 1),
+        "analytics one frame": (lambda: [q.apply(source)
+                                         for q in fused_queries], 1),
+        "video incremental frame": (video_chain, len(video) - 1),
     }
     result = {"label": args.label, "src": args.src,
               "card": smoke.card_line(), "reps": args.reps, "ms": {}}
-    for label, fn in requests.items():
+    for label, (fn, frames) in requests.items():
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -88,7 +106,7 @@ def main() -> int:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+            times.append((time.perf_counter() - t0) * 1e3 / frames)
         q1, med, q3 = statistics.quantiles(times, n=4)
         result["ms"][label] = {"median": med, "q1": q1, "q3": q3}
         print(f"{args.label}: {label}: median {med:.4f} ms (quartiles "

@@ -20,7 +20,10 @@ under a memory budget or storage policy, dense H (4; K1, or K4 for
 and the dirty-fraction threshold (0.35 without one); the reference's
 TPU-tuned file is never read.  ``map_frames`` streams dense per-frame H's
 through the runtime (core/runtime.py) with the planner's microbatch,
-fixed or adaptive.
+fixed or adaptive.  Every ``run`` and ``map_frames`` validates its plan
+before the first launch (``validate(..., deep=True)``: analysis/plancheck.py
+and the kernels' proofs in analysis/kernelcheck.py) and raises
+``PlanValidationError`` on a rejected plan.
 """
 
 from __future__ import annotations
@@ -63,14 +66,10 @@ _DELTA_DIRTY_THRESHOLD = delta_mod.DEFAULT_DIRTY_THRESHOLD
 # Auto microbatching targets this per-dispatch output footprint.
 _AUTO_BATCH_BYTES = 4 << 20
 
-# fp32 counts are exact below this; a query reading a larger region is
-# refused before any dispatch (the reference's plancheck query-validity).
-FP32_EXACT_COUNT = 1 << 24
-
 
 class PlanValidationError(ValueError):
-    """A plan failed static validation: the dispatch would have produced
-    counts fp32 cannot hold exactly."""
+    """A plan failed static validation (repro_torch.analysis.plancheck):
+    the dispatch would have failed or silently produced invalid counts."""
 
 
 def auto_batch_size(num_bins: int, h: int, w: int) -> int:
@@ -190,8 +189,12 @@ class ExecutionPlan:
     sharding: str | None = None         # None | "bin" | "spatial"
     layout: MeshLayout | None = None    # replica x shard serving layout
 
-    def explain(self) -> str:
-        """Human-readable plan rationale."""
+    def explain(self, verdict=None) -> str:
+        """Human-readable plan rationale.
+
+        ``verdict`` (a ``repro_torch.analysis.plancheck.PlanVerdict``, e.g.
+        ``engine.last_verdict``) appends the static feasibility verdict;
+        the default output is unchanged."""
         s = self.spec
         per_frame = s.per_frame_h_bytes
         lines = [
@@ -266,6 +269,8 @@ class ExecutionPlan:
             if self.layout is not None:
                 lines.append(
                     f"  mesh layout     : {self.layout.describe()}")
+        if verdict is not None:
+            lines.append("  " + verdict.render().replace("\n", "\n  "))
         return "\n".join(lines)
 
 
@@ -544,38 +549,6 @@ class MultiScaleQuery:
                 if rows else np.zeros((0,), np.int64))
 
 
-def _query_area(query) -> int | None:
-    """Largest region/window pixel area a query touches, else None."""
-    rects = getattr(query, "rects", None)
-    if rects is not None:
-        r = np.asarray(rects).reshape(-1, 4)
-        if r.size == 0:
-            return 0
-        return int(((r[:, 2] - r[:, 0] + 1)
-                    * (r[:, 3] - r[:, 1] + 1)).max())
-    windows = getattr(query, "windows", None)
-    if windows is not None:
-        return max((int(wh) * int(ww) for wh, ww in windows), default=0)
-    window = getattr(query, "window", None)
-    if window is not None:
-        wh, ww = window
-        return int(wh) * int(ww)
-    return None
-
-
-def validate_queries(queries) -> None:
-    """Refuse a query that reads a region of 2^24 pixels or more: its
-    fp32 counts would not be exact.  The rest of the reference's static
-    plan checks come with ROADMAP 1.8."""
-    bound = FP32_EXACT_COUNT - 1
-    for q in queries:
-        area = _query_area(q)
-        if area is not None and area > bound:
-            raise PlanValidationError(
-                f"{type(q).__name__} touches a {area}-px region, beyond "
-                f"the exact-count bound {bound} px (fp32 exactness)")
-
-
 @dataclasses.dataclass
 class EngineResult:
     """What ``HistogramEngine.run`` hands back."""
@@ -618,7 +591,8 @@ class HistogramEngine:
         out.results              # one entry per query
 
     ``device=None`` runs on the GPU; ``device="cpu"`` runs the plain
-    torch versions.  ``engine.last_plan`` keeps the most recent plan and
+    torch versions.  ``engine.last_plan`` keeps the most recent plan,
+    ``engine.last_verdict`` its static verdict (``validate``) and
     ``engine.last_runtime`` the ``FrameRuntime`` of the last
     ``map_frames``.  ``memory_budget_bytes`` bands an H that breaks it;
     ``storage`` spills it to the host under that policy;
@@ -667,6 +641,7 @@ class HistogramEngine:
         self.device = None if device is None else str(device)
         self.last_plan: ExecutionPlan | None = None
         self.last_runtime = None        # FrameRuntime from map_frames
+        self.last_verdict = None        # PlanVerdict from validate()
 
     # -- planning -----------------------------------------------------------
     def spec_for(
@@ -698,11 +673,46 @@ class HistogramEngine:
         self.last_plan = p
         return p
 
+    # -- static validation --------------------------------------------------
+    def validate(self, p: ExecutionPlan | None = None, queries=(),
+                 *, deep: bool = False):
+        """Statically verify a plan (``repro_torch.analysis.plancheck``):
+        H shapes and dtypes by abstract evaluation on meta tensors, the
+        cross-band carry chain, peak memory against the budget, shared
+        memory of the CUDA launches, and the count-validity bounds for
+        ``queries``; nothing launches.
+
+        ``deep=True`` adds the CUDA kernels' proofs
+        (``repro_torch.analysis.kernelcheck``: carry order within a CTA
+        and across launches, exactly-once output coverage, in-bounds
+        operands, shared-memory fit) at the launch the plan makes.
+
+        Returns the ``PlanVerdict`` (also kept as ``last_verdict``;
+        ``explain()`` shows it).  ``run()``/``map_frames()`` call this
+        with ``deep=True`` before their first launch and raise
+        ``PlanValidationError`` on a rejected plan."""
+        from repro_torch.analysis.plancheck import check_plan
+
+        if p is None:
+            p = self.last_plan
+        if p is None:
+            raise ValueError("no plan to validate — pass one or run "
+                             "plan_for() first")
+        verdict = check_plan(p, tuple(queries), deep=deep)
+        self.last_verdict = verdict
+        return verdict
+
+    def _validate_or_raise(self, p: ExecutionPlan, queries=()) -> None:
+        verdict = self.validate(p, queries, deep=True)
+        if not verdict.ok:
+            raise PlanValidationError(
+                "plan rejected by static validation:\n" + verdict.render())
+
     def explain(self) -> str:
-        """``last_plan.explain()``."""
+        """``last_plan.explain()`` with the ``last_verdict`` appended."""
         if self.last_plan is None:
             raise ValueError("no plan yet — run plan_for()/run() first")
-        return self.last_plan.explain()
+        return self.last_plan.explain(self.last_verdict)
 
     # -- execution ----------------------------------------------------------
     def _kernel_kwargs(self, p: ExecutionPlan) -> dict:
@@ -907,7 +917,7 @@ class HistogramEngine:
             spec = dataclasses.replace(spec, dirty_fraction=None)
             p = plan(spec)
         self.last_plan = p
-        validate_queries(queries)
+        self._validate_or_raise(p, queries)
         if p.incremental:
             source = self._update(prev_source, frames, report, p)
         else:
@@ -941,7 +951,8 @@ class HistogramEngine:
         earlier frames compute.  An ``adaptive_microbatch`` engine hands
         the runtime the plan's size as a starting point and lets its
         online controller retune it from measured per-dispatch latency.
-        A plan that is not dense is refused."""
+        A plan that is not dense, or that static validation rejects, is
+        refused before the first launch."""
         frames = iter(frames)
         try:
             first = next(frames)
@@ -960,6 +971,7 @@ class HistogramEngine:
                 f"chose {p.representation!r} for {p.spec.height}x"
                 f"{p.spec.width}x{p.spec.num_bins}; run each frame "
                 "through engine.run()/compute() instead")
+        self._validate_or_raise(p)
         runtime = self.runtime_for(p, depth=depth)
         self.last_runtime = runtime
         return runtime.map_frames(itertools.chain([first], frames))

@@ -147,7 +147,10 @@ class IntegralHistogram:
     multi_scale_search = staticmethod(region_query.multi_scale_search)
 
     # ---- deprecated: the unified entry points above accept a BandedH ----
+    # analysis: allow-shim-use(public deprecated aliases kept until their removal release; they re-export, not consume)
     banded_query = staticmethod(region_query.banded_region_histogram)
     banded_sliding_windows = staticmethod(
+        # analysis: allow-shim-use(public deprecated aliases kept until their removal release; they re-export, not consume)
         region_query.banded_sliding_window_histograms)
+    # analysis: allow-shim-use(public deprecated aliases kept until their removal release; they re-export, not consume)
     banded_likelihood_map = staticmethod(region_query.banded_likelihood_map)

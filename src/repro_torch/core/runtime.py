@@ -129,6 +129,7 @@ def _stack(buf: list):
     (on their device), anything else as a host numpy array."""
     if isinstance(buf[0], torch.Tensor):
         return torch.stack(buf)
+    # analysis: allow-host-sync(host frames stacked on the host before staging, not a device readback)
     return np.stack([np.asarray(f) for f in buf])
 
 
@@ -195,6 +196,7 @@ class Stager:
         i = self._next
         self._next = (i + 1) % len(self.buffers)
         if self._events[i] is not None:
+            # analysis: allow-host-sync(waits only for the copy that last used this pinned buffer of the ring, before it is overwritten)
             self._events[i].synchronize()
         buf = self.buffers[i]
         if buf is None or buf.shape != host.shape or buf.dtype != host.dtype:
@@ -520,6 +522,7 @@ class FrameRuntime:
         def retire(d):
             if self.block:
                 for event in d._done:
+                    # analysis: allow-host-sync(retire-time sync is the depth-k window contract; dispatch stays async)
                     event.synchronize()
                 d.latency_s = self.clock() - d._t0
                 stats.latencies_s.append(d.latency_s)

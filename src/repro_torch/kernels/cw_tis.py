@@ -19,22 +19,32 @@ carries between grid steps (``row_carry``, ``col_carry``) become these
 in-CTA and in-thread loop carries, because CTAs run in no order.
 
 ``cw_tis_hscan_cuda`` / ``cw_tis_vscan_cuda`` launch one kernel each for
-a CUDA tensor and run their plain versions only for a CPU tensor; each
-keeps its own ``.launches`` count.  ``cw_tis_cuda`` is the two in turn.
+a CUDA tensor and run their plain versions only for a CPU tensor (a meta
+tensor gets the launch's checks and a meta result, no launch); each keeps
+its own ``.launches`` count.  ``cw_tis_cuda`` is the two in turn.
+``kernel_specs`` states the two launches for kernelcheck.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.core import scans
 from repro_torch.core.binning import one_hot_bins
+from repro_torch.kernels.specs import (
+    KernelGeometry,
+    KernelSpec,
+    Operand,
+    cdiv,
+)
 from repro_torch.kernels.wf_tis import check_inputs, launch_shape
 
 _MAX_VSCAN_BLOCKS = 132 * 16     # grid-stride cap: 16 CTAs per H100 SM
 _ROWS_PER_CTA = 8                # hscan rows per CTA (csrc kRowsPerCta)
+_VSCAN_THREADS = 256             # vscan threads a CTA (csrc kVThreads)
 
 
 def cw_tis_hscan_plain(idx: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -91,7 +101,7 @@ def cw_tis_hscan_cuda(idx: torch.Tensor, num_bins: int, *,
     (n, num_bins, h, w) fp32 ``hh``.  A CPU tensor runs
     ``cw_tis_hscan_plain``."""
     check_inputs(idx, num_bins, None)
-    if not idx.is_cuda:
+    if not (idx.is_cuda or idx.is_meta):
         return cw_tis_hscan_plain(idx, num_bins)
     n, h, w = idx.shape
     hh = torch.empty((n, num_bins, h, w), dtype=torch.float32,
@@ -103,6 +113,8 @@ def cw_tis_hscan_cuda(idx: torch.Tensor, num_bins: int, *,
             f"height {h} exceeds the {65535 * _ROWS_PER_CTA} rows of one "
             "hscan launch")
     bb, threads, chunks = hscan_shape(w, num_bins, bin_block)
+    if not idx.is_cuda:     # meta: the launch's checks ran, nothing launches
+        return hh
     h_fn, _ = _lib()
     with torch.cuda.device(idx.device):
         err = h_fn(idx.data_ptr(), hh.data_ptr(), n, h, w, num_bins, bb,
@@ -130,10 +142,10 @@ def cw_tis_vscan_cuda(hh: torch.Tensor,
             f"carry must be a contiguous float32 {(n, nb, w)} tensor on "
             f"{hh.device}, got {tuple(carry.shape)} {carry.dtype} on "
             f"{carry.device}")
-    if not hh.is_cuda:
+    if not (hh.is_cuda or hh.is_meta):
         return cw_tis_vscan_plain(hh, carry)
     out = torch.empty_like(hh)
-    if out.numel() == 0:
+    if out.numel() == 0 or not hh.is_cuda:
         return out
     _, v_fn = _lib()
     with torch.cuda.device(hh.device):
@@ -158,7 +170,84 @@ def cw_tis_cuda(idx: torch.Tensor, num_bins: int, *,
     Returns (n, num_bins, h, w) fp32, equal to K1 bit for bit.  A CPU
     tensor runs ``cw_tis_plain``."""
     check_inputs(idx, num_bins, carry)
-    if not idx.is_cuda:
+    if not (idx.is_cuda or idx.is_meta):
         return cw_tis_plain(idx, num_bins, carry)
     hh = cw_tis_hscan_cuda(idx, num_bins, bin_block=bin_block)
     return cw_tis_vscan_cuda(hh, carry)
+
+
+def resolve_geometry(geom: KernelGeometry) -> KernelGeometry:
+    """``geom`` with K4's launches filled in as ``cw_tis_cuda`` picks them
+    (``hscan_shape``; vscan on at most ``_MAX_VSCAN_BLOCKS`` CTAs of
+    ``_VSCAN_THREADS``)."""
+    if geom.threads is not None:
+        return geom
+    bb, threads, chunks = hscan_shape(geom.w, geom.num_bins, geom.bin_block)
+    return dataclasses.replace(
+        geom, bin_block=bb, threads=threads, chunks=chunks,
+        strip_rows=_ROWS_PER_CTA, col_block=4, max_blocks=_MAX_VSCAN_BLOCKS,
+        stride_threads=_VSCAN_THREADS)
+
+
+def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
+    """K4's two launches at ``geom`` (csrc/cw_tis.cu): ``hscan_kernel``,
+    grid (n, ceil(nb / bin_block), ceil(h / 8)), each CTA scanning its rows
+    across the width, no value carried between rows; then
+    ``vscan_kernel``, a grid-stride loop over (plane, 4 columns) items,
+    each walking every row with its running sum and reading hscan's rows
+    (edges to the earlier launch)."""
+    g = resolve_geometry(geom)
+    n, h, w, nb = g.n, g.h, g.w, g.num_bins
+    bb, R = g.bin_block, g.strip_rows
+    cols = g.threads * 4 * g.chunks
+    hscan = KernelSpec(
+        name="cw_tis/hscan", kernel="hscan_kernel",
+        grid=(("f", n), ("bb", cdiv(nb, bb)), ("group", cdiv(h, R))),
+        loops=(("row", R),), threads=g.threads, geometry=g,
+        smem_static=4 * 2 * bb * 32,            # warp_tot[2 * BB * 32]
+        active=lambda p: p["group"] * R + p["row"] < h,
+        in_specs=(Operand(
+            "idx", (n, h, w), (1, 1, cols),
+            lambda p: (p["f"], p["group"] * R + p["row"], 0),
+            (False, False, True)),),
+        out_specs=(Operand(
+            "hh", (n, nb, h, w), (1, bb, 1, cols),
+            lambda p: (p["f"], p["bb"], p["group"] * R + p["row"], 0),
+            (False, True, False, True)),),
+        carry_writes=lambda p: [("hh", p["f"], p["bb"],
+                                 p["group"] * R + p["row"])])
+
+    T, ncol = g.stride_threads, cdiv(w, 4)
+    items = n * nb * ncol
+    B = min(cdiv(items, T), g.max_blocks)
+
+    def item_block(p):
+        return p["cta"] + p["stride"] * B
+
+    def v_reads(p):
+        r = p["row"]
+        reads = ([(("acc", p["cta"]), {"cta": p["cta"],
+                                       "stride": p["stride"], "row": r - 1})]
+                 if r > 0 else [])
+        a = item_block(p) * T
+        b = min(items, a + T)
+        for plane in range(a // ncol, (b - 1) // ncol + 1):
+            f, bin_ = divmod(plane, nb)
+            reads.append((("hh", f, bin_ // bb, r), {
+                "pass": hscan.name, "f": f, "bb": bin_ // bb,
+                "group": r // R, "row": r % R}))
+        return reads
+
+    vscan = KernelSpec(
+        name="cw_tis/vscan", kernel="vscan_kernel",
+        grid=(("cta", B),), loops=(("stride", cdiv(items, B * T)), ("row", h)),
+        threads=T, geometry=g,
+        active=lambda p: item_block(p) * T < items,
+        in_specs=(Operand(
+            "carry", (items,), (T,),
+            lambda p: (item_block(p),) if p["row"] == 0 else None, (True,)),),
+        out_specs=(Operand("out", (h, items), (1, T),
+                           lambda p: (p["row"], item_block(p)),
+                           (False, True)),),
+        carry_reads=v_reads, carry_writes=lambda p: [("acc", p["cta"])])
+    return hscan, vscan

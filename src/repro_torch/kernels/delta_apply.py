@@ -19,16 +19,27 @@ padding to (8, 128) tiles is gone; the ragged edge is masked.
 
 ``delta_apply_cuda`` launches the kernel for a CUDA tensor and runs
 ``delta_apply_plain`` (the broadcast add) only for a CPU tensor.
-``delta_apply_cuda.launches`` counts kernel launches.
+``delta_apply_cuda.launches`` counts kernel launches.  ``kernel_specs``
+states the launch for kernelcheck.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
+from repro_torch.kernels.specs import (
+    KernelGeometry,
+    KernelSpec,
+    Operand,
+    cdiv,
+)
+
 _MAX_BLOCKS = 132 * 16          # grid-stride cap: 16 CTAs per H100 SM
+_THREADS = 256                  # threads a CTA (csrc kThreads)
+_ROWS = 8                       # rows a work item (csrc kRows)
 
 
 def delta_apply_plain(H: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -134,3 +145,36 @@ def delta_apply_cuda(H: torch.Tensor, delta: torch.Tensor, *,
 
 
 delta_apply_cuda.launches = 0
+
+
+def resolve_geometry(geom: KernelGeometry) -> KernelGeometry:
+    """``geom`` (``h`` the slab's rows, ``num_bins`` its planes a frame)
+    with K3's launch filled in: work items of ``_ROWS`` rows and 4
+    columns, ``_THREADS`` threads a CTA, at most ``_MAX_BLOCKS`` CTAs."""
+    if geom.max_blocks is not None:
+        return geom
+    return dataclasses.replace(geom, strip_rows=_ROWS, col_block=4,
+                               max_blocks=_MAX_BLOCKS,
+                               stride_threads=_THREADS)
+
+
+def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
+    """K3's launch at ``geom`` (csrc/delta_apply.cu): ``delta_apply_kernel``
+    on min(ceil(items / threads), max_blocks) CTAs, a grid-stride loop over
+    the work items (plane, group of rows, 4 columns); each item is read and
+    written once, no value crosses items."""
+    g = resolve_geometry(geom)
+    T = g.stride_threads
+    items = g.n * g.num_bins * cdiv(g.h, g.strip_rows) * cdiv(g.w, 4)
+    B = min(cdiv(items, T), g.max_blocks)
+
+    def item_block(p):
+        return (p["cta"] + p["stride"] * B,)
+
+    return (KernelSpec(
+        name="delta_apply", kernel="delta_apply_kernel",
+        grid=(("cta", B),), loops=(("stride", cdiv(items, B * T)),),
+        threads=T, geometry=g,
+        active=lambda p: item_block(p)[0] * T < items,
+        in_specs=(Operand("H", (items,), (T,), item_block, (True,)),),
+        out_specs=(Operand("out", (items,), (T,), item_block, (True,)),)),)

@@ -23,12 +23,15 @@ chunk carries the output slot of the row it ends.
 
 ``fused_rows_cuda`` launches the kernels for a CUDA tensor and runs
 ``fused_rows_plain`` (K1's plain version, then the rows) only for a CPU
-tensor.  ``fused_rows_cuda.launches`` counts calls that launched them.
+tensor; a meta tensor gets the launch's checks and a meta result, no
+launch.  ``fused_rows_cuda.launches`` counts calls that launched them.
+``kernel_specs`` states the two launches for kernelcheck.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -36,12 +39,19 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import wf_tis
+from repro_torch.kernels.specs import (
+    KernelGeometry,
+    KernelSpec,
+    Operand,
+    cdiv,
+)
 from repro_torch.kernels.wf_tis import check_inputs, wf_tis_plain
 
 _BIN_BLOCKS = (8, 4, 2, 1)      # instantiated bin blocks (template BB)
 _MAX_THREADS = 512  # pass A threads (csrc kMaxThreads): 2048 columns a slab
 _FILL_CTAS = 2 * wf_tis._SMS    # pass A CTAs a chunk cut aims for
 _MAX_CHUNK_ROWS = 255           # pass A counts a chunk's hits in one byte
+_SUM_THREADS = 64               # pass B threads a CTA (csrc kSumThreads)
 # K1 scans at most this many columns; K2 keeps the same limit so that a
 # fused and a dense plan take the same frames.
 _MAX_WIDTH = wf_tis._MAX_THREADS * 4 * wf_tis._MAX_CHUNKS
@@ -50,6 +60,7 @@ _MAX_WIDTH = wf_tis._MAX_THREADS * 4 * wf_tis._MAX_CHUNKS
 def check_rows(row_ids, h: int) -> np.ndarray:
     """``row_ids`` as a host int64 array, or ValueError unless they are
     sorted unique rows in ``[0, h)``."""
+    # analysis: allow-host-sync(row ids are host data, a sequence, numpy array or CPU tensor: no device readback)
     rows = np.asarray(row_ids, np.int64).reshape(-1)
     if (rows.size == 0 or np.any(np.diff(rows) <= 0) or rows[0] < 0
             or rows[-1] >= h):
@@ -133,7 +144,7 @@ def _host_plan(rows_key: bytes, chunk_rows: int) -> np.ndarray:
 def fused_rows_plain(idx: torch.Tensor, num_bins: int, row_ids,
                      carry: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch K2: K1's plain H, then the requested rows in order."""
-    rows = torch.as_tensor(np.asarray(row_ids, np.int64), device=idx.device)
+    rows = torch.as_tensor(row_ids, dtype=torch.int64, device=idx.device)
     return wf_tis_plain(idx, num_bins, carry)[..., rows, :]
 
 
@@ -211,13 +222,127 @@ def fused_rows_cuda(idx: torch.Tensor, num_bins: int, row_ids, *,
     check_inputs(idx, num_bins, carry)
     n, h, w = idx.shape
     rows = check_rows(row_ids, h)
-    if not idx.is_cuda:
+    if not (idx.is_cuda or idx.is_meta):
         return fused_rows_plain(idx, num_bins, rows, carry)
     shape = chunk_shape(w, num_bins, n, rows.size, int(rows[-1]) + 1,
                         bin_block)
+    if not idx.is_cuda:     # meta: the launch's checks ran, nothing launches
+        return torch.empty((n, num_bins, rows.size, w), dtype=torch.float32,
+                           device=idx.device)
     out = launch(idx, num_bins, rows, shape, carry)
     fused_rows_cuda.launches += 1
     return out
 
 
 fused_rows_cuda.launches = 0
+
+
+def resolve_geometry(geom: KernelGeometry) -> KernelGeometry:
+    """``geom`` (with its requested ``rows``) with K2's launch filled in
+    as ``fused_rows_cuda`` picks it (``chunk_shape``)."""
+    if geom.threads is not None:
+        return geom
+    rows = check_rows(geom.rows, geom.h)
+    shape = chunk_shape(geom.w, geom.num_bins, geom.n, rows.size,
+                        int(rows[-1]) + 1, geom.bin_block)
+    return dataclasses.replace(
+        geom, rows=tuple(int(r) for r in rows), bin_block=shape.bin_block,
+        threads=shape.threads, strip_rows=shape.chunk_rows,
+        col_block=4 * shape.threads)
+
+
+def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
+    """K2's two launches at ``geom`` (csrc/fused_rows.cu): pass A
+    ``chunk_kernel``, one CTA per (frame, chunk, bin block) on grid x,
+    walking its column slabs and, in each, the chunk's rows (counts carried
+    along the rows, slab totals along the slabs), writing P; pass B
+    ``sum_kernel``, one thread per (frame, bin, 4 columns), walking the
+    chunks with its running sum and reading each chunk's P (edges to pass
+    A) to write the requested rows.  The chunks are ``chunk_plan``'s."""
+    g = resolve_geometry(geom)
+    n, h, w, nb = g.n, g.h, g.w, g.num_bins
+    bb, T, slab = g.bin_block, g.threads, g.col_block
+    # analysis: allow-host-sync(the spec's rows are a host tuple; kernelcheck builds specs off the launch path)
+    rows = np.asarray(g.rows, np.int64)
+    first, slot = chunk_plan(rows, g.strip_rows)
+    first, slot = [int(v) for v in first], [int(v) for v in slot]
+    M, K = len(first), rows.size
+    lens = [e - b for b, e in zip(first, first[1:] + [int(rows[-1]) + 1])]
+    blocks, S = cdiv(nb, bb), cdiv(w, slab)
+
+    def cta(x):
+        fm, bblk = divmod(x, blocks)
+        f, m = divmod(fm, M)
+        return f, m, bblk
+
+    def last_row(p):
+        return p["row"] == lens[cta(p["x"])[1]] - 1
+
+    def a_reads(p):
+        x, s, r = p["x"], p["slab"], p["row"]
+        reads = []
+        if r > 0:
+            reads.append((("pk", x), {"x": x, "slab": s, "row": r - 1}))
+        if s > 0 and last_row(p):
+            reads.append((("before", x), {"x": x, "slab": s - 1,
+                                          "row": p["row"]}))
+        return reads
+
+    def a_writes(p):
+        cells = [("pk", p["x"])]
+        if last_row(p):
+            f, m, bblk = cta(p["x"])
+            cells += [("before", p["x"]), ("P", f, bblk, m, p["slab"])]
+        return cells
+
+    def a_out(p):
+        if not last_row(p):
+            return None
+        f, m, bblk = cta(p["x"])
+        return (f, bblk, m, p["slab"])
+
+    pass_a = KernelSpec(
+        name="fused_rows/chunks", kernel="chunk_kernel",
+        grid=(("x", n * M * blocks),),
+        loops=(("slab", S), ("row", max(lens))), threads=T, geometry=g,
+        smem_static=4 * 2 * bb * 32,            # warp_tot[2 * BB * 32]
+        active=lambda p: p["row"] < lens[cta(p["x"])[1]],
+        in_specs=(Operand(
+            "idx", (n, h, w), (1, 1, slab),
+            lambda p: (cta(p["x"])[0], first[cta(p["x"])[1]] + p["row"],
+                       p["slab"]),
+            (False, False, True)),),
+        out_specs=(Operand("P", (n, nb, M, w), (1, bb, 1, slab), a_out,
+                           (False, True, False, True)),),
+        carry_reads=a_reads, carry_writes=a_writes)
+
+    ncol = cdiv(w, 4)
+    items = n * nb * ncol
+
+    def b_reads(p):
+        x, m = p["x"], p["chunk"]
+        reads = [(("acc", x), {"x": x, "chunk": m - 1})] if m > 0 else []
+        a, b = x * _SUM_THREADS, min(items, (x + 1) * _SUM_THREADS)
+        for plane in range(a // ncol, (b - 1) // ncol + 1):
+            f, bin_ = divmod(plane, nb)
+            c0 = max(a, plane * ncol) - plane * ncol
+            c1 = min(b, (plane + 1) * ncol) - plane * ncol
+            for s in range(4 * c0 // slab, (4 * (c1 - 1)) // slab + 1):
+                reads.append((("P", f, bin_ // bb, m, s), {
+                    "pass": pass_a.name, "x": (f * M + m) * blocks
+                    + bin_ // bb, "slab": s, "row": lens[m] - 1}))
+        return reads
+
+    pass_b = KernelSpec(
+        name="fused_rows/sum", kernel="sum_kernel",
+        grid=(("x", cdiv(items, _SUM_THREADS)),), loops=(("chunk", M),),
+        threads=_SUM_THREADS, geometry=g,
+        in_specs=(Operand(
+            "carry", (items,), (_SUM_THREADS,),
+            lambda p: (p["x"],) if p["chunk"] == 0 else None, (True,)),),
+        out_specs=(Operand(
+            "out", (K, items), (1, _SUM_THREADS),
+            lambda p: ((slot[p["chunk"]], p["x"]) if slot[p["chunk"]] >= 0
+                       else None), (False, True)),),
+        carry_reads=b_reads, carry_writes=lambda p: [("acc", p["x"])])
+    return pass_a, pass_b

@@ -16,7 +16,13 @@ Backends:
 
 An explicit "cuda" on a CPU tensor raises ``ValueError``.  ``cw_b`` and
 ``cw_sts`` have no kernel in the reference either: "auto" runs them as
-torch, an explicit "cuda" raises.
+torch, an explicit "cuda" raises.  On a meta tensor "cuda" evaluates the
+kernels abstractly: each wrapper runs its launch's checks and returns a
+meta result, and nothing launches (plancheck's counterpart of
+``jax.eval_shape``).
+
+``KERNEL_SPECS`` maps each method with CUDA kernels to the builder of its
+launches' ``KernelSpec``s (kernels/specs.py), which kernelcheck proves.
 
 ``memory_budget_bytes`` hands the frame to the planner
 (core/engine.py): when its H breaks the budget it is computed band by
@@ -33,6 +39,10 @@ import torch
 from repro_torch.core import scans
 from repro_torch.core.binning import bin_indices
 from repro_torch.device import as_tensor
+from repro_torch.kernels import cw_tis as _cw_tis
+from repro_torch.kernels import delta_apply as _delta_apply
+from repro_torch.kernels import fused_rows as _fused_rows
+from repro_torch.kernels import wf_tis as _wf_tis
 from repro_torch.kernels.cw_tis import cw_tis_cuda
 from repro_torch.kernels.delta_apply import (
     delta_apply_cuda,
@@ -45,21 +55,31 @@ from repro_torch.kernels.wf_tis import wf_tis_cuda
 BACKENDS = ("auto", "cuda", "torch")
 CUDA_METHODS = ("wf_tis", "cw_tis")
 
+#: method -> builder of its launches' KernelSpecs (the kernelcheck
+#: registry; K5 has none, as in the reference).
+KERNEL_SPECS = {
+    "wf_tis": _wf_tis.kernel_specs,
+    "cw_tis": _cw_tis.kernel_specs,
+    "fused_rows": _fused_rows.kernel_specs,
+    "delta_apply": _delta_apply.kernel_specs,
+}
+
 
 def kernel_backend(backend: str, device) -> str:
     """"cuda" or "torch" for a function that has one CUDA kernel, on
     ``device``: "auto" takes the kernel for a CUDA tensor and the plain
-    version otherwise; an explicit "cuda" off the card raises."""
+    version otherwise; an explicit "cuda" off the card raises, except on
+    meta tensors (abstract evaluation)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (want {BACKENDS})")
     if backend == "torch":
         return backend
-    on_card = torch.device(device).type == "cuda"
-    if backend == "cuda" and not on_card:
+    kind = torch.device(device).type
+    if backend == "cuda" and kind not in ("cuda", "meta"):
         raise ValueError(
             "backend='cuda' needs a CUDA tensor; use backend='auto' or "
             "'torch' on the CPU")
-    return "cuda" if on_card else "torch"
+    return "cuda" if kind == "cuda" or backend == "cuda" else "torch"
 
 
 def resolve_backend(backend: str, method: str, device) -> str:

@@ -36,8 +36,9 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.specs import SMEM_LIMIT_BYTES
+
 KERNEL_CHUNK = 64               # steps of one chunk inside the kernel
-_SMEM_LIMIT = 227 * 1024        # dynamic shared memory one CTA may use
 _GRID_LIMIT = 65535             # CUDA's cap on grid dims y and z
 
 
@@ -158,7 +159,7 @@ def _check_kernel_inputs(x, dt, Bm, Cm, h0) -> None:
         raise NotImplementedError(
             f"the SSD kernel needs head_dim and state multiples of 4, got "
             f"P={p}, N={n}")
-    if smem_bytes(p, n) > _SMEM_LIMIT:
+    if smem_bytes(p, n) > SMEM_LIMIT_BYTES:
         raise NotImplementedError(
             f"P={p}, N={n} needs {smem_bytes(p, n)} B of shared memory")
     if b * -(-p // 64) > _GRID_LIMIT or h > _GRID_LIMIT:

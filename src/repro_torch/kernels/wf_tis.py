@@ -19,24 +19,34 @@ call.  Shapes that fill the card, and short frames, keep one walk.
 
 ``wf_tis_cuda`` launches the kernel for a CUDA tensor and runs
 ``wf_tis_plain`` (the strip scan of ``core/scans.py``: one-hot, two
-cumsums per strip, the carry) only for a CPU tensor.
-``wf_tis_cuda.launches`` counts calls that launched the kernel.
+cumsums per strip, the carry) only for a CPU tensor; a meta tensor gets
+the launch's checks and a meta H, no launch (plancheck's abstract
+evaluation).  ``wf_tis_cuda.launches`` counts calls that launched the
+kernel.  ``kernel_specs`` states the launches for kernelcheck.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import scans
+from repro_torch.kernels.specs import (
+    SMEM_DEFAULT_BYTES,
+    SMEM_LIMIT_BYTES,
+    KernelGeometry,
+    KernelSpec,
+    Operand,
+    cdiv,
+)
 
 _MAX_THREADS = 1024
 _MAX_CHUNKS = 4                 # 4-column chunks per thread (template Q)
 _BIN_BLOCKS = (8, 4, 2, 1)      # instantiated bin blocks (template BB)
-_SMEM_LIMIT = 227 * 1024        # dynamic shared memory one CTA may use
 _SMS = 132                      # streaming multiprocessors of an H100 SXM
 _FILL_WARPS = 8 * _SMS          # warps in flight that keep one strip
 _STRIP_CTAS = 4 * _SMS          # CTAs a strip cut aims for
@@ -48,6 +58,8 @@ _MIN_STRIP_ROWS = 4
 # strips are slower at 80 rows and faster from 96.
 _STRIP_MIN_HEIGHT = 96
 _GRID_LIMIT = 65535             # CUDA's cap on grid dims y and z
+_COUNT_BINS = 8                 # pre-pass bins a thread (csrc kCountBins)
+_COUNT_THREADS = 128            # pre-pass threads a CTA (csrc kCountThreads)
 
 
 def wf_tis_plain(idx: torch.Tensor, num_bins: int,
@@ -71,6 +83,13 @@ class LaunchShape(NamedTuple):
 
     def ctas(self, n: int, num_bins: int, h: int) -> int:
         return n * -(-num_bins // self.bin_block) * self.strips(h)
+
+
+def scan_smem_bytes(bin_block: int, threads: int, chunks: int) -> int:
+    """Dynamic shared memory of one strip-scan CTA (wf_tis_scan.cuh's
+    ``smem_bytes``): the column counts of ``bin_block`` bins over the
+    CTA's columns, and two buffers of per-warp totals."""
+    return 4 * (bin_block * threads * 4 * chunks + 2 * bin_block * 32)
 
 
 def strip_rows_for(h: int, ctas: int) -> int:
@@ -105,10 +124,10 @@ def launch_shape(w: int, num_bins: int, n: int,
             "pre-pass (not ported yet)")
 
     def smem(bb: int) -> int:
-        return 4 * (bb * threads * 4 * chunks + 2 * bb * 32)
+        return scan_smem_bytes(bb, threads, chunks)
 
     if bin_block is None:
-        fits = [bb for bb in _BIN_BLOCKS if smem(bb) <= _SMEM_LIMIT]
+        fits = [bb for bb in _BIN_BLOCKS if smem(bb) <= SMEM_LIMIT_BYTES]
         if not fits:
             raise NotImplementedError(f"width {w} exceeds shared memory")
         busy = [bb for bb in fits if n * -(-num_bins // bb) >= 2 * _SMS]
@@ -116,7 +135,7 @@ def launch_shape(w: int, num_bins: int, n: int,
     elif bin_block not in _BIN_BLOCKS:
         raise ValueError(f"bin_block must be one of {_BIN_BLOCKS}, "
                          f"got {bin_block}")
-    elif smem(bin_block) > _SMEM_LIMIT:
+    elif smem(bin_block) > SMEM_LIMIT_BYTES:
         raise ValueError(f"bin_block {bin_block} at width {w} needs "
                          f"{smem(bin_block)} B of shared memory")
     if h is None:
@@ -219,16 +238,120 @@ def wf_tis_cuda(idx: torch.Tensor, num_bins: int, *,
       (n, num_bins, h, w) fp32.  A CPU tensor runs ``wf_tis_plain``.
     """
     check_inputs(idx, num_bins, carry)
-    if not idx.is_cuda:
+    if not (idx.is_cuda or idx.is_meta):
         return wf_tis_plain(idx, num_bins, carry)
     n, h, w = idx.shape
     if n * h * w * num_bins == 0:
         return torch.empty((n, num_bins, h, w), dtype=torch.float32,
                            device=idx.device)
-    out = launch(idx, num_bins, launch_shape(w, num_bins, n, bin_block, h=h),
-                 carry)
+    shape = launch_shape(w, num_bins, n, bin_block, h=h)
+    if not idx.is_cuda:     # meta: the launch's checks ran, nothing launches
+        return torch.empty((n, num_bins, h, w), dtype=torch.float32,
+                           device=idx.device)
+    out = launch(idx, num_bins, shape, carry)
     wf_tis_cuda.launches += 1
     return out
 
 
 wf_tis_cuda.launches = 0
+
+
+def resolve_geometry(geom: KernelGeometry) -> KernelGeometry:
+    """``geom`` with K1's launch filled in as ``wf_tis_cuda`` picks it
+    (``launch_shape(..., h=h)``: a ``bin_block`` of ``None`` by the busy
+    rule, ``strip_rows`` of ``None`` by the strip cut)."""
+    if geom.threads is not None:
+        return geom
+    shape = launch_shape(geom.w, geom.num_bins, geom.n, geom.bin_block,
+                         h=geom.h, strip_rows=geom.strip_rows)
+    return dataclasses.replace(
+        geom, bin_block=shape.bin_block, threads=shape.threads,
+        chunks=shape.chunks, strip_rows=shape.strip_rows,
+        col_block=4 * _COUNT_THREADS)
+
+
+def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
+    """K1's launches at ``geom`` (csrc/wf_tis.cu ``wf_tis_launch``): with
+    more than one strip, the count pre-pass ``count_kernel``, grid
+    (n * ceil(nb / 8), ceil(w / 512), strips - 1), a CTA's rows counted
+    along its row loop; then ``scan_kernel``, grid (n, ceil(nb / bin_block),
+    strips), walking its strip's rows with the column counts carried in
+    shared memory and seeded at row 0 from the carry and the pre-pass's
+    counts of the strips above (edges to the earlier launch)."""
+    g = resolve_geometry(geom)
+    n, h, w, nb = g.n, g.h, g.w, g.num_bins
+    bb, R, cb = g.bin_block, g.strip_rows, g.col_block
+    cols = g.threads * 4 * g.chunks
+    strips, nbb = cdiv(h, R), cdiv(nb, bb)
+    groups, ncb = cdiv(nb, _COUNT_BINS), cdiv(w, cb)
+    specs = []
+    if strips > 1:
+        def count_cta(p):
+            return {"x": p["x"], "y": p["y"], "z": p["z"]}
+
+        def count_out(p):
+            if p["row"] != R - 1:
+                return None
+            f, grp = divmod(p["x"], groups)
+            return (f, grp, p["z"], p["y"])
+
+        def count_reads(p):
+            if p["row"] == 0:
+                return []
+            return [(("cnt", p["x"], p["y"], p["z"]),
+                     {**count_cta(p), "row": p["row"] - 1})]
+
+        def count_writes(p):
+            cells = [("cnt", p["x"], p["y"], p["z"])]
+            if p["row"] == R - 1:
+                f, grp = divmod(p["x"], groups)
+                cells.append(("counts", f, grp, p["z"], p["y"]))
+            return cells
+
+        specs.append(KernelSpec(
+            name="wf_tis/count", kernel="count_kernel",
+            grid=(("x", n * groups), ("y", ncb), ("z", strips - 1)),
+            loops=(("row", R),), threads=_COUNT_THREADS, geometry=g,
+            in_specs=(Operand(
+                "idx", (n, h, w), (1, 1, cb),
+                lambda p: (p["x"] // groups, p["z"] * R + p["row"], p["y"]),
+                (False, False, True)),),
+            out_specs=(Operand(
+                "counts", (n, nb, strips - 1, w), (1, _COUNT_BINS, 1, cb),
+                count_out, (False, True, False, True)),),
+            carry_reads=count_reads, carry_writes=count_writes))
+
+    def scan_reads(p):
+        f, y, z, r = p["x"], p["y"], p["z"], p["row"]
+        if r > 0:
+            return [(("V", f, y, z), {"x": f, "y": y, "z": z, "row": r - 1})]
+        g0, g1 = y * bb // _COUNT_BINS, (min(nb, (y + 1) * bb) - 1) \
+            // _COUNT_BINS
+        return [(("counts", f, grp, s, cy),
+                 {"pass": "wf_tis/count", "x": f * groups + grp, "y": cy,
+                  "z": s, "row": R - 1})
+                for s in range(z) for grp in range(g0, g1 + 1)
+                for cy in range(ncb)]
+
+    dynamic = scan_smem_bytes(bb, g.threads, g.chunks)
+    specs.append(KernelSpec(
+        name="wf_tis/scan", kernel="scan_kernel",
+        grid=(("x", n), ("y", nbb), ("z", strips)), loops=(("row", R),),
+        threads=g.threads, geometry=g, smem_dynamic=dynamic,
+        smem_opt_in=dynamic > SMEM_DEFAULT_BYTES,     # launch_bbq sets it
+        active=lambda p: p["z"] * R + p["row"] < h,
+        in_specs=(
+            Operand("idx", (n, h, w), (1, 1, cols),
+                    lambda p: (p["x"], p["z"] * R + p["row"], 0),
+                    (False, False, True)),
+            Operand("carry", (n, nb, w), (1, bb, cols),
+                    lambda p: (p["x"], p["y"], 0) if p["row"] == 0 else None,
+                    (False, True, True)),
+        ),
+        out_specs=(Operand(
+            "out", (n, nb, h, w), (1, bb, 1, cols),
+            lambda p: (p["x"], p["y"], p["z"] * R + p["row"], 0),
+            (False, True, False, True)),),
+        carry_reads=scan_reads,
+        carry_writes=lambda p: [("V", p["x"], p["y"], p["z"])]))
+    return tuple(specs)

@@ -216,13 +216,16 @@ class AnalyticsService:
 
     # -- the one serving core (both entry points call this) -----------------
     def _evict_locked(self) -> None:
-        """LRU eviction under both bounds; caller holds ``self._lock``."""
+        """LRU eviction under both bounds; caller holds ``self._lock``
+        (hence the pragmas: the rule cannot see a caller's lock)."""
         while len(self._cache) > self.cache_size:
+            # analysis: allow-lock-discipline(caller holds self._lock)
             self._cache.popitem(last=False)
         if self.cache_bytes is not None:
             total = sum(
                 getattr(s, "nbytes", 0) for s in self._cache.values())
             while self._cache and total > self.cache_bytes:
+                # analysis: allow-lock-discipline(caller holds self._lock)
                 _, dropped = self._cache.popitem(last=False)
                 total -= getattr(dropped, "nbytes", 0)
 
