@@ -67,7 +67,8 @@ non-zero before the result line is printed:
           two targets then one, over 32 frames: track, a step loop,
           step_fused (K2, one target) and track(incremental=True) on a
           low-motion stream (K1 on the dirty run, K3 below) give the same
-          boxes, and track equals backend="torch" on the card
+          boxes, and track equals backend="torch" on the card; the
+          number of distinct plans step_fused asked the gate for
   service AnalyticsService over the clip (4 queries a frame: two region
           queries, a stride-16 likelihood map, a grid of rects; frames 9
           and 14 again, as cache hits) and a 16-frame low-motion chain:
@@ -102,8 +103,9 @@ non-zero before the result line is printed:
           PlanValidationError and every launch counter at 0 (a 64-frame
           microbatch under a 1 MiB budget from a planner forced to it, a
           400x400 region on a uint16 engine, a 1x20000 frame); the gate's
-          host µs warm, on a video frame's new plan and on its first call,
-          beside the one-frame fused request; python -m
+          host µs warm, on a video frame's new plan, on a fused plan with
+          new corner rows and on its first call, beside the one-frame
+          fused request; python -m
           repro_torch.analysis --check exits 0.  Its launch check comes at
           the end of timing: each spec's grid, threads and shared bytes
           against the kernel events of an exported torch.profiler trace of
@@ -1370,11 +1372,13 @@ def run(torch) -> list[dict]:
                   f"track ({label}) launched {counts}")
             tracker_ms[f"track, {label}"] = dt * 1e3 / TRACK_FRAMES
 
-            def step_loop(fn):
+            def step_loop(fn, plans=None):
                 st, out = dict(st0), []
                 for f in t_clip[1:]:
                     st = fn(st, f)
                     out.append(st["bbox"])
+                    if plans is not None:
+                        plans.add(tracker._step_engine.last_plan)
                 return torch.stack(out)
 
             got, dt, counts = counted("tracker_step",
@@ -1389,8 +1393,10 @@ def run(torch) -> list[dict]:
             check(torch.equal(want, boxes),
                   f"track ({label}) != backend='torch' on the card")
             if nt == 1:
+                fused_plans = set()
                 got, dt, counts = counted(
-                    "tracker_fused", lambda: step_loop(tracker.step_fused))
+                    "tracker_fused",
+                    lambda: step_loop(tracker.step_fused, fused_plans))
                 check(tracker._step_engine.last_plan.representation
                       == "fused", "step_fused did not plan fused")
                 check(counts == only(fused_rows=TRACK_FRAMES),
@@ -1420,7 +1426,9 @@ def run(torch) -> list[dict]:
                 + f" and track(incremental=True) agree; last boxes "
                 f"{boxes[-1].tolist()}")
         log(f"   step_fused: {t_rows} corner rows a frame (fuse bound "
-            f"{h // 4}); launches by path: " + ", ".join(
+            f"{h // 4}), {len(fused_plans)} distinct plans over "
+            f"{TRACK_FRAMES} frames (each new one misses the gate's plan "
+            f"cache); launches by path: " + ", ".join(
                 f"{p} {paths[p]}" for p in paths if p.startswith("tracker")))
         log("   ms a frame (host clock, one run, first call of each path "
             "included): " + ", ".join(f"{k} {v:.3f}"
@@ -1830,8 +1838,9 @@ def run(torch) -> list[dict]:
                     np.zeros((1, 20000), np.uint8)), "h-shape")
 
         # What the gate costs on the host: warm (the verdict cached by
-        # plan), a video frame's plan (a new dirty fraction: the structural
-        # checks miss, the meta evaluations hit), and the first call.
+        # plan), a video frame's plan (a new dirty fraction: only the
+        # incremental line reads it), a fused plan with new rows, and the
+        # first call.
         one = engine.run(clip_np[0], fused_queries)
         p_one = one.plan
         seed = v_engine.run(stream[0], v_queries)
@@ -1849,25 +1858,29 @@ def run(torch) -> list[dict]:
                 times.append(time.perf_counter() - t0)
             return statistics.median(times) * 1e6
 
-        def clear_caches():
-            for fn in (plancheck._structural_checks, plancheck._kernel_checks,
-                       plancheck._launch_checks, plancheck._eval_kernel,
-                       plancheck._eval_fused, kernelcheck.check_method,
-                       kernelcheck.smem_required):
-                fn.cache_clear()
-
         warm_one = gate_us(engine, [p_one], fused_queries)
         warm_inc = gate_us(v_engine, [p_inc], v_queries)
         new_inc = gate_us(v_engine, [dataclasses.replace(
             p_inc, spec=dataclasses.replace(
                 p_inc.spec, dirty_fraction=0.3 * i / 1000 + 1e-6))
             for i in range(1000)], v_queries)
+        # The one-frame plan with two more corner rows, a different pair
+        # each call (as new rects or a tracker's moving box ask): a new
+        # plan every call, whose kernel proofs are cached by the canonical
+        # geometry and meta evaluation by the rows' count and early cut.
+        rows_one = set(p_one.spec.query_rows)
+        free = [r for r in range(h) if r not in rows_one]
+        pairs = np.random.default_rng(11).choice(len(free), (1000, 2))
+        new_rows = gate_us(engine, [dataclasses.replace(
+            p_one, spec=dataclasses.replace(p_one.spec, query_rows=tuple(
+                sorted(rows_one | {free[a], free[b]}))))
+            for a, b in pairs], fused_queries)
         first = {}
         for label, eng, p_, q_ in (("one-frame fused", engine, p_one,
                                     fused_queries),
                                    ("incremental video", v_engine, p_inc,
                                     v_queries)):
-            clear_caches()
+            plancheck.clear_caches()
             t0 = time.perf_counter()
             eng.validate(p_, q_, deep=True)
             first[label] = (time.perf_counter() - t0) * 1e3
@@ -1876,7 +1889,9 @@ def run(torch) -> list[dict]:
         log(f"   gate, host µs (median of 1000): one-frame fused plan warm "
             f"{warm_one:.2f}, incremental video plan warm {warm_inc:.2f}, "
             f"a video frame's new plan (dirty fraction changed) "
-            f"{new_inc:.2f}; first, uncached call: " + ", ".join(
+            f"{new_inc:.2f}, the one-frame fused plan with 2 new corner "
+            f"rows (a new plan each call) {new_rows:.2f}; first, uncached "
+            f"call: " + ", ".join(
                 f"{k} {v:.2f} ms" for k, v in first.items())
             + f" | the one-frame fused request {one_ms:.3f} ms (median of "
             f"21): the warm gate is {warm_one / 1e3 / one_ms:.2%} of it | "

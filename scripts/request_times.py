@@ -15,6 +15,13 @@ queries applied to that frame's fused source with no scan at all (the
 analytics alone), and chip_smoke's video stream (30 frames of 480x640 at
 32 bins, each rewriting a 48-row block, a stride-2 24x24 likelihood map)
 run incrementally, each frame with its predecessor (``prev=``), read as
+ms a frame.  Those repeat the same inputs, so every plan after the first
+call is one the engine has seen.  Three more give each repetition inputs
+of its own, made before its clock starts: the one-frame fused request
+with its first rect moved down a row a repetition (new corner rows), a
+new video stream (new seed), and chip_smoke's one-target
+``FragmentTracker.step_fused`` over 32 frames from a box moved down a row
+a repetition (16 bins, radius 12: new corner rows every frame), read as
 ms a frame.  Each reading is the median and quartiles over ``--reps``
 calls (after 3 warm-up calls), each call ended by a
 ``torch.cuda.synchronize()``.  Run parent, change, change, parent on one
@@ -56,6 +63,7 @@ def main() -> int:
     eng_mod = importlib.import_module("repro_torch.core.engine")
     ref = importlib.import_module("repro_torch.kernels.ref")
     data = importlib.import_module("repro_torch.data")
+    tracking = importlib.import_module("repro_torch.core.tracking")
 
     n, h, w, nb = 16, 480, 640, 32
     clip_np = data.video_frames(h, w, n, seed=0)
@@ -80,29 +88,63 @@ def main() -> int:
     v_engine = eng_mod.HistogramEngine(num_bins=nb)
     v_seed = v_engine.run(video[0], v_queries)
 
-    def video_chain():
-        out = v_seed
-        for t in range(1, len(video)):
-            out = v_engine.run(video[t], v_queries, prev=(video[t - 1], out))
+    def video_chain(stream, seed_out):
+        out = seed_out
+        for t in range(1, len(stream)):
+            out = v_engine.run(stream[t], v_queries,
+                               prev=(stream[t - 1], out))
 
-    # label -> (request, frames it answers: a reading is ms a frame)
+    def moved_rects(i):
+        moved = rects.copy()
+        moved[0, [0, 2]] += i
+        queries = [eng_mod.RegionQuery(moved)] + fused_queries[1:]
+        return lambda: engine.run(clip_np[0], queries)
+
+    def new_stream(i):
+        stream = smoke.low_motion_stream(h, w, 30, 48, seed=100 + i)
+        first = v_engine.run(stream[0], v_queries)
+        return lambda: video_chain(stream, first)
+
+    t_clip = data.video_frames(h, w, 33, seed=8)
+    tracker = tracking.FragmentTracker(tracking.TrackerConfig(
+        num_bins=16, search_radius=12))
+
+    def moved_box(i):
+        st0 = tracker.init(t_clip[0], [150 + i, 200, 213 + i, 271])
+
+        def steps():
+            st = dict(st0)
+            for f in t_clip[1:]:
+                st = tracker.step_fused(st, f)
+        return steps
+
+    # label -> (rep index -> the request to time, frames it answers: a
+    # reading is ms a frame)
     requests = {
-        "fused clip": (lambda: engine.run(clip_np, fused_queries), 1),
-        "fused one frame": (lambda: engine.run(clip_np[0], fused_queries),
-                            1),
-        "dense clip": (lambda: engine.run(clip_np, dense_queries), 1),
-        "analytics one frame": (lambda: [q.apply(source)
-                                         for q in fused_queries], 1),
-        "video incremental frame": (video_chain, len(video) - 1),
+        "fused clip": (lambda i: lambda: engine.run(clip_np, fused_queries),
+                       1),
+        "fused one frame": (
+            lambda i: lambda: engine.run(clip_np[0], fused_queries), 1),
+        "dense clip": (lambda i: lambda: engine.run(clip_np, dense_queries),
+                       1),
+        "analytics one frame": (
+            lambda i: lambda: [q.apply(source) for q in fused_queries], 1),
+        "video incremental frame": (
+            lambda i: lambda: video_chain(video, v_seed), len(video) - 1),
+        "fused one frame, new rows": (moved_rects, 1),
+        "video incremental frame, new stream": (new_stream, len(video) - 1),
+        "tracker step_fused frame, new box": (moved_box, len(t_clip) - 1),
     }
     result = {"label": args.label, "src": args.src,
               "card": smoke.card_line(), "reps": args.reps, "ms": {}}
-    for label, (fn, frames) in requests.items():
-        for _ in range(3):
-            fn()
+    for label, (make, frames) in requests.items():
+        for i in range(3):
+            make(args.reps + i)()
         torch.cuda.synchronize()
         times = []
-        for _ in range(args.reps):
+        for i in range(args.reps):
+            fn = make(i)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()

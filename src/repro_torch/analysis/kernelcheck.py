@@ -32,7 +32,8 @@ Four checks per launch:
 
 Enumeration runs on ``KernelGeometry.canonical()`` (frames pinned to 2,
 grid dimensions and loops clamped to 3 blocks); smem-fit prices the real
-geometry.  Entry points: ``check_method`` (one method, one geometry),
+geometry; the enumeration proofs are cached by the canonical geometry.
+Entry points: ``check_method`` (one method, one geometry),
 ``check_kernels`` (the registry: ``--check-kernels``), and
 ``plan_method``/``plan_geometry``/``smem_required`` (the plancheck bridge).
 """
@@ -356,17 +357,15 @@ def check_smem_fit(spec: KernelSpec) -> KernelCheck:
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
-def check_spec(spec: KernelSpec, *, enum_spec: KernelSpec | None = None,
+def check_spec(spec: KernelSpec,
                earlier: tuple[KernelSpec, ...] = ()) -> tuple[KernelCheck, ...]:
-    """All four checks for one launch.  ``enum_spec`` (the same launch at
-    the canonical geometry) and ``earlier`` (the method's launches before
-    it, at the same geometry as ``enum_spec``) run the enumeration checks;
-    ``spec`` (real geometry) prices smem-fit."""
-    e = enum_spec if enum_spec is not None else spec
+    """All four checks for one launch, after its ``earlier`` launches at
+    the same geometry (``check_method`` enumerates at the canonical one
+    and prices smem on the real one)."""
     return (
-        check_carry_order(e, earlier),
-        check_out_coverage(e),
-        check_in_bounds(e),
+        check_carry_order(spec, earlier),
+        check_out_coverage(spec),
+        check_in_bounds(spec),
         check_smem_fit(spec),
     )
 
@@ -382,18 +381,34 @@ def specs_for(method: str, geom: KernelGeometry) -> tuple[KernelSpec, ...]:
     return builder(geom)
 
 
-@functools.lru_cache(maxsize=64)
 def check_method(method: str, geom: KernelGeometry) -> KernelVerdict:
     """Verify every launch of ``method`` at ``geom``: enumeration at the
     canonical form of the resolved geometry, smem on the real one."""
-    real = specs_for(method, geom)
-    canon = specs_for(method, real[0].geometry.canonical())
+    return check_launches(method, specs_for(method, geom))
+
+
+def check_launches(method: str, real: tuple[KernelSpec, ...]
+                   ) -> KernelVerdict:
+    """``check_method`` on the method's launches already built at the real
+    geometry.  The enumeration proofs are cached by the canonical geometry,
+    which most calls share (a new set of requested rows, a new frame
+    count); smem-fit is arithmetic on the real specs."""
+    geom = real[0].geometry
+    proofs = _proofs(method, geom.canonical())
     checks: list[KernelCheck] = []
-    for i, (spec, enum_spec) in enumerate(zip(real, canon)):
-        checks.extend(check_spec(spec, enum_spec=enum_spec,
-                                 earlier=canon[:i]))
-    return KernelVerdict(method=method, geometry=real[0].geometry,
-                         checks=tuple(checks))
+    for proved, spec in zip(proofs, real):
+        checks.extend(proved + (check_smem_fit(spec),))
+    return KernelVerdict(method=method, geometry=geom, checks=tuple(checks))
+
+
+@functools.lru_cache(maxsize=256)
+def _proofs(method: str, canon: KernelGeometry
+            ) -> tuple[tuple[KernelCheck, ...], ...]:
+    """carry-order, out-coverage and in-bounds of each launch, enumerated
+    at the canonical geometry ``canon``."""
+    specs = specs_for(method, canon)
+    return tuple(check_spec(spec, specs[:i])[:3]
+                 for i, spec in enumerate(specs))
 
 
 def check_kernels(methods=None, geometries=None) -> list[KernelVerdict]:
@@ -466,18 +481,21 @@ def plan_geometry(plan) -> KernelGeometry:
                           bin_block=plan.bin_block)
 
 
-@functools.lru_cache(maxsize=256)
 def smem_required(method: str, geom: KernelGeometry
                   ) -> tuple[int, str] | None:
-    """Peak shared bytes a CTA takes across the method's launches (they
-    run one after another, so the peak is the max), with a detail string:
-    what plancheck's smem-fit prices.  ``None`` when the method has no
+    """Peak shared bytes a CTA takes across the method's launches, with a
+    detail string (``peak_smem``).  ``None`` when the method has no
     registered KernelSpec (no CUDA kernel to model)."""
     from repro_torch.kernels.ops import KERNEL_SPECS
 
     if method not in KERNEL_SPECS:
         return None
-    specs = specs_for(method, geom)
+    return peak_smem(specs_for(method, geom))
+
+
+def peak_smem(specs: tuple[KernelSpec, ...]) -> tuple[int, str]:
+    """The launches run one after another, so a CTA's peak is the max over
+    them: what plancheck's smem-fit prices."""
     peak = max(specs, key=lambda sp: sp.smem_bytes())
     label = f" (peak launch {peak.name})" if len(specs) > 1 else ""
     return peak.smem_bytes(), peak.smem_detail() + label

@@ -32,11 +32,13 @@ the planner's own metadata:
   * with ``deep=True``, kernelcheck's four proofs for the plan's kernels
     (kernel-carry, kernel-coverage, kernel-bounds, kernel-smem).
 
-The structural verdict is cached per plan (plans are frozen, hashable
-dataclasses); the meta evaluations are cached on the fields that fix
-shapes and the kernel proofs on the launch geometry, so an incremental
-plan, new with each frame's dirty fraction, reuses both.  Queries are
-checked fresh each time.
+The verdict is cached per plan (plans are frozen, hashable dataclasses),
+but for the incremental and query lines, computed fresh each time: an
+incremental plan is new with each video frame's dirty fraction, and its
+other lines are cached without it.  A new plan, such as a fused one with
+new corner rows, reuses two caches below it: the meta evaluation, keyed on
+the fields that fix shapes, and kernelcheck's enumeration proofs, keyed on
+the canonical launch geometry.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bands import FP32_EXACT_COUNT, STORAGE_POLICIES
+from repro_torch.kernels.fused_rows import check_rows
 from repro_torch.kernels.specs import SMEM_LIMIT_BYTES
 
 @dataclasses.dataclass(frozen=True)
@@ -114,43 +117,35 @@ def _dispatch(plan) -> _Dispatch:
                      _lead(plan), s.dtype, s.num_bins, s.value_range)
 
 
-def _kwargs(d: _Dispatch) -> dict:
-    return dict(method=d.method, backend=d.backend, tile=d.tile,
-                bin_block=d.bin_block, value_range=d.value_range,
-                device="meta")
-
-
-def _frames(d: _Dispatch, h: int, w: int) -> torch.Tensor:
-    return torch.empty((*d.lead, h, w), dtype=getattr(torch, d.dtype),
-                       device="meta")
-
-
 @functools.lru_cache(maxsize=256)
-def _eval_kernel(d: _Dispatch, h: int, w: int, with_carry: bool):
-    """The plan's kernel on a meta (lead, h, w) frame: (shape, dtype) of
-    its H, or the exception it raised."""
-    from repro_torch.kernels.ops import integral_histogram
+def _abstract_eval(d: _Dispatch, h: int, w: int, carry: bool,
+                   rows: tuple[int, int] | None):
+    """The plan's dispatch on a meta (lead, h, w) frame: (shape, dtype) of
+    what it yields, or the exception it raised.  ``rows=None`` runs the
+    kernel (with a (lead, bins, w) carry-in when ``carry``); ``rows = (k,
+    h_cut)`` the fused dispatch of ``k`` sorted rows whose last lies in
+    the tile-high band ending at ``h_cut``: the rows reach the dispatch's
+    shapes only through their count and that early cut, so the eval runs
+    on the last ``k`` rows above it (``_check_h_shape`` checks the plan's
+    own rows first)."""
+    from repro_torch.kernels.ops import fused_corner_rows, integral_histogram
 
-    carry = (torch.empty((*d.lead, d.num_bins, w), device="meta")
-             if with_carry else None)
+    frames = torch.empty((*d.lead, h, w), dtype=getattr(torch, d.dtype),
+                         device="meta")
+    kwargs = dict(method=d.method, backend=d.backend, tile=d.tile,
+                  bin_block=d.bin_block, value_range=d.value_range,
+                  device="meta")
     try:
-        out = integral_histogram(_frames(d, h, w), d.num_bins,
-                                 carry_in=carry, **_kwargs(d))
+        if rows is None:
+            out = integral_histogram(
+                frames, d.num_bins, carry_in=torch.empty(
+                    (*d.lead, d.num_bins, w), device="meta") if carry
+                else None, **kwargs)
+        else:
+            k, h_cut = rows
+            out = fused_corner_rows(frames, d.num_bins,
+                                    np.arange(h_cut - k, h_cut), **kwargs)
     except Exception as e:  # abstract eval surfaces kernel/shape errors
-        return e
-    return tuple(out.shape), out.dtype
-
-
-@functools.lru_cache(maxsize=256)
-def _eval_fused(d: _Dispatch, h: int, w: int, rows: tuple):
-    """The fused corner-row dispatch on a meta frame: (shape, dtype), or
-    the exception it raised."""
-    from repro_torch.kernels.ops import fused_corner_rows
-
-    try:
-        out = fused_corner_rows(_frames(d, h, w), d.num_bins,
-                                np.asarray(rows, np.int64), **_kwargs(d))
-    except Exception as e:
         return e
     return tuple(out.shape), out.dtype
 
@@ -208,7 +203,15 @@ def _check_h_shape(plan) -> PlanCheck:
     s = plan.spec
     d = _dispatch(plan)
     if plan.representation == "fused":
-        out = _eval_fused(d, s.height, s.width, tuple(s.query_rows))
+        try:
+            rows = check_rows(s.query_rows, s.height)
+        except ValueError as e:
+            out = e
+        else:
+            h_cut = min(s.height, (int(rows[-1]) // plan.tile + 1)
+                        * plan.tile)
+            out = _abstract_eval(d, s.height, s.width, False,
+                                 (rows.size, h_cut))
         if isinstance(out, Exception):
             return PlanCheck(name, "fail", f"fused abstract eval: {out}")
         shape, dtype = out
@@ -227,7 +230,7 @@ def _check_h_shape(plan) -> PlanCheck:
             name, "ok",
             f"corner-row slab {expect} float32 via fused "
             f"{plan.method}/{plan.backend}")
-    out = _eval_kernel(d, s.height, s.width, False)
+    out = _abstract_eval(d, s.height, s.width, False, None)
     if isinstance(out, Exception):
         return PlanCheck(name, "fail", f"kernel abstract eval: {out}")
     shape, dtype = out
@@ -252,7 +255,7 @@ def _check_carry_chain(plan) -> PlanCheck:
     heights = sorted({r1 - r0 for r0, r1 in plan.band_plan.spans})
     carry_shape = (*_lead(plan), s.num_bins, s.width)
     for bh in heights:
-        out = _eval_kernel(_dispatch(plan), bh, s.width, True)
+        out = _abstract_eval(_dispatch(plan), bh, s.width, True, None)
         if isinstance(out, Exception):
             return PlanCheck(
                 name, "fail",
@@ -299,31 +302,34 @@ def _check_memory_budget(plan) -> PlanCheck:
     return PlanCheck(name, "ok", f"{what}: {live} B <= {budget} B budget")
 
 
-def _smem_estimate(plan) -> tuple[int, str] | None:
-    """Shared bytes a CTA of the plan's launches takes, or ``None`` for
-    methods without a CUDA kernel.  Delegates to the kernels' own
-    :class:`~repro_torch.kernels.specs.KernelSpec` via kernelcheck, at the
-    launch the wrapper would pick: one model for the plan-level and the
-    kernel-level check."""
+def _launch_specs(plan):
+    """The ``KernelSpec``s of a ``cuda`` plan's launches at its real
+    geometry, resolved as the wrapper resolves them at dispatch; the
+    ``KeyError`` of a method without a spec, or the error the wrapper's
+    launch choice raises.  Built once a plan for smem-fit and the deep
+    checks."""
     from repro_torch.analysis import kernelcheck
 
-    return kernelcheck.smem_required(
-        kernelcheck.plan_method(plan), kernelcheck.plan_geometry(plan))
+    try:
+        return kernelcheck.specs_for(kernelcheck.plan_method(plan),
+                                     kernelcheck.plan_geometry(plan))
+    except (KeyError, ValueError, NotImplementedError) as e:
+        return e
 
 
-def _check_smem_fit(plan) -> PlanCheck:
+def _check_smem_fit(plan, specs) -> PlanCheck:
+    from repro_torch.analysis import kernelcheck
+
     name = "smem-fit"
     if plan.backend != "cuda":
         return PlanCheck(name, "skip", f"{plan.backend} backend uses HBM")
-    try:
-        est = _smem_estimate(plan)
-    except (ValueError, NotImplementedError) as e:
-        return PlanCheck(name, "fail", f"the launch is refused: {e}")
-    if est is None:
+    if isinstance(specs, KeyError):
         return PlanCheck(
             name, "skip",
             f"no shared-memory model for method {plan.method!r}")
-    nbytes, detail = est
+    if isinstance(specs, Exception):
+        return PlanCheck(name, "fail", f"the launch is refused: {specs}")
+    nbytes, detail = kernelcheck.peak_smem(specs)
     if nbytes > SMEM_LIMIT_BYTES:
         return PlanCheck(
             name, "fail",
@@ -490,8 +496,7 @@ _KERNEL_CHECK_NAMES = {
 }
 
 
-@functools.lru_cache(maxsize=256)
-def _kernel_checks(plan) -> tuple[PlanCheck, ...]:
+def _kernel_checks(plan, specs) -> tuple[PlanCheck, ...]:
     """The four kernelcheck properties for the plan's kernels, folded
     across launches (a method with two launches fails a property when
     either does).  One skip line when the plan launches no CUDA kernel."""
@@ -501,23 +506,15 @@ def _kernel_checks(plan) -> tuple[PlanCheck, ...]:
         return (PlanCheck(
             "kernel-checks", "skip",
             f"{plan.backend} backend dispatches no CUDA kernel"),)
-    return _launch_checks(kernelcheck.plan_method(plan),
-                          kernelcheck.plan_geometry(plan))
-
-
-@functools.lru_cache(maxsize=256)
-def _launch_checks(method: str, geom) -> tuple[PlanCheck, ...]:
-    from repro_torch.analysis import kernelcheck
-
-    try:
-        verdict = kernelcheck.check_method(method, geom)
-    except KeyError as e:
+    if isinstance(specs, KeyError):
         return (PlanCheck(
             "kernel-checks", "fail",
-            f"cuda plan without a KernelSpec contract: {e}"),)
-    except (ValueError, NotImplementedError) as e:
+            f"cuda plan without a KernelSpec contract: {specs}"),)
+    if isinstance(specs, Exception):
         return (PlanCheck(
-            "kernel-checks", "fail", f"the launch is refused: {e}"),)
+            "kernel-checks", "fail", f"the launch is refused: {specs}"),)
+    verdict = kernelcheck.check_launches(kernelcheck.plan_method(plan),
+                                         specs)
     merged = []
     for kname, pname in _KERNEL_CHECK_NAMES.items():
         per_launch = [c for c in verdict.checks if c.name == kname]
@@ -535,22 +532,35 @@ def _launch_checks(method: str, geom) -> tuple[PlanCheck, ...]:
 # entry point
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=256)
-def _structural_checks(plan) -> tuple[PlanCheck, ...]:
-    checks = (
+def _plan_checks(plan, deep: bool) -> tuple[tuple[PlanCheck, ...],
+                                             tuple[PlanCheck, ...]]:
+    """The plan's checks but the incremental line: the ones before it and
+    the ones after it."""
+    specs = _launch_specs(plan) if plan.backend == "cuda" else None
+    head = (
         _check_representation(plan),
         _check_h_shape(plan),
         _check_carry_chain(plan),
         _check_memory_budget(plan),
-        _check_smem_fit(plan),
+        _check_smem_fit(plan, specs),
         _check_count_validity(plan),
     )
-    # Only incremental plans carry the extra line, and only sharded plans
-    # a mesh layout, as in the reference's verdicts.
-    if getattr(plan, "incremental", False):
-        checks = checks + (_check_incremental(plan),)
-    if getattr(plan, "layout", None) is not None:
-        checks = checks + (_check_layout(plan),)
-    return checks
+    # Only sharded plans carry a mesh layout, as in the reference.
+    tail = ((_check_layout(plan),)
+            if getattr(plan, "layout", None) is not None else ())
+    if deep:
+        tail = tail + _kernel_checks(plan, specs)
+    return head, tail
+
+
+def clear_caches() -> None:
+    """Forget every cached verdict, meta evaluation and kernel proof (a
+    first, uncached call; a test that patches ``ops.KERNEL_SPECS``)."""
+    from repro_torch.analysis import kernelcheck
+
+    _plan_checks.cache_clear()
+    _abstract_eval.cache_clear()
+    kernelcheck._proofs.cache_clear()
 
 
 def check_plan(plan, queries=(), *, deep: bool = False) -> PlanVerdict:
@@ -559,11 +569,20 @@ def check_plan(plan, queries=(), *, deep: bool = False) -> PlanVerdict:
     ``deep=True`` adds kernelcheck's proofs (carry order, output
     coverage, in-bounds operands, shared-memory fit) for ``cuda`` plans;
     the engine's pre-dispatch gate (``_validate_or_raise``) always runs
-    deep.  Structural and deep checks are cached per plan; the query check
-    is cheap arithmetic computed fresh (queries carry unhashable arrays)."""
-    checks = _structural_checks(plan)
-    if deep:
-        checks = checks + _kernel_checks(plan)
+    deep.  The plan's checks are cached per plan; the incremental and
+    query lines are cheap arithmetic computed fresh (the dirty fraction
+    changes with every video frame, queries carry unhashable arrays)."""
+    # The dirty fraction, new with every video frame, reaches only the
+    # incremental line, which is computed fresh like the query line.
+    key = plan
+    if plan.spec.dirty_fraction is not None:
+        key = dataclasses.replace(plan, spec=dataclasses.replace(
+            plan.spec, dirty_fraction=None))
+    head, tail = _plan_checks(key, deep)
+    # Only incremental plans carry the extra line, as in the reference.
+    incremental = ((_check_incremental(plan),)
+                   if getattr(plan, "incremental", False) else ())
+    checks = head + incremental + tail
     queries = tuple(queries) if not isinstance(queries, tuple) else queries
     if queries:
         checks = checks + (_check_queries(plan, queries),)

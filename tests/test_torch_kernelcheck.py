@@ -77,13 +77,9 @@ def fresh_caches():
     an unpatched key."""
     from repro_torch.analysis import plancheck
 
-    caches = (kc.check_method, kc.smem_required, plancheck._kernel_checks,
-              plancheck._launch_checks, plancheck._structural_checks)
-    for cache in caches:
-        cache.cache_clear()
+    plancheck.clear_caches()
     yield
-    for cache in caches:
-        cache.cache_clear()
+    plancheck.clear_caches()
 
 
 def _with_rows(method, geom):
@@ -110,6 +106,24 @@ def test_properties_prove_at_chip_smoke_shapes(case):
     method, _, geom = case
     verdict = kc.check_method(method, geom)
     assert verdict.ok, verdict.render()
+
+
+def test_proofs_are_cached_by_the_canonical_geometry(fresh_caches):
+    """New requested rows build new real specs, but prove nothing again
+    where their canonical geometry is one already proved; the verdict is
+    the one an uncached call gives."""
+    base = KernelGeometry(1, 480, 640, 32, rows=(99, 219, 279))
+    moved = [dataclasses.replace(base, rows=(99 + d, 219 + d, 279 + d))
+             for d in range(1, 6)]
+    first = kc.check_method("fused_rows", base)
+    assert kc._proofs.cache_info().misses == 1
+    for g in moved:
+        v = kc.check_method("fused_rows", g)
+        assert v.ok and v.geometry.rows == g.rows
+    assert kc._proofs.cache_info().misses == 1
+    kc._proofs.cache_clear()
+    assert kc.check_method("fused_rows", moved[-1]).render() == v.render()
+    assert first.render().splitlines()[1:] == v.render().splitlines()[1:]
 
 
 def test_registry_has_the_references_four_keys():
@@ -398,17 +412,22 @@ def test_plan_geometry_is_the_dispatched_launch():
     assert kc.plan_geometry(banded).h == banded.band_plan.band_h == 273
 
 
-def test_plancheck_smem_delegates_to_kernelcheck():
-    from repro_torch.analysis.plancheck import _smem_estimate
+def _smem_line(e, p):
+    return next(c for c in e.validate(p).checks if c.name == "smem-fit")
 
+
+def test_plancheck_smem_delegates_to_kernelcheck():
     for method in ("wf_tis", "cw_tis"):
-        _, p = _cuda_plan(method=method)
-        est = _smem_estimate(p)
+        e, p = _cuda_plan(method=method)
+        est = kc.smem_required(method, kc.plan_geometry(p))
         specs = ops.KERNEL_SPECS[method](kc.plan_geometry(p))
-        assert est == kc.smem_required(method, kc.plan_geometry(p))
         assert est[0] == max(s.smem_bytes() for s in specs)
-    _, p = _cuda_plan(method="cw_b")
-    assert _smem_estimate(p) is None
+        line = _smem_line(e, p)
+        assert (line.status, line.detail) == (
+            "ok", f"~{est[0]} B of {SMEM_LIMIT_BYTES} B ({est[1]})")
+    e, p = _cuda_plan(method="cw_b")
+    assert kc.smem_required("cw_b", kc.plan_geometry(p)) is None
+    assert _smem_line(e, p).status == "skip"
 
 
 def test_validate_deep_merges_kernel_checks(fresh_caches):

@@ -313,26 +313,69 @@ def test_cuda_plans_of_every_representation_prove():
 def test_structural_verdict_is_cached_per_plan():
     port = engine.HistogramEngine(8, device="cpu")
     p = engine.plan(port.spec_for((64, 64)))
-    plancheck._structural_checks.cache_clear()
+    plancheck.clear_caches()
     port.validate(p)
-    before = plancheck._structural_checks.cache_info().hits
+    before = plancheck._plan_checks.cache_info().hits
     port.validate(p)
-    assert plancheck._structural_checks.cache_info().hits == before + 1
+    assert plancheck._plan_checks.cache_info().hits == before + 1
 
 
 def test_incremental_plans_share_their_meta_evaluation():
-    """Each video frame's plan carries its own dirty fraction, so the
-    structural verdict misses; the meta evaluation, keyed on the fields
-    that fix shapes, does not."""
+    """Each video frame's plan carries its own dirty fraction; only the
+    incremental line reads it, and the rest of the verdict is cached on
+    the plan without it."""
     port = engine.HistogramEngine(8, device="cpu")
     base = port.spec_for((64, 64))
-    plancheck._eval_kernel.cache_clear()
+    plancheck.clear_caches()
     verdicts = [port.validate(engine.plan(dataclasses.replace(
-        base, dirty_fraction=df))) for df in (0.05, 0.1, 0.2)]
-    info = plancheck._eval_kernel.cache_info()
+        base, dirty_fraction=df)), deep=True) for df in (0.05, 0.1, 0.2)]
+    info = plancheck._plan_checks.cache_info()
     assert (info.misses, info.hits) == (1, 2)
-    assert [v.checks[-1].detail.split(":")[0] for v in verdicts] == [
+    assert plancheck._abstract_eval.cache_info().misses == 1
+    assert [c.detail.split(":")[0] for v in verdicts for c in v.checks
+            if c.name == "incremental"] == [
         "dirty fraction 0.05", "dirty fraction 0.10", "dirty fraction 0.20"]
+    plancheck.clear_caches()
+    cold = port.validate(engine.plan(dataclasses.replace(
+        base, dirty_fraction=0.2)), deep=True)
+    assert cold.render() == verdicts[-1].render()
+
+
+@pytest.mark.parametrize("method", ["wf_tis", "cw_tis"])
+def test_fused_plans_with_new_rows_reuse_meta_eval_and_proofs(method):
+    """A fused plan is new with every set of corner rows (a tracker's box
+    that moves, new rects): its meta evaluation is keyed on the number of
+    rows and the early cut, its kernel proofs on the canonical geometry,
+    and each verdict equals the one an uncached call gives."""
+    from repro_torch.analysis import kernelcheck
+
+    port = engine.HistogramEngine(32, device="cpu", method=method)
+    base = port.spec_for((480, 640))
+    plans = [_cuda(engine.plan(dataclasses.replace(
+        base, query_rows=(99 + d, 219 + d, 279 + d)))) for d in range(6)]
+    assert all(p.representation == "fused" for p in plans)
+    plancheck.clear_caches()
+    warm = [port.validate(p, deep=True) for p in plans]
+    assert all(v.ok for v in warm), warm[0].render()
+    assert plancheck._plan_checks.cache_info().misses == len(plans)
+    assert plancheck._abstract_eval.cache_info().misses == 1
+    assert kernelcheck._proofs.cache_info().misses == 1
+    for p, v in zip(plans, warm):
+        plancheck.clear_caches()
+        assert port.validate(p, deep=True).render() == v.render()
+
+
+def test_fused_plan_with_bad_rows_fails_h_shape_with_the_wrappers_message():
+    port = engine.HistogramEngine(32, device="cpu")
+    base = port.spec_for((480, 640))
+    good = _cuda(engine.plan(dataclasses.replace(base, query_rows=(7, 99))))
+    port.validate(good, deep=True)                # warm the shared caches
+    bad = dataclasses.replace(good, spec=dataclasses.replace(
+        good.spec, query_rows=(99, 7)))
+    v = port.validate(bad, deep=True)
+    line = next(c for c in v.checks if c.name == "h-shape")
+    assert line.status == "fail"
+    assert "row_ids must be sorted unique rows within [0, 480)" in line.detail
 
 
 def test_queries_are_checked_fresh_on_a_cached_plan():
