@@ -34,6 +34,16 @@ non-zero before the result line is printed:
           and with a random h0, and ssd_chunked on a ragged S=1000; max
           abs and rel errors against K5_ATOL / K5_RTOL; K5's operation
           bound at the 3xTF32 rate beside the fp32 one
+  k5_bwd  the SSD scan's backward kernel (K5-bwd, no TPU counterpart)
+          against its plain version (TF32 off) at the same shape, from
+          the chunk-entry states K5 keeps: h0 = None without a gradient
+          of h_last (a training step's call), a random h0 and g_hlast,
+          and a ragged S=1000; each gradient's largest error over its
+          largest magnitude against K5BWD_RTOL, all finite, and the
+          kernel equal to itself run twice (no atomics); then
+          ops.ssd_scan under autograd (SSDScanFunction: K5, then K5-bwd
+          once) against autograd of the plain scan at Mamba2-130M's init,
+          dt = 0.69 and A = -1 over 256-step chunks
   main    HistogramEngine(num_bins=32).run on the clip: a request that
           plans "fused" and one that plans "dense"; the fused request on
           one frame (a real-time stream's request); answers held against
@@ -124,6 +134,20 @@ non-zero before the result line is printed:
           and tokens/s beside the card line; the launch counts are read
           again where serve hands the prefilled cache to decode_loop, so
           prefill and decode are two paths of the kernels line
+  train   repro_torch.launch.train.main on mamba2-130m at full size (bf16
+          compute over fp32 master weights, AdamW), batch 4 x 1024
+          tokens, 8 steps, a checkpoint every 4 steps into a temporary
+          directory and a fault injected at step 6 (restored at step 4:
+          10 steps run): K5 and K5-bwd once a layer in every step (24
+          each); an uninterrupted run of the same 8 steps ends equal to
+          the restarted one bit for bit; step 1 again out of the run
+          (its state from the seed, the stream's batch 0): every
+          parameter's gradient finite and non-zero somewhere (A_log and
+          dt_bias included), equal to the run's step 1, and held against
+          the fp32 model with the plain scan (the fp32 model with K5 and
+          K5-bwd within TRAIN_*32_RTOL, the run's bf16 loss and grad norm
+          within TRAIN_*16_RTOL); warm step ms, tokens/s and peak memory
+          beside the card line
   timing  each kernel's median time (CUDA events) beside its bound, K1
           also at K1_SHAPES and K2 at K2_SHAPES with their launches per
           run; K1 and K2 at each shape and K5 profiled (torch.profiler:
@@ -141,13 +165,16 @@ non-zero before the result line is printed:
           the stream at each depth (the host-to-device copies on a stream
           other than K1's, how many overlap a K1 kernel, the device's idle
           share) and profiles of a stream frame, a tracker step, a
-          service frame group and the §4.6 frame dense, bin-sharded and
-          spatially sharded; then the analysis phase's launch check
+          service frame group, the §4.6 frame dense, bin-sharded and
+          spatially sharded, and two train steps; then the analysis
+          phase's launch check.  K5-bwd is timed at the training shape
+          beside its plain version, and the train step's share of it
+          logged
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
-service, mesh and lm phases runs with all six launch counters set to 0
-just before it and read just after; the kernels line carries each
-kernel's counts per path (``launches_by_path``).
+service, mesh, lm and train phases runs with all seven launch counters
+set to 0 just before it and read just after; the kernels line carries
+each kernel's counts per path (``launches_by_path``).
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the rest of
@@ -179,6 +206,14 @@ MAP_RTOL, MAP_ATOL = 1e-6, 1e-7
 # takes 64-step chunks where the plain loop takes 256;
 # |got - want| <= K5_ATOL + K5_RTOL * |want| elementwise.
 K5_ATOL, K5_RTOL = 1e-4, 1e-4
+# K5-bwd against its plain version (TF32 off), and SSDScanFunction's
+# gradients against autograd of the plain scan: each gradient's largest
+# error over its largest magnitude.  The kernel walks the steps in order
+# in fp32 and sums the partial gradients per 32 columns and head, the
+# plain version takes matrix products over chunks; gA sums B x S terms
+# with cancellation.  Largest measured on the H100 1.8e-5 (gA), 5.2e-6
+# elsewhere.
+K5BWD_RTOL = 1e-4
 # Mamba2-130M prefill logits (last position).  The fp32 model with K5
 # against the fp32 model with the plain scan: the scan's rounding only.
 LM_ATOL32 = 1e-3
@@ -197,6 +232,21 @@ LM_SCAN16 = 0.15
 LM_PREC16 = 0.18
 # The lm phase's request (the issue's serving geometry).
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "mamba2-130m", 4, 1024, 32, 0
+# The train phase (the issue's training geometry): Mamba2-130M at full
+# size, bf16 compute over fp32 master weights, AdamW; steps, batch,
+# tokens a row, checkpoint interval, the step a fault is injected at.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_SEED = 4, 6, 0
+# Step 1 of the training run held against the same step of the fp32 model
+# with the plain scan on the card.  The fp32 model with K5 and K5-bwd: the
+# scan's rounding only (relative: loss, grad norm, each gradient over its
+# largest magnitude).  The trained bf16 model: bf16 activations through 24
+# layers (relative: loss, grad norm).
+# Measured on the H100: fp32 loss equal, grad norm 3.9e-6, largest
+# gradient error 1.5e-4 (the norms' scales); bf16 loss 1.1e-4, grad norm
+# 1.7e-2.
+TRAIN_LOSS32_RTOL, TRAIN_GNORM32_RTOL, TRAIN_GRAD32_RTOL = 1e-5, 1e-4, 1e-3
+TRAIN_LOSS16_RTOL, TRAIN_GNORM16_RTOL = 1e-3, 0.05
 # K1's shapes, (n, h, w, bins, with a carry), and the paths whose launches
 # each one counts: the dense clip; one frame (the first video frame and
 # the 50% fallback); a video frame's 48-row dirty run with its carry; one
@@ -637,7 +687,8 @@ def run(torch) -> list[dict]:
     )
     from repro_torch.kernels.ref import region_histogram_ref
     from repro_torch.kernels.ssd_scan import (
-        KERNEL_CHUNK, ssd_scan_cuda, ssd_scan_plain,
+        KERNEL_CHUNK, ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_cuda,
+        ssd_scan_plain,
     )
     from repro_torch.kernels import wf_tis as wf_tis_mod
     from repro_torch.kernels.wf_tis import (
@@ -650,7 +701,7 @@ def run(torch) -> list[dict]:
                 "delta_apply": delta_apply_cuda,
                 "cw_tis_hscan": cw_tis_hscan_cuda,
                 "cw_tis_vscan": cw_tis_vscan_cuda,
-                "ssd_scan": ssd_scan_cuda}
+                "ssd_scan": ssd_scan_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda}
     paths: dict[str, dict[str, int]] = {}      # path -> kernel -> launches
 
     def read_counts():
@@ -978,6 +1029,93 @@ def run(torch) -> list[dict]:
             f"cores) = {k5_bounds['3xTF32']:.4f} ms; at "
             f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s fp32 = "
             f"{k5_bounds['fp32']:.4f} ms")
+
+    with phase("k5_bwd: the SSD scan's backward kernel vs its plain version"):
+        from repro_torch.kernels import ops as k5_ops
+
+        def grad_errors(label, got, want):
+            """Each gradient's max abs error and that over its largest
+            magnitude, against K5BWD_RTOL; every gradient finite."""
+            worst = 0.0
+            for name, g, w_ in zip(("gx", "gdt", "gA", "gBm", "gCm", "gh0"),
+                                   got, want):
+                if w_ is None:
+                    check(g is None, f"{label}: {name} given without h0")
+                    continue
+                check(bool(torch.isfinite(g).all()),
+                      f"{label}: {name} not finite")
+                abs_err = float((g - w_).abs().max())
+                scale = float(w_.abs().max())
+                log(f"   {label}: {name} max abs err {abs_err:.3e}, over its "
+                    f"largest |{name}| {scale:.3e}: {abs_err / scale:.3e}")
+                check(abs_err <= K5BWD_RTOL * scale,
+                      f"K5-bwd != plain ({label}, {name}): {abs_err} > "
+                      f"{K5BWD_RTOL} x {scale}")
+                worst = max(worst, abs_err)
+            return worst
+
+        # The gradients of y and h_last at the training shape (K5_SHAPE).
+        r = np.random.default_rng(12)
+        k5b_gy = torch.as_tensor(r.standard_normal(tuple(sx.shape)),
+                                 dtype=torch.float32, device=dev)
+        k5b_gh = torch.as_tensor(r.standard_normal(tuple(sh0.shape)),
+                                 dtype=torch.float32, device=dev)
+        k5b_err = 0.0
+        for label, h0, g_hlast in (("h0 = None, no g_hlast", None, None),
+                                   ("random h0 and g_hlast", sh0, k5b_gh)):
+            _, _, k5b_states = ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq,
+                                             h0=h0, return_states=True)
+            got = ssd_scan_bwd_cuda(sx, sdt, sA, sB, sC, k5b_gy,
+                                    states=k5b_states, chunk=sq, h0=h0,
+                                    g_hlast=g_hlast)
+            want = ssd_scan_bwd_plain(sx, sdt, sA, sB, sC, k5b_gy,
+                                      chunk=KERNEL_CHUNK, h0=h0,
+                                      g_hlast=g_hlast)
+            k5b_err = max(k5b_err, grad_errors(
+                f"{sb}x{ss}x{sh}x{sp}, N={sn}, {label}", got, want))
+            check(all(torch.equal(a, b) for a, b in zip(
+                got[:5], ssd_scan_bwd_cuda(sx, sdt, sA, sB, sC, k5b_gy,
+                                           states=k5b_states, chunk=sq,
+                                           h0=h0, g_hlast=g_hlast)[:5])),
+                  f"K5-bwd differs from itself on the same inputs ({label})")
+        del got, want
+        rx, rdt, rA, rB, rC, rh0 = ssd_inputs(torch, dev, 13, 1000)
+        rgy = torch.as_tensor(r.standard_normal(tuple(rx.shape)),
+                              dtype=torch.float32, device=dev)
+        _, _, rst = ssd_scan_cuda(rx, rdt, rA, rB, rC, chunk=1000, h0=rh0,
+                                  return_states=True)
+        k5b_err = max(k5b_err, grad_errors(
+            "ragged S=1000, random h0 and g_hlast",
+            ssd_scan_bwd_cuda(rx, rdt, rA, rB, rC, rgy, states=rst,
+                              chunk=1000, h0=rh0, g_hlast=k5b_gh),
+            ssd_scan_bwd_plain(rx, rdt, rA, rB, rC, rgy, chunk=200, h0=rh0,
+                               g_hlast=k5b_gh)))
+        del rx, rdt, rB, rC, rh0, rgy, rst
+        # SSDScanFunction under autograd against autograd of the plain
+        # scan, at Mamba2-130M's init (dt = 0.69, A = -1) over 256-step
+        # chunks, where the reference's gradient is NaN.
+        fx, _, _, fB, fC, _ = ssd_inputs(torch, dev, 14)
+        leaves = [fx, torch.full(tuple(sdt.shape), 0.69, device=dev),
+                  -torch.ones(sh, device=dev), fB, fC]
+        grads = []
+        for use_kernel in (True, False):
+            ins = [t.clone().requires_grad_() for t in leaves]
+            before = ssd_scan_bwd_cuda.launches
+            if use_kernel:
+                y, _ = k5_ops.ssd_scan(*ins, chunk=sq)
+                check(type(y.grad_fn).__name__ == "SSDScanFunctionBackward",
+                      f"a grad-enabled CUDA scan ran {type(y.grad_fn)}")
+            else:
+                y, _ = ssd_scan_plain(*ins, chunk=sq)
+            (y * k5b_gy).sum().backward()
+            check(ssd_scan_bwd_cuda.launches == before + use_kernel,
+                  "the Function's backward did not launch K5-bwd once")
+            grads.append([t.grad for t in ins])
+        k5b_err = max(k5b_err, grad_errors(
+            "SSDScanFunction vs autograd of the plain scan, dt = 0.69, "
+            "A = -1, chunk 256", grads[0] + [None], grads[1] + [None]))
+        del grads, ins, y, fx, fB, fC, leaves
+        torch.cuda.empty_cache()
 
     with phase("main: HistogramEngine.run on the GPU"):
         dense_queries = [eng_mod.SlidingWindowQuery((24, 24), stride=1)]
@@ -2052,6 +2190,168 @@ def run(torch) -> list[dict]:
         del params, cache, logits, served, toks
         torch.cuda.empty_cache()
 
+    with phase(f"train: {LM_ARCH} training through repro_torch.launch.train"):
+        import tempfile
+
+        from repro_torch.data import make_stream
+        from repro_torch.launch import train as train_launch
+        from repro_torch.train import grad as train_grad
+        from repro_torch.train import init_state, make_optimizer
+        from repro_torch.train.tree import tree_leaves
+
+        def flat(tree, prefix=""):
+            if isinstance(tree, dict):
+                return {k2: v2 for k in sorted(tree) for k2, v2 in flat(
+                    tree[k], f"{prefix}/{k}" if prefix else k).items()}
+            return {prefix: tree}
+
+        # train.main is the main path's run.  Its step function is wrapped
+        # to read the launch counters and the host clock around each step
+        # (each ended by a synchronize) and keep the step's metrics.
+        steps_log: list = []
+        make_step = train_launch.make_train_step
+
+        def observed_make_train_step(*args, **kwargs):
+            step_fn = make_step(*args, **kwargs)
+
+            def observed(state, batch):
+                torch.cuda.synchronize()
+                before, t0 = read_counts(), time.perf_counter()
+                new_state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = read_counts()
+                steps_log.append((ms, {k: after[k] - before[k] for k in after},
+                                  {k: float(v) for k, v in metrics.items()}))
+                return new_state, metrics
+            return observed
+
+        train_argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                      "--ckpt-every", str(TRAIN_CKPT_EVERY), "--seed",
+                      str(TRAIN_SEED)]
+
+        def train_run(path, extra):
+            steps_log.clear()
+            train_launch.make_train_step = observed_make_train_step
+            try:
+                with tempfile.TemporaryDirectory() as ckpt_dir:
+                    (state, history), secs, counts = counted(
+                        path, lambda: train_launch.main(
+                            train_argv + extra + ["--ckpt-dir", ckpt_dir]))
+            finally:
+                train_launch.make_train_step = make_step
+            return state, history, secs, counts, list(steps_log)
+
+        nl = cfg.num_layers
+        torch.cuda.reset_peak_memory_stats()
+        faulty, f_hist, f_secs, f_counts, f_steps = train_run(
+            "train", ["--fail-at", str(TRAIN_FAIL_AT)])
+        train_peak = torch.cuda.max_memory_allocated()
+        # Steps 0..5, the fault before step 6, then 4..7 from the step-4
+        # checkpoint.
+        resumed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+        want_steps = TRAIN_FAIL_AT + TRAIN_STEPS - resumed
+        log(f"   train.main with --fail-at {TRAIN_FAIL_AT}: {f_secs:.1f} s, "
+            f"{len(f_steps)} steps run (restored at step {resumed}), "
+            f"launched {f_counts}, final step {int(faulty['step'])}, "
+            f"history {f_hist}; peak device memory {train_peak / 1e9:.2f} GB")
+        check(len(f_steps) == want_steps and int(faulty["step"]) == TRAIN_STEPS,
+              f"{len(f_steps)} steps run, want {want_steps}")
+        for i, (_, c, _) in enumerate(f_steps):
+            check(c == only(ssd_scan=nl, ssd_scan_bwd=nl),
+                  f"step {i} of the run launched {c}, want K5 and K5-bwd "
+                  f"{nl} times each (once a layer)")
+        check(f_counts == only(ssd_scan=nl * want_steps,
+                               ssd_scan_bwd=nl * want_steps),
+              f"the run launched {f_counts}")
+        clean, c_hist, c_secs, c_counts, c_steps = train_run(
+            "train_uninterrupted", [])
+        log(f"   train.main uninterrupted: {c_secs:.1f} s, {len(c_steps)} "
+            f"steps, launched {c_counts}, history {c_hist}")
+        check(c_counts == only(ssd_scan=nl * TRAIN_STEPS,
+                               ssd_scan_bwd=nl * TRAIN_STEPS),
+              f"the uninterrupted run launched {c_counts}")
+        fa, cl = flat(faulty), flat(clean)
+        diffs = {k: float((fa[k].double() - cl[k].double()).abs().max())
+                 for k in cl}
+        equal = sorted(fa) == sorted(cl) and all(
+            torch.equal(fa[k], cl[k]) for k in cl)
+        log(f"   restarted vs uninterrupted run after {TRAIN_STEPS} steps: "
+            f"{len(cl)} leaves, bit for bit {'equal' if equal else 'unequal'}"
+            f"; largest difference {max(diffs.values()):.3e} "
+            f"({max(diffs, key=diffs.get)}); losses by step: restarted "
+            f"{[round(m['loss'], 6) for _, _, m in f_steps]}, uninterrupted "
+            f"{[round(m['loss'], 6) for _, _, m in c_steps]}")
+        check(equal, "the restarted run does not end equal to the "
+              "uninterrupted one (every op on the path is deterministic)")
+        del faulty, fa
+
+        # Step 1 again, out of the run: its state (init_state from the
+        # seed) and batch (the stream's batch 0), the gradients of the bf16
+        # model with K5 and K5-bwd, of the fp32 model with them, and of
+        # the fp32 model with the plain scan.
+        opt = make_optimizer(cfg, peak_lr=3e-4, warmup=5,
+                             total_steps=TRAIN_STEPS)
+        state0 = init_state(torch.Generator(device=dev).manual_seed(
+            TRAIN_SEED), cfg, opt)
+        batch0 = {k: v.to(dev) for k, v in make_stream(
+            cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED).batch_at(0).items()}
+
+        def step_grads(c, backend):
+            model = api.model_over(state0["params"], c)
+            loss, _, g = train_grad.accumulate_grads(
+                lambda m, b: api.loss_fn(m, b, c, backend=backend), model,
+                batch0, 1)
+            return float(loss), g, float(train_grad.global_norm(g))
+
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        l16, g16, n16 = step_grads(cfg, "auto")
+        l32, g32, n32 = step_grads(cfg32, "auto")
+        lp, gp, np_ = step_grads(cfg32, "torch")
+        step1 = c_steps[0][2]
+        g16f, g32f, gpf = flat(g16), flat(g32), flat(gp)
+        leaf_err = {k: float((g32f[k] - gpf[k]).abs().max()
+                             / gpf[k].abs().max()) for k in gpf}
+        log(f"   step 1: the run's bf16 loss {step1['loss']:.6f}, grad norm "
+            f"{step1['grad_norm']:.6f}; again out of the run "
+            f"{l16:.6f}, {n16:.6f}; fp32 with K5 {l32:.6f}, {n32:.6f}; "
+            f"fp32 with the plain scan {lp:.6f}, {np_:.6f}")
+        log(f"   fp32 K5 vs plain: loss rel {abs(l32 - lp) / abs(lp):.3e} "
+            f"(tolerance {TRAIN_LOSS32_RTOL}), grad norm rel "
+            f"{abs(n32 - np_) / np_:.3e} ({TRAIN_GNORM32_RTOL}), largest "
+            f"gradient error over its largest magnitude "
+            f"{max(leaf_err.values()):.3e} ({max(leaf_err, key=leaf_err.get)}"
+            f", tolerance {TRAIN_GRAD32_RTOL}); bf16 run vs fp32 plain: loss "
+            f"rel {abs(step1['loss'] - lp) / abs(lp):.3e} (tolerance "
+            f"{TRAIN_LOSS16_RTOL}), grad norm rel "
+            f"{abs(step1['grad_norm'] - np_) / np_:.3e} "
+            f"({TRAIN_GNORM16_RTOL})")
+        for name, g in g16f.items():
+            check(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                  f"step 1's gradient of {name} is not finite or all zero")
+        check(all(k in g16f for k in ("layers/A_log", "layers/dt_bias")),
+              f"no A_log / dt_bias gradient in {sorted(g16f)}")
+        check(l16 == step1["loss"] and n16 == step1["grad_norm"],
+              "step 1 out of the run differs from the run's step 1")
+        check(abs(l32 - lp) <= TRAIN_LOSS32_RTOL * abs(lp)
+              and abs(n32 - np_) <= TRAIN_GNORM32_RTOL * np_
+              and max(leaf_err.values()) <= TRAIN_GRAD32_RTOL,
+              "the fp32 model's step 1 with K5 and K5-bwd is off the plain "
+              "scan's")
+        check(abs(step1["loss"] - lp) <= TRAIN_LOSS16_RTOL * abs(lp)
+              and abs(step1["grad_norm"] - np_) <= TRAIN_GNORM16_RTOL * np_,
+              "the trained bf16 model's step 1 is off the fp32 reference's")
+        train_step_ms = statistics.median(ms for ms, _, _ in c_steps[1:])
+        log(f"   train step, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, warm (host "
+            f"clock, median of steps 2..{TRAIN_STEPS} of the uninterrupted "
+            f"run): {train_step_ms:.3f} ms, "
+            f"{TRAIN_BATCH * TRAIN_SEQ / train_step_ms * 1e3:.0f} tokens/s; "
+            f"first step {c_steps[0][0]:.3f} ms | card {card_line()}")
+        del g16, g32, gp, g16f, g32f, gpf, clean, cl
+        train_profile_step = make_step(cfg, opt)
+        torch.cuda.empty_cache()
+
     with phase("timing"):
         # K2 is timed as the main path calls it: host row ids, cut into the
         # chunk plan and copied without waiting on the card.
@@ -2077,6 +2377,26 @@ def run(torch) -> list[dict]:
         k5_plain = time_ms(lambda: ssd_scan_plain(sx, sdt, sA, sB, sC,
                                                   chunk=sq),
                            runs=5, launches=2)
+        # K5-bwd as the backward of a training step calls it (h0 = None,
+        # no gradient of h_last), from the states K5 keeps.
+        _, _, k5b_states0 = ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq,
+                                          return_states=True)
+
+        def k5b_call():
+            return ssd_scan_bwd_cuda(sx, sdt, sA, sB, sC, k5b_gy,
+                                     states=k5b_states0, chunk=sq)
+
+        k5b_ms = time_ms(k5b_call)
+        k5b_plain = time_ms(lambda: ssd_scan_bwd_plain(
+            sx, sdt, sA, sB, sC, k5b_gy, chunk=KERNEL_CHUNK), runs=3,
+            launches=2)
+        log(f"   train step {train_step_ms:.3f} ms warm, "
+            f"{TRAIN_BATCH * TRAIN_SEQ / train_step_ms * 1e3:.0f} tokens/s: "
+            f"its {nl} K5 launches {nl * k5_ms:.3f} ms, its {nl} K5-bwd "
+            f"launches {nl} x {k5b_ms:.4f} = {nl * k5b_ms:.3f} ms "
+            f"({nl * k5b_ms / train_step_ms:.1%} of the step); peak device "
+            f"memory of the run {train_peak / 1e9:.2f} GB | card "
+            f"{card_line()}")
         log(f"   ssd_scan at {sb}x{ss}x{sh}x{sp}, N={sn}: {k5_ms:.4f} ms a "
             f"launch, {cfg.num_layers * k5_ms:.3f} ms for the "
             f"{cfg.num_layers} launches of a prefill "
@@ -2167,6 +2487,13 @@ def run(torch) -> list[dict]:
                + ", ".join(f"{k[:48]} {v:.2f}"
                            for k, v in k5_kernel_us.items())
                if k5_calls is not None else "not measured"))
+        k5b_calls, k5b_kernel_us = device_kernels(torch, k5b_call)
+        log(f"   ssd_scan_bwd profiled: "
+            + (f"{k5b_calls:g} CUDA launch(es) a call (the kernel, then the "
+               f"partial sums), device µs a call "
+               + ", ".join(f"{k[:48]} {v:.2f}"
+                           for k, v in k5b_kernel_us.items())
+               if k5b_calls is not None else "not measured"))
         px = n * h * w
         h_run = int(fused_rows[-1]) + 1
         # Each input read once, each output written once.  Operations: one
@@ -2191,6 +2518,16 @@ def run(torch) -> list[dict]:
                               + sB.numel() + sC.numel()     # read
                               + sx.numel() + sb * sh * sn * sp),  # written
                          4 * sb * sh * ss * sn * sp),
+            # The timed call reads x, dt, B, C, gy and the states K5 kept
+            # and writes gx, gdt, gA, gB and gC.  Operations: five fp32
+            # multiply-adds per state element a step (h recomputed, gC,
+            # lam, gB, gu), 10 N P flops per (batch, head, step).
+            "ssd_scan_bwd": (4 * (sx.numel() + sdt.numel() + sB.numel()
+                                  + sC.numel() + k5b_gy.numel()
+                                  + k5b_states0.numel()            # read
+                                  + sx.numel() + sdt.numel() + sh
+                                  + sB.numel() + sC.numel()),      # written
+                             10 * sb * sh * ss * sn * sp),
         }
         ssd_form = {q: 2 * sb * sh * ss * (q * (sn + sp) + 2 * sn * sp)
                     for q in (KERNEL_CHUNK, sq)}
@@ -2213,6 +2550,11 @@ def run(torch) -> list[dict]:
                              vs_ms, vs_plain, vs_library, vscan_err),
             "ssd_scan": ("src/repro/kernels/ssd_scan.py:88", "ssd_scan.cu",
                          k5_ms, k5_plain, None, k5_err),
+            "ssd_scan_bwd": ("none: ssd_scan_pallas (src/repro/kernels/"
+                             "ssd_scan.py:88) has no backward; the reference "
+                             "differentiates ssd_chunked through XLA",
+                             "ssd_scan_bwd.cu", k5b_ms, k5b_plain, None,
+                             k5b_err),
         }
         library_call = {"delta_apply": "H + delta[..., None, :]",
                         "cw_tis_vscan": "torch.cumsum(hh, dim=-2)"}
@@ -2238,7 +2580,11 @@ def run(torch) -> list[dict]:
             })
             if name == "ssd_scan":
                 records[-1].update(launches_per_request=lm_launches,
+                                   launches_per_train_step=nl,
                                    cuda_launches_per_call=k5_calls)
+            if name == "ssd_scan_bwd":
+                records[-1].update(launches_per_train_step=nl,
+                                   cuda_launches_per_call=k5b_calls)
             if name == "wf_tis":
                 records[-1].update(cuda_launches_per_call=k1_calls,
                                    shapes=k1_by_shape)
@@ -2468,9 +2814,44 @@ def run(torch) -> list[dict]:
             f"{'their static bytes' if static_read == {True} else '0'}); "
             f"the card's opt-in limit {optin} B ({optin_src}) | card "
             f"{card_line()}")
+        # K5-bwd's launch from the same kind of trace (its call's other
+        # launches are the wrapper's partial sums): one CTA per 32 columns
+        # of P, head and batch, one thread a state row, and shared memory
+        # that leaves room for two CTAs an SM.
+        from repro_torch.kernels.ssd_scan import BWD_COLUMNS, bwd_smem_bytes
+
+        (ev,) = [e for e in traced_launches(
+                     torch, k5b_call, round(k5b_calls) if k5b_calls else 8)
+                 if "ssd_bwd_kernel" in e["name"]]
+        k5b_threads = -(-sn // 32) * 32
+        sm_smem = getattr(torch.cuda.get_device_properties(0),
+                          "shared_memory_per_multiprocessor", 233472)
+        log(f"   launch ssd_bwd_kernel at {sb}x{ss}x{sh}x{sp}, N={sn}: grid "
+            f"{ev['grid']}, block {ev['block']}, shared {ev['smem']} B, "
+            f"{ev['regs']} registers a thread; an SM's shared memory "
+            f"{sm_smem} B")
+        check(list(ev["grid"]) == [-(-sp // BWD_COLUMNS), sh, sb]
+              and list(ev["block"]) == [k5b_threads, 1, 1]
+              and ev["smem"] == bwd_smem_bytes(sn),
+              f"ssd_bwd_kernel launched {ev}")
+        check(2 * (ev["smem"] + 1024) <= sm_smem,
+              "ssd_bwd_kernel's shared memory leaves no room for two CTAs "
+              "an SM")
+        k5b_record = next(r for r in records if r["name"] == "ssd_scan_bwd")
+        k5b_record["launch_checks"] = [{
+            "shape": "training", "kernel": "ssd_bwd_kernel",
+            "ctas": -(-sp // BWD_COLUMNS) * sh * sb, "threads": k5b_threads,
+            "smem_bytes": ev["smem"], "regs_per_thread": ev["regs"]}]
         for rec in records:
             if rec["name"] in launch_checks:
                 rec["launch_checks"] = launch_checks[rec["name"]]
+        # Last: two train steps under the profiler (run before the launch
+        # check above, it left that check's traces with no kernel event).
+        log(f"   {LM_ARCH} train step, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
+            "torch.profiler over 2: " + profile_requests(
+                torch, lambda: [train_profile_step(state0, batch0)
+                                for _ in range(2)], n=2))
+        del state0, batch0, train_profile_step
     return records
 
 

@@ -1,5 +1,5 @@
 """Deterministic synthetic data (numpy only)."""
 
-from repro_torch.data.synthetic import video_frames
+from repro_torch.data.synthetic import TokenStream, make_stream, video_frames
 
-__all__ = ["video_frames"]
+__all__ = ["TokenStream", "make_stream", "video_frames"]

@@ -1,12 +1,64 @@
-"""Deterministic video frames for the integral-histogram pipeline.
+"""Deterministic, seekable synthetic data (numpy only).
 
-The port's own copy of ``repro/data/synthetic.py::video_frames``: numpy
-only, so the same seed gives the same frames in both packages.
+The port's own copy of ``repro/data/synthetic.py``:
+
+* ``TokenStream``: synthetic LM batches.  ``batch_at(step)`` is a pure
+  function of (seed, step), so resuming training from a checkpoint at step
+  k replays exactly the batches k, k+1, ... with no stored cursor: the
+  data-side half of checkpoint/restart (train/fault.py).  The mix is the
+  reference's (an arithmetic pattern in ``pattern_frac`` of the rows,
+  uniform noise in the rest), drawn from a numpy ``Generator`` seeded with
+  (seed, step): not ``jax.random``'s bits, which torch cannot reproduce,
+  so tests hand both packages the same numpy batch.
+* ``video_frames``: the integral-histogram frames, numpy in both packages,
+  so the same seed gives the same frames.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Synthetic LM data: shifted-label random tokens + structure.
+
+    Tokens mix a deterministic arithmetic pattern with noise so the loss
+    is learnable.  ``batch_at`` returns int32 CPU tensors "tokens" and
+    "labels" (batch, seq_len); the train step moves them to the card.
+    """
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+    pattern_frac: float = 0.7
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng([self.seed, step])
+        b, s, v = self.batch, self.seq_len, self.vocab_size
+        # arithmetic progressions (learnable) + uniform noise (not)
+        start = rng.integers(0, v, (b, 1))
+        stride = rng.integers(1, 7, (b, 1))
+        pattern = (start + stride * np.arange(s + 1)[None, :]) % v
+        noise = rng.integers(0, v, (b, s + 1))
+        use_pattern = rng.random((b, 1)) < self.pattern_frac
+        toks = torch.as_tensor(
+            np.where(use_pattern, pattern, noise).astype(np.int32))
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def make_stream(cfg, batch: int, seq_len: int, seed: int = 0):
+    """The stream for a ModelConfig of a ported family.  The reference's
+    ``MultimodalStream`` (vlm and audio) comes with those families (ROADMAP
+    1.9)."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family's stream is not ported "
+            "yet (ROADMAP 1.9)")
+    return TokenStream(cfg.vocab_size, batch, seq_len, seed)
 
 
 def video_frames(h: int, w: int, num_frames: int, seed: int = 0,

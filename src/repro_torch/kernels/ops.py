@@ -10,7 +10,8 @@ is polymorphic over a frame axis:
 Backends:
   "cuda"   — the hand-written kernels: K1 ``wf_tis``, K2 ``fused_rows``,
              K3 ``delta_apply``, K4 ``cw_tis`` (hscan + vscan), and K5
-             ``ssd_scan`` (the Mamba-2 SSD scan behind ``ssd_scan``).
+             ``ssd_scan`` (the Mamba-2 SSD scan behind ``ssd_scan``) with
+             its backward, K5-bwd.
   "torch"  — the plain torch scans of core/scans.py.
   "auto"   — "cuda" for a CUDA tensor, "torch" for a CPU tensor.
 
@@ -49,7 +50,9 @@ from repro_torch.kernels.delta_apply import (
     delta_apply_plain,
 )
 from repro_torch.kernels.fused_rows import check_rows, fused_rows_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (
+    SSDScanFunction, ssd_scan_cuda, ssd_scan_plain,
+)
 from repro_torch.kernels.wf_tis import wf_tis_cuda
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -355,12 +358,19 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
       h0: optional (B, H, N, P) initial state (prefill into a state).
       backend: "cuda" runs K5 (``kernels/ssd_scan.py``, G = 1 only),
         "torch" the plain chunk loop; "auto" takes K5 for a CUDA tensor.
-        An explicit "cuda" on a CPU tensor raises ``ValueError``.
+        An explicit "cuda" on a CPU tensor raises ``ValueError``.  Where
+        autograd wants a gradient of a "cuda" scan, it runs through
+        ``SSDScanFunction``: K5 forward, K5-bwd backward; under
+        ``torch.no_grad()`` K5 alone.
 
     Returns:
       (y (B, S, H, P), h_last (B, H, N, P)) fp32.  The reference's
       ``ssd_scan`` returns y alone and always starts from zero.
     """
     backend = kernel_backend(backend, x.device)
-    fn = ssd_scan_cuda if backend == "cuda" else ssd_scan_plain
-    return fn(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    if backend != "cuda":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
+        return SSDScanFunction.apply(x, dt, A, Bm, Cm, h0, chunk)
+    return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)

@@ -28,6 +28,15 @@ from rounding (csrc/ssd_scan.cu says how it is laid out).
 ``ssd_scan_plain`` (a restatement of ``ssd_chunked``'s chunk loop) only
 for a CPU tensor.  ``ssd_scan_cuda.launches`` counts calls that launched
 the kernel (two CUDA launches each: the state scan and the chunk scan).
+
+K5-bwd (``csrc/ssd_scan_bwd.cu``, no TPU counterpart: the reference
+differentiates its jnp chunk loop) computes the scan's gradients from the
+state entering each 64-step chunk, which K5 writes and
+``SSDScanFunction`` keeps.  ``ssd_scan_bwd_cuda`` launches it for a CUDA
+tensor (one CUDA launch, counted in ``ssd_scan_bwd_cuda.launches``) and
+runs ``ssd_scan_bwd_plain`` for a CPU tensor.  ``ops.ssd_scan`` routes a
+grad-enabled CUDA scan through ``SSDScanFunction``; nothing on the card
+falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -43,12 +52,19 @@ _GRID_LIMIT = 65535             # CUDA's cap on grid dims y and z
 
 
 def segsum_decay(a_cum: torch.Tensor) -> torch.Tensor:
-    """L[i, j] = exp(a_cum_i - a_cum_j) for j <= i else 0.  a_cum: (..., Q)."""
+    """L[i, j] = exp(a_cum_i - a_cum_j) for j <= i else 0.  a_cum: (..., Q).
+
+    Masked before the ``exp``: above the diagonal the difference is
+    positive and passes fp32's ``exp`` range once the summed ``dt |A|``
+    between two steps of a chunk passes 88 (at init, 128 steps apart), and
+    the ``where`` of an ``exp`` would carry ``0 * inf = NaN`` into the
+    gradient.  ``exp(-inf) = 0``, so the values are those of
+    ``where(tril, exp(diff), 0)`` bit for bit."""
     q = a_cum.shape[-1]
     diff = a_cum[..., :, None] - a_cum[..., None, :]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                 device=a_cum.device))
-    return torch.where(tri, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(tri, diff, -torch.inf))
 
 
 def check_inputs(x, dt, A, Bm, Cm, chunk: int, h0=None) -> None:
@@ -119,6 +135,86 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
                   + state_new.reshape(b, h, n, p))
     y = torch.cat(ys, dim=1) if ys else x.new_zeros((b, 0, h, p))
     return y, hstate
+
+
+def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, gy, *, chunk: int, h0=None,
+                       g_hlast=None):
+    """Plain torch K5-bwd: the scan's gradients, chunk by chunk.
+
+    With ``a_t = dt_t A``, ``u_t = dt_t x_t`` and the forward's
+    ``h_t = exp(a_t) h_{t-1} + B_t u_t^T``, ``y_t = h_t^T C_t``, the
+    gradient ``lam_t`` of the loss in ``h_t`` runs backwards from
+    ``g_hlast``::
+
+        lam_t = C_t gy_t^T + exp(a_{t+1}) lam_{t+1}
+        gu_t = lam_t^T B_t      gB_t = lam_t u_t      gC_t = h_t gy_t
+        ga_t = exp(a_t) <h_{t-1}, lam_t>              g_h0 = exp(a_1) lam_1
+
+    and ``gx = gu dt``, ``gdt = <gu, x> + ga A``, ``gA = sum_{b,t} ga dt``;
+    gB and gC sum the heads of a group.  Each chunk holds its ``h_t`` and
+    ``lam_t`` unrolled from the state entering it and the gradient leaving
+    it, every decay the ``exp`` of a non-positive number.  ``gy`` is
+    (B, S, H, P), ``g_hlast`` (B, H, N, P) or None (zero).
+
+    Returns (gx, gdt, gA, gBm, gCm, gh0) fp32, shaped as the inputs;
+    ``gh0`` is None when ``h0`` is."""
+    check_inputs(x, dt, A, Bm, Cm, chunk, h0)
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    hg = h // g
+    if tuple(gy.shape) != (b, s, h, p):
+        raise ValueError(f"gy {tuple(gy.shape)} != {(b, s, h, p)}")
+    zero = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    # The state entering each chunk, from the forward's chunk loop.
+    enters, hstate = [], zero if h0 is None else h0
+    for c0 in range(0, s, chunk):
+        enters.append(hstate)
+        sl = slice(c0, c0 + chunk)
+        _, hstate = ssd_scan_plain(x[:, sl], dt[:, sl], A, Bm[:, sl],
+                                   Cm[:, sl], chunk=chunk, h0=hstate)
+    # (B, H, S, ...) per head: B and C repeated over the heads of a group.
+    Bh = Bm.repeat_interleave(hg, dim=2).transpose(1, 2)
+    Ch = Cm.repeat_interleave(hg, dim=2).transpose(1, 2)
+    a = (dt * A).transpose(1, 2)                        # (B,H,S)
+    u = (x * dt[..., None]).transpose(1, 2)             # (B,H,S,P)
+    gyh = gy.transpose(1, 2)
+    gu = torch.empty_like(u)
+    gB = torch.empty((b, h, s, n), dtype=torch.float32, device=x.device)
+    gC = torch.empty_like(gB)
+    ga = torch.empty_like(a)
+    lam_out = zero if g_hlast is None else g_hlast      # gradient leaving
+    for c0 in reversed(range(0, s, chunk)):
+        sl = slice(c0, c0 + chunk)
+        a_cum = torch.cumsum(a[..., sl], -1)            # (B,H,Q)
+        L = segsum_decay(a_cum)                         # L[i, j], j <= i
+        Bq, Cq, uq, gq = Bh[:, :, sl], Ch[:, :, sl], u[:, :, sl], gyh[:, :, sl]
+        q = a_cum.shape[-1]
+        # h_i = exp(a_cum_i) h_enter + sum_{j <= i} L[i, j] B_j u_j^T
+        bu = (Bq[..., :, None] * uq[..., None, :]).reshape(b, h, q, n * p)
+        hs = ((L @ bu).reshape(b, h, q, n, p)
+              + torch.exp(a_cum)[..., None, None] * enters[c0 // chunk][
+                  :, :, None])
+        # lam_i = sum_{r >= i} L[r, i] C_r gy_r^T
+        #         + exp(a_cum_end - a_cum_i) lam_out
+        cg = (Cq[..., :, None] * gq[..., None, :]).reshape(b, h, q, n * p)
+        decay_out = torch.exp(a_cum[..., -1:] - a_cum)
+        lam = ((L.transpose(-1, -2) @ cg).reshape(b, h, q, n, p)
+               + decay_out[..., None, None] * lam_out[:, :, None])
+        gu[:, :, sl] = torch.einsum("bhinp,bhin->bhip", lam, Bq)
+        gB[:, :, sl] = torch.einsum("bhinp,bhip->bhin", lam, uq)
+        gC[:, :, sl] = torch.einsum("bhinp,bhip->bhin", hs, gq)
+        h_prev = torch.cat([enters[c0 // chunk][:, :, None], hs[:, :, :-1]],
+                           dim=2)
+        ea = torch.exp(a[..., sl])
+        ga[..., sl] = ea * (h_prev * lam).sum((-2, -1))
+        lam_out = ea[..., 0, None, None] * lam[:, :, 0]
+    gu, ga = gu.transpose(1, 2), ga.transpose(1, 2)     # (B,S,H,...)
+    gx = gu * dt[..., None]
+    gdt = (gu * x).sum(-1) + ga * A
+    gA = (ga * dt).sum((0, 1))
+    gBm = gB.transpose(1, 2).reshape(b, s, g, hg, n).sum(3)
+    gCm = gC.transpose(1, 2).reshape(b, s, g, hg, n).sum(3)
+    return gx, gdt, gA, gBm, gCm, None if h0 is None else lam_out
 
 
 def scan_smem_bytes(n: int) -> int:
@@ -200,7 +296,8 @@ def _lib():
     return fn
 
 
-def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
+def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
+                  return_states: bool = False):
     """The SSD scan; (y (B, S, H, P), h_last (B, H, N, P)) fp32.
 
     Args:
@@ -210,6 +307,9 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
       Bm, Cm: (B, S, 1, N) float32, N dense (G = 1 only on the card).
       chunk: S must be a multiple of it, as for the reference kernel.
       h0: optional (B, H, N, P) contiguous float32 initial state.
+      return_states: also return the state entering each 64-step chunk,
+        (B, H, ceil(S / 64), N, P) (None on the CPU): what
+        ``SSDScanFunction`` keeps for the backward kernel.
 
     A CPU tensor runs ``ssd_scan_plain``; a CUDA tensor launches K5 or
     raises.
@@ -217,7 +317,8 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     check_inputs(x, dt, A, Bm, Cm, chunk, h0)
     _check_kernel_inputs(x, dt, Bm, Cm, h0)
     if not x.is_cuda:
-        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        out = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        return (*out, None) if return_states else out
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     A = A.contiguous()
@@ -228,7 +329,8 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
         h0 = h0.clone()
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    # Scratch: the state entering each 64-step chunk.
+    # The state entering each 64-step chunk: scratch of the chunk scan,
+    # kept for the backward.
     states = torch.empty((b, h, -(-s // KERNEL_CHUNK), n, p),
                          dtype=torch.float32, device=x.device)
     fn = _lib()
@@ -244,7 +346,158 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan_cuda.launches += 1
-    return y, h_last
+    return (y, h_last, states) if return_states else (y, h_last)
 
 
 ssd_scan_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5-bwd: the gradients (csrc/ssd_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+BWD_COLUMNS = 32                # columns of P one backward CTA owns
+BWD_MAX_STATE = 256             # state rows (N): one thread each
+
+
+def bwd_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of one backward CTA (csrc/ssd_scan_bwd.cu's
+    ``smem_floats``): a 64-step chunk's B and C rows, its x and gy
+    columns, its dt, decays and <gu, x>, and each warp's partial sums of
+    gu (half a chunk's steps), of C gC and of <h, lam>."""
+    q, pb = KERNEL_CHUNK, BWD_COLUMNS
+    nr = -(-n // 32) * 32
+    warps = nr // 32
+    return 4 * (2 * q * nr + 2 * q * pb + 3 * q
+                + warps * (q // 2 * pb + q + 1))
+
+
+def _check_bwd_inputs(x, gy, states, g_hlast, n: int) -> None:
+    """What the backward kernel takes beyond the forward's inputs."""
+    b, s, h, p = x.shape
+    if n > BWD_MAX_STATE:
+        raise NotImplementedError(
+            f"the SSD backward kernel runs one thread a state row, at most "
+            f"{BWD_MAX_STATE}; got N={n}")
+    if bwd_smem_bytes(n) > SMEM_LIMIT_BYTES:
+        raise NotImplementedError(
+            f"N={n} needs {bwd_smem_bytes(n)} B of shared memory")
+    want = {"gy": (gy, (b, s, h, p)),
+            "states": (states, (b, h, -(-s // KERNEL_CHUNK), n, p))}
+    if g_hlast is not None:
+        want["g_hlast"] = (g_hlast, (b, h, n, p))
+    for name, (t, shape) in want.items():
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(
+                f"{name} must be a float32 {shape} tensor on {x.device}, got "
+                f"{getattr(t, 'dtype', type(t))} "
+                f"{tuple(getattr(t, 'shape', ()))}")
+
+
+def _bwd_lib():
+    from repro_torch.kernels import _build
+
+    fn = _build.library("ssd_scan_bwd.cu").ssd_scan_bwd_launch
+    if fn.argtypes is None:
+        ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [ptr, ll, ll, ptr, ll, ll, ptr, ptr, ll, ll, ptr, ll,
+                       ll, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i,
+                       i, i, i, ptr]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, *, states, chunk: int, h0=None,
+                      g_hlast=None):
+    """The SSD scan's gradients: (gx, gdt, gA, gBm, gCm, gh0) fp32.
+
+    Args:
+      x, dt, A, Bm, Cm, h0, chunk: the forward's inputs (``ssd_scan_cuda``).
+      gy: (B, S, H, P) float32, the gradient in y.
+      states: (B, H, ceil(S / 64), N, P) float32, the state entering each
+        64-step chunk, as ``ssd_scan_cuda(..., return_states=True)`` gives
+        it (it holds h0; None on the CPU).
+      g_hlast: optional (B, H, N, P) float32 gradient in h_last.
+
+    ``gh0`` is None when ``h0`` is.  A CPU tensor runs
+    ``ssd_scan_bwd_plain``; a CUDA tensor launches K5-bwd or raises.
+    The kernel writes gB, gC, gdt and ga per head and per 32 columns of
+    P; those partial sums are added here in a fixed order (no atomics:
+    the gradients are the same from run to run).
+    """
+    check_inputs(x, dt, A, Bm, Cm, chunk, h0)
+    _check_kernel_inputs(x, dt, Bm, Cm, h0)
+    if not x.is_cuda:
+        return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, gy, chunk=chunk, h0=h0,
+                                  g_hlast=g_hlast)
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    _check_bwd_inputs(x, gy, states, g_hlast, n)
+    A = A.contiguous()
+    gy, states = gy.contiguous(), states.contiguous()
+    if g_hlast is not None:
+        g_hlast = g_hlast.contiguous()
+    npb = -(-p // BWD_COLUMNS)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    gx = out(b, s, h, p)
+    gdt_part, ga_part = out(npb, b, s, h), out(npb, b, s, h)
+    gB_part, gC_part = out(npb, b, s, h, n), out(npb, b, s, h, n)
+    gh0 = None if h0 is None else out(b, h, n, p)
+    fn = _bwd_lib()
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), x.stride(0), x.stride(1),
+                 dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
+                 Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
+                 Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
+                 gy.data_ptr(), states.data_ptr(),
+                 None if g_hlast is None else g_hlast.data_ptr(),
+                 gx.data_ptr(), gdt_part.data_ptr(), ga_part.data_ptr(),
+                 gB_part.data_ptr(), gC_part.data_ptr(),
+                 None if gh0 is None else gh0.data_ptr(),
+                 b, s, h, p, n,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"ssd_scan backward kernel launch failed: CUDA error {err}")
+    ssd_scan_bwd_cuda.launches += 1
+    ga = ga_part.sum(0)
+    return (gx, gdt_part.sum(0), (ga * dt).sum((0, 1)),
+            gB_part.sum((0, 3))[:, :, None], gC_part.sum((0, 3))[:, :, None],
+            gh0)
+
+
+ssd_scan_bwd_cuda.launches = 0
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """K5 with K5-bwd as its backward: what ``ops.ssd_scan`` runs on CUDA
+    tensors when a gradient is wanted.
+
+    The forward launches K5 (``ssd_scan_cuda``) and keeps its inputs and
+    the state entering each 64-step chunk (12.6 MB a layer at B=4, S=1024,
+    H=24, P=64, N=128); the backward launches K5-bwd from them
+    (``ssd_scan_bwd_cuda``).  An unused ``h_last`` (training) seeds the
+    backward with nothing.  ``apply(x, dt, A, Bm, Cm, h0, chunk)`` returns
+    (y, h_last)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
+        y, h_last, states = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                                          h0=h0, return_states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, gy, g_hlast):
+        x, dt, A, Bm, Cm, h0, states = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(x)
+        gx, gdt, gA, gBm, gCm, gh0 = ssd_scan_bwd_cuda(
+            x, dt, A, Bm, Cm, gy, states=states, chunk=ctx.chunk, h0=h0,
+            g_hlast=g_hlast)
+        return gx, gdt, gA, gBm, gCm, gh0, None

@@ -1,6 +1,6 @@
 """Mamba-2 (SSD, state-space duality): the attention-free ssm family.
 
-Port of ``repro/models/ssm.py`` for serving.  The model is an
+Port of ``repro/models/ssm.py``.  The model is an
 ``nn.Module`` (``Mamba2LM``: the embedding, a ``ModuleList`` of
 ``Mamba2Block`` and the final norm) whose parameters carry the
 reference's pytree names, so ``param_tree()`` gives back the nested dict
@@ -15,10 +15,17 @@ The SSD chunked scan of each layer (``ssd_chunked``) goes through
 CUDA tensor: one launch per layer per prefill or forward, none per decode
 step, whose single-step recurrence is plain torch.
 
+Training keeps the parameters in the reference's layout (the layers
+stacked on a leading L axis, ``stack_layers``) and runs
+``Mamba2LM.over`` them: a model whose parameters are views of the stacked
+tensors, whose gradients ``grad_tree`` stacks back.  Under autograd a CUDA
+scan runs through ``SSDScanFunction`` (K5 forward, K5-bwd backward).
+
 Shapes: d_inner = expand * d_model; H = d_inner / ssm_head_dim heads;
 B/C projections are per group (ssm_groups, ssm_state).  fp32 state math.
-The sequence-parallel scan (``ssd_seq_parallel``) comes with training
-(ROADMAP 1.9): ``cfg.ssm_seq_parallel`` raises.
+The sequence-parallel scan (``ssd_seq_parallel``) comes with the mesh
+side of training (ROADMAP 1.9, sharding): ``cfg.ssm_seq_parallel``
+raises.
 """
 
 from __future__ import annotations
@@ -113,6 +120,57 @@ class Mamba2LM(nn.Module):
 
     def forward(self, tokens, cache=None, *, backend: str = "auto"):
         return forward(self, tokens, self.cfg, cache=cache, backend=backend)
+
+    @classmethod
+    def over(cls, cfg, params: dict) -> "Mamba2LM":
+        """The model over ``params`` in the reference's layout (layers
+        stacked on a leading L axis, as ``stack_layers`` gives them): its
+        parameters are views of those tensors, so an in-place update of
+        ``params`` is an update of the model.  What a train step runs."""
+        return cls(cfg, unstack_layers(params))
+
+    def grad_tree(self) -> dict:
+        """The parameters' gradients in the reference's layout (layers
+        stacked, a copy); zeros where a parameter has none."""
+        def grads(t):
+            if isinstance(t, dict):
+                return {k: grads(v) for k, v in t.items()}
+            if isinstance(t, list):
+                return [grads(v) for v in t]
+            return torch.zeros_like(t) if t.grad is None else t.grad
+        return stack_layers(grads(self.param_tree()))
+
+
+def stack_layers(tree: dict) -> dict:
+    """A ``param_tree()`` (layers a list of per-layer dicts) in the
+    reference's layout: every layer leaf stacked on a leading L axis (a
+    copy, detached)."""
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return torch.stack([it.detach() for it in items])
+
+    def detach(t):
+        if isinstance(t, dict):
+            return {k: detach(v) for k, v in t.items()}
+        return t.detach()
+
+    return {k: stack(v) if k == "layers" else detach(v)
+            for k, v in tree.items()}
+
+
+def unstack_layers(tree: dict) -> dict:
+    """The reference's layout as ``Mamba2LM``'s: layer ``i`` of every
+    stacked leaf, as views.  Stacks of unequal depth raise ValueError."""
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            return [dict(zip(parts, layer))
+                    for layer in zip(*parts.values(), strict=True)]
+        return list(t.unbind(0))
+
+    return {**{k: v for k, v in tree.items() if k != "layers"},
+            "layers": split(tree["layers"])}
 
 
 def init_params(gen: torch.Generator, cfg, dtype=torch.float32) -> Mamba2LM:
@@ -237,7 +295,8 @@ def forward(params: Mamba2LM, tokens, cfg, *, prefix_embeds=None,
     if cfg.ssm_seq_parallel:
         raise NotImplementedError(
             "ssm_seq_parallel: the sequence-parallel SSD scan "
-            "(ssd_seq_parallel) is not ported yet, ROADMAP 1.9")
+            "(ssd_seq_parallel) is not ported yet: it comes with the "
+            "sharding item of ROADMAP 1.9")
     dtype = L.as_dtype(cfg.dtype)
     p = L.cast_params(params.param_tree(), dtype)
     x = p["embed"][tokens].to(dtype)

@@ -458,6 +458,145 @@ def test_mamba2_prefill_launches_k5_once_per_layer(cuda_device, no_tf32):
     assert ssd_scan_cuda.launches == 0
 
 
+# K5-bwd against its plain version and SSDScanFunction against autograd of
+# the plain scan: each gradient's largest error over its largest magnitude
+# (chip_smoke.py's K5BWD_RTOL; gA sums B x S terms with cancellation).  A
+# gradient that is exactly zero (gA from h0 = 0 at S = 1) is held to
+# SSD_BWD_ZERO: the kernel computes ga_t as <h_t, lam_t> - <u_t, gu_t>,
+# equal terms that leave their fp32 rounding.
+SSD_BWD_RTOL, SSD_BWD_ZERO = 1e-4, 1e-5
+_GRAD_NAMES = ("gx", "gdt", "gA", "gBm", "gCm", "gh0")
+
+
+def _assert_rel(got, want, rtol=SSD_BWD_RTOL):
+    for name, g, w in zip(_GRAD_NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        assert err <= (rtol * scale if scale > 0 else SSD_BWD_ZERO), (
+            name, err, scale)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,with_h0,with_ghl", [
+    (1, 1, 1, 4, 4, False, False), (2, 100, 3, 8, 16, True, True),
+    (1, 320, 2, 64, 128, False, True), (2, 130, 3, 40, 20, True, False),
+    (4, 1024, 24, 64, 128, False, False), (4, 1000, 24, 64, 128, True, True),
+    (1, 64, 2, 16, 256, True, True),
+])
+def test_ssd_scan_bwd_kernel_equals_plain(cuda_device, no_tf32, b, s, h, p,
+                                          n, with_h0, with_ghl):
+    from repro_torch.kernels.ssd_scan import (
+        ssd_scan_bwd_cuda, ssd_scan_bwd_plain,
+    )
+
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(25, b, s, h, p, n, with_h0=with_h0)
+    r = np.random.default_rng(26)
+    gy = torch.as_tensor(r.standard_normal((b, s, h, p)), dtype=torch.float32,
+                         device=cuda_device)
+    ghl = (torch.as_tensor(r.standard_normal((b, h, n, p)),
+                           dtype=torch.float32, device=cuda_device)
+           if with_ghl else None)
+    _, _, states = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=s, h0=h0,
+                                 return_states=True)
+    before = ssd_scan_bwd_cuda.launches
+    got = ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, states=states, chunk=s,
+                            h0=h0, g_hlast=ghl)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd_cuda.launches == before + 1
+    chunk = next(c for c in (64, 50, 10, s) if s % c == 0)
+    want = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, gy, chunk=chunk, h0=h0,
+                              g_hlast=ghl)
+    _assert_rel(got, want)
+    again = ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, states=states, chunk=s,
+                              h0=h0, g_hlast=ghl)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got[:5], again[:5]))
+
+
+def test_ssd_scan_function_gradients_on_the_card(cuda_device, no_tf32):
+    """A grad-enabled scan on the card runs SSDScanFunction (K5, then
+    K5-bwd) and its gradients equal autograd of the plain scan, at
+    Mamba2-130M's init over 256-step chunks, all finite."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    x, _, _, Bm, Cm, _ = _ssd_inputs(27, 2, 512, 4, 64, 128)
+    leaves = [x, torch.full((2, 512, 4), 0.69, device=cuda_device),
+              -torch.ones(4, device=cuda_device), Bm, Cm]
+    gy = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    grads = []
+    for use_kernel in (True, False):
+        ins = [t.clone().requires_grad_() for t in leaves]
+        before = (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches)
+        if use_kernel:
+            y, _ = ops.ssd_scan(*ins, chunk=256)
+            assert type(y.grad_fn).__name__ == "SSDScanFunctionBackward"
+        else:
+            y, _ = ssd_scan_plain(*ins, chunk=256)
+        (y * gy).sum().backward()
+        assert (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches) == (
+            before[0] + use_kernel, before[1] + use_kernel)
+        grads.append([t.grad for t in ins] + [None])
+    _assert_rel(grads[0], grads[1])
+
+
+def test_two_training_steps_on_the_card(cuda_device, no_tf32):
+    """Two train steps of the fp32 smoke model on the card (K5 and K5-bwd
+    once a layer each step) against the same steps on the CPU (the plain
+    scan): loss, grad norm and parameters (each moves by at most lr =
+    5e-4 a step; AdamW's g / (sqrt(nu) + eps) magnifies differences of
+    gradients near eps, 1.2e-5 a step against the reference on the
+    CPU)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import make_stream
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    from repro_torch.train import init_state, make_optimizer, make_train_step
+
+    cfg = dataclasses.replace(smoke_config("mamba2-130m"), dtype="float32")
+    opt = make_optimizer(cfg, peak_lr=1e-3, warmup=2, total_steps=10)
+    stream = make_stream(cfg, batch=2, seq_len=64, seed=1)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        state = init_state(torch.Generator().manual_seed(0), cfg, opt)
+        state = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                     _to(v, dev)) for k, v in state.items()}
+        step = make_train_step(cfg, opt)
+        metrics = []
+        for k in range(2):
+            ssd_scan_cuda.launches = ssd_scan_bwd_cuda.launches = 0
+            state, m = step(state, stream.batch_at(k))
+            torch.cuda.synchronize()
+            on_card = torch.device(dev).type == "cuda"
+            assert ssd_scan_cuda.launches == cfg.num_layers * on_card
+            assert ssd_scan_bwd_cuda.launches == cfg.num_layers * on_card
+            metrics.append({k2: float(v) for k2, v in m.items()})
+        runs[torch.device(dev).type] = (state, metrics)
+    (cpu_state, cpu_m), (card_state, card_m) = runs["cpu"], runs["cuda"]
+    for a, b in zip(cpu_m, card_m):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-5)
+        assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=1e-3)
+    for name, p in _flat(cpu_state["params"]).items():
+        q = _flat(card_state["params"])[name].cpu()
+        torch.testing.assert_close(q, p, atol=1e-4, rtol=0)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k in tree for k2, v2 in
+                _flat(tree[k], f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
 # ---------------------------------------------------------------------------
 # the streaming runtime, tracker and service on the card
 # ---------------------------------------------------------------------------
