@@ -167,9 +167,12 @@ non-zero before the result line is printed:
           share) and profiles of a stream frame, a tracker step, a
           service frame group, the §4.6 frame dense, bin-sharded and
           spatially sharded, and two train steps; then the analysis
-          phase's launch check.  K5-bwd is timed at the training shape
-          beside its plain version, and the train step's share of it
-          logged
+          phase's launch check, and K5-bwd's two launches (the reverse
+          state pass and the chunk kernel: grid, threads and shared bytes
+          against ssd_scan.bwd_launches).  K5-bwd is timed at the training
+          shape beside its plain version, its bound at the 3xTF32 rate
+          with the fp32 one beside it and its chunk form's GFLOP, and the
+          train step's share of it logged
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
 service, mesh, lm and train phases runs with all seven launch counters
@@ -184,6 +187,7 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -208,11 +212,11 @@ MAP_RTOL, MAP_ATOL = 1e-6, 1e-7
 K5_ATOL, K5_RTOL = 1e-4, 1e-4
 # K5-bwd against its plain version (TF32 off), and SSDScanFunction's
 # gradients against autograd of the plain scan: each gradient's largest
-# error over its largest magnitude.  The kernel walks the steps in order
-# in fp32 and sums the partial gradients per 32 columns and head, the
-# plain version takes matrix products over chunks; gA sums B x S terms
-# with cancellation.  Largest measured on the H100 1.8e-5 (gA), 5.2e-6
-# elsewhere.
+# error over its largest magnitude.  The kernel takes the chunk form's
+# products in 3xTF32 over 64-step chunks and sums gB and gC over groups
+# of heads, the plain version takes fp32 products over 256-step chunks;
+# gA sums B x S terms with cancellation.  Largest measured on the H100
+# 1.41e-5 (gA of SSDScanFunction at dt = 0.69, chunk 256).
 K5BWD_RTOL = 1e-4
 # Mamba2-130M prefill logits (last position).  The fp32 model with K5
 # against the fp32 model with the plain scan: the scan's rounding only.
@@ -292,6 +296,9 @@ FRAME_46 = 8192
 # The stream phase: host frames of the paper's geometry through
 # HistogramEngine.map_frames.
 STREAM_FRAMES = 64
+# Traces a launch check takes at most when the profiler drops a call's
+# kernel events.
+TRACE_ATTEMPTS = 3
 # The tracker phase: frames tracked after the first, its bins and radius.
 TRACK_FRAMES, TRACK_BINS, TRACK_RADIUS = 32, 16, 12
 
@@ -545,25 +552,35 @@ def traced_launches(torch, fn, per_call: int) -> list[dict]:
     """The CUDA launches of one call of ``fn`` as an exported
     torch.profiler trace records them: each kernel event's name, grid,
     block, shared memory and registers per thread.  ``fn`` runs twice in
-    the trace (its first launches can be missed as the trace starts); the
-    last ``per_call`` kernel events are the second call's."""
+    the trace (its first launch is often missed as the trace starts); the
+    last ``per_call`` kernel events are the second call's.  A trace that
+    misses more than that first launch (the profiler can drop a
+    session's events, even all of them) is taken again, up to
+    ``TRACE_ATTEMPTS`` traces; the last one is read whatever it holds."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text()).get("traceEvents", [])
-    kernels = sorted((e for e in events if e.get("ph") == "X" and str(
-        e.get("cat", "")).lower() == "kernel"), key=lambda e: e["ts"])
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text()).get("traceEvents", [])
+        kernels = sorted((e for e in events if e.get("ph") == "X" and str(
+            e.get("cat", "")).lower() == "kernel"), key=lambda e: e["ts"])
+        if len(kernels) >= 2 * per_call - 1:
+            break
+        log(f"   (trace {attempt + 1}: {len(kernels)} kernel events of the "
+            f"two calls' {2 * per_call}; "
+            + ("taken again)" if attempt + 1 < TRACE_ATTEMPTS
+               else "read as is)"))
     out = []
     for e in kernels[-per_call:] if per_call else []:
         a = e.get("args", {})
@@ -687,8 +704,8 @@ def run(torch) -> list[dict]:
     )
     from repro_torch.kernels.ref import region_histogram_ref
     from repro_torch.kernels.ssd_scan import (
-        KERNEL_CHUNK, ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_cuda,
-        ssd_scan_plain,
+        KERNEL_CHUNK, bwd_heads_per_cta, bwd_launches, ssd_scan_bwd_cuda,
+        ssd_scan_bwd_plain, ssd_scan_cuda, ssd_scan_plain,
     )
     from repro_torch.kernels import wf_tis as wf_tis_mod
     from repro_torch.kernels.wf_tis import (
@@ -2489,8 +2506,8 @@ def run(torch) -> list[dict]:
                if k5_calls is not None else "not measured"))
         k5b_calls, k5b_kernel_us = device_kernels(torch, k5b_call)
         log(f"   ssd_scan_bwd profiled: "
-            + (f"{k5b_calls:g} CUDA launch(es) a call (the kernel, then the "
-               f"partial sums), device µs a call "
+            + (f"{k5b_calls:g} CUDA launch(es) a call (the two kernels, then "
+               f"the parts' sums), device µs a call "
                + ", ".join(f"{k[:48]} {v:.2f}"
                            for k, v in k5b_kernel_us.items())
                if k5b_calls is not None else "not measured"))
@@ -2519,9 +2536,9 @@ def run(torch) -> list[dict]:
                               + sx.numel() + sb * sh * sn * sp),  # written
                          4 * sb * sh * ss * sn * sp),
             # The timed call reads x, dt, B, C, gy and the states K5 kept
-            # and writes gx, gdt, gA, gB and gC.  Operations: five fp32
-            # multiply-adds per state element a step (h recomputed, gC,
-            # lam, gB, gu), 10 N P flops per (batch, head, step).
+            # and writes gx, gdt, gA, gB and gC.  Operations: what the
+            # function needs, five multiply-adds per state element a step
+            # (h, gC, lam, gB, gu), 10 N P flops per (batch, head, step).
             "ssd_scan_bwd": (4 * (sx.numel() + sdt.numel() + sB.numel()
                                   + sC.numel() + k5b_gy.numel()
                                   + k5b_states0.numel()            # read
@@ -2536,6 +2553,17 @@ def run(torch) -> list[dict]:
             f"form's full products, 2 Q (Q N + Q P + 2 N P) a chunk, are "
             + ", ".join(f"{f / 1e9:.2f} GFLOP at Q = {q}"
                         for q, f in ssd_form.items()))
+        # K5-bwd's chunk form, per 64-step chunk: per head C^T gy (the
+        # reverse pass), gy u^T, M^T gy, B G, u G^T and gy H0^T, 2 Q (4 N P
+        # + 2 Q P); per group of heads C B^T, W B and W^T C, 6 Q Q N.
+        bwd_groups = -(-sh // bwd_heads_per_cta(sb, ss, sh, sp, sn))
+        bwd_form = 2 * sb * ss * (sh * (4 * sn * sp + 2 * KERNEL_CHUNK * sp)
+                                  + bwd_groups * 3 * KERNEL_CHUNK * sn)
+        log(f"   ssd_scan_bwd operations: the function needs "
+            f"{work['ssd_scan_bwd'][1] / 1e9:.2f} GFLOP (10 N P a step); the "
+            f"chunk form's full products, 2 Q (4 N P + 2 Q P) a head and "
+            f"6 Q Q N a group of heads ({bwd_groups} groups) a chunk, are "
+            f"{bwd_form / 1e9:.2f} GFLOP at Q = {KERNEL_CHUNK}")
         timed = {
             "wf_tis": ("src/repro/kernels/wf_tis.py:253", "wf_tis.cu",
                        k1_ms, k1_plain, None, k1_err),
@@ -2558,9 +2586,10 @@ def run(torch) -> list[dict]:
         }
         library_call = {"delta_apply": "H + delta[..., None, :]",
                         "cw_tis_vscan": "torch.cumsum(hh, dim=-2)"}
-        # The rate of the unit each kernel computes on: K5's products are
-        # 3xTF32 on the tensor cores, the others fp32 adds.
-        op_rate = {"ssd_scan": (TF32X3_OPS_PER_S, "3xTF32")}
+        # The rate of the unit each kernel computes on: K5's and K5-bwd's
+        # products are 3xTF32 on the tensor cores, the others fp32 adds.
+        op_rate = {"ssd_scan": (TF32X3_OPS_PER_S, "3xTF32"),
+                   "ssd_scan_bwd": (TF32X3_OPS_PER_S, "3xTF32")}
         records = []
         for name, (site, src, ms, plain_ms, lib_ms, err) in timed.items():
             nbytes, nops = work[name]
@@ -2598,7 +2627,7 @@ def run(torch) -> list[dict]:
                         if by == "operations"
                         else f"{n / ms * 1e3:.0f} frames/s")
             extra = ""
-            if name == "ssd_scan":
+            if name in op_rate:
                 fp32_bound = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
                 extra = (f"; at fp32's 67 TFLOP/s the bound would be "
                          f"{fp32_bound:.4f} ms, {fp32_bound / ms:.1%} of it")
@@ -2814,34 +2843,38 @@ def run(torch) -> list[dict]:
             f"{'their static bytes' if static_read == {True} else '0'}); "
             f"the card's opt-in limit {optin} B ({optin_src}) | card "
             f"{card_line()}")
-        # K5-bwd's launch from the same kind of trace (its call's other
-        # launches are the wrapper's partial sums): one CTA per 32 columns
-        # of P, head and batch, one thread a state row, and shared memory
-        # that leaves room for two CTAs an SM.
-        from repro_torch.kernels.ssd_scan import BWD_COLUMNS, bwd_smem_bytes
-
-        (ev,) = [e for e in traced_launches(
-                     torch, k5b_call, round(k5b_calls) if k5b_calls else 8)
-                 if "ssd_bwd_kernel" in e["name"]]
-        k5b_threads = -(-sn // 32) * 32
-        sm_smem = getattr(torch.cuda.get_device_properties(0),
-                          "shared_memory_per_multiprocessor", 233472)
-        log(f"   launch ssd_bwd_kernel at {sb}x{ss}x{sh}x{sp}, N={sn}: grid "
-            f"{ev['grid']}, block {ev['block']}, shared {ev['smem']} B, "
-            f"{ev['regs']} registers a thread; an SM's shared memory "
-            f"{sm_smem} B")
-        check(list(ev["grid"]) == [-(-sp // BWD_COLUMNS), sh, sb]
-              and list(ev["block"]) == [k5b_threads, 1, 1]
-              and ev["smem"] == bwd_smem_bytes(sn),
-              f"ssd_bwd_kernel launched {ev}")
-        check(2 * (ev["smem"] + 1024) <= sm_smem,
-              "ssd_bwd_kernel's shared memory leaves no room for two CTAs "
-              "an SM")
-        k5b_record = next(r for r in records if r["name"] == "ssd_scan_bwd")
-        k5b_record["launch_checks"] = [{
-            "shape": "training", "kernel": "ssd_bwd_kernel",
-            "ctas": -(-sp // BWD_COLUMNS) * sh * sb, "threads": k5b_threads,
-            "smem_bytes": ev["smem"], "regs_per_thread": ev["regs"]}]
+        # K5-bwd's two launches from the same kind of trace (its call's
+        # other launches are the wrapper's sums of the parts): the reverse
+        # state pass and the chunk kernel, each one's grid, threads and
+        # shared bytes against ssd_scan.bwd_launches, one CTA an SM.
+        want_bwd = bwd_launches(sb, ss, sh, sp, sn)
+        names_bwd = [d["kernel"] for d in want_bwd]
+        events = [e for e in traced_launches(
+                      torch, k5b_call, round(k5b_calls) if k5b_calls else 8)
+                  if any(k in e["name"] for k in names_bwd)]
+        check([next(k for k in names_bwd if k in e["name"]) for e in events]
+              == names_bwd, f"K5-bwd's traced kernels {events}")
+        k5b_checks = []
+        for want, ev in zip(want_bwd, events):
+            what = f"{want['kernel']} at {sb}x{ss}x{sh}x{sp}, N={sn}"
+            log(f"   launch {what}: grid {ev['grid']}, block {ev['block']}, "
+                f"shared {ev['smem']} B, {ev['regs']} registers a thread "
+                f"(want grid {list(want['grid'])}, {want['threads']} "
+                f"threads, {want['smem']} B)")
+            check(list(ev["grid"]) == list(want["grid"])
+                  and list(ev["block"]) == [want["threads"], 1, 1]
+                  and ev["smem"] == want["smem"],
+                  f"{what} launched {ev}, not {want}")
+            check(want["smem"] <= optin
+                  and ev["regs"] * want["threads"] <= REGISTERS_PER_SM,
+                  f"{what}: {want['smem']} B, {ev['regs']} registers x "
+                  f"{want['threads']} threads do not fit an SM")
+            k5b_checks.append({
+                "shape": "training", "kernel": want["kernel"],
+                "ctas": math.prod(want["grid"]), "threads": want["threads"],
+                "smem_bytes": ev["smem"], "regs_per_thread": ev["regs"]})
+        next(r for r in records
+             if r["name"] == "ssd_scan_bwd")["launch_checks"] = k5b_checks
         for rec in records:
             if rec["name"] in launch_checks:
                 rec["launch_checks"] = launch_checks[rec["name"]]

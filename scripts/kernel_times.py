@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Time K1 (WF-TiS), K2 (fused rows) and K5 (SSD scan) of any tree of the
-repo on one GPU.
+"""Time K1 (WF-TiS), K2 (fused rows), K5 (SSD scan) and K5-bwd (its
+gradients) of any tree of the repo on one GPU.
 
     python3 scripts/kernel_times.py [--src DIR] [--label NAME] [--json PATH]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so that another tree, such as a parent commit unpacked with ``git
 archive``, is timed at the shapes ``chip_smoke.py`` times its own at:
-K1 at ``chip_smoke.K1_SHAPES``, K2 at ``chip_smoke.K2_SHAPES`` and K5 at
-``chip_smoke.K5_SHAPE``, with chip_smoke's inputs, timer (``time_ms``),
-byte bounds and profiler count (``device_kernels``: K2's CUDA launches and
-device µs a call).  Only the wrappers ``wf_tis_cuda``,
-``fused_rows_cuda`` and ``ssd_scan_cuda`` and their plain versions are
-called, which every tree of the port has.  Run parent, change, change,
-parent on one machine to compare two trees.  Each result is held against
-its plain version (K1 and K2 bit for bit, K5 within chip_smoke's K5_ATOL /
-K5_RTOL).  Prints one JSON line as its last, and writes it to ``--json``
-when given.
+K1 at ``chip_smoke.K1_SHAPES``, K2 at ``chip_smoke.K2_SHAPES``, K5 and
+K5-bwd at ``chip_smoke.K5_SHAPE`` (K5-bwd as a training step calls it:
+h0 = None, no gradient of h_last), with chip_smoke's inputs, timer
+(``time_ms``), byte bounds and profiler count (``device_kernels``: K2's
+and K5-bwd's CUDA launches and device µs a call).  Only the wrappers
+``wf_tis_cuda``, ``fused_rows_cuda``, ``ssd_scan_cuda`` and
+``ssd_scan_bwd_cuda`` and their plain versions are called, which every
+tree of the port since K5-bwd has.  Run parent, change, change, parent on
+one machine to compare two trees.  Each result is held against its plain
+version (K1 and K2 bit for bit, K5 within chip_smoke's K5_ATOL /
+K5_RTOL, K5-bwd's gradients within K5BWD_RTOL of their largest
+magnitude).  Prints one JSON line as its last, and writes it to
+``--json`` when given.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ def main() -> int:
     ap.add_argument("--json", help="also write the JSON line to this file")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -107,11 +111,37 @@ def main() -> int:
           f"{smoke.K5_SHAPE[4]}: {ms:.4f} ms | max abs err {err:.3e} | "
           f"within atol {smoke.K5_ATOL} + rtol {smoke.K5_RTOL}: {ok} | card "
           f"{result['card']}", flush=True)
+
+    gy = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        tuple(x.shape)), dtype=torch.float32, device=dev)
+    _, _, states = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                                     return_states=True)
+
+    def bwd():
+        return ssd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, states=states,
+                                     chunk=chunk)
+
+    want = ssd.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, gy,
+                                  chunk=ssd.KERNEL_CHUNK)
+    rel = max(float((g - w_).abs().max()) / float(w_.abs().max())
+              for g, w_ in zip(bwd()[:5], want[:5]))
+    ok_bwd = rel <= smoke.K5BWD_RTOL
+    ms = smoke.time_ms(bwd)
+    per_call, kernel_us = smoke.device_kernels(torch, bwd)
+    result["k5_bwd"] = {"ms": ms, "max_rel_err": rel, "within_gate": ok_bwd,
+                        "cuda_launches_per_call": per_call,
+                        "device_us": kernel_us}
+    print(f"K5-bwd {'x'.join(map(str, smoke.K5_SHAPE[:4]))}, N="
+          f"{smoke.K5_SHAPE[4]}: {ms:.4f} ms | largest error over largest "
+          f"magnitude {rel:.3e}, within {smoke.K5BWD_RTOL}: {ok_bwd} | "
+          f"profiled: {per_call} CUDA launch(es) a call, device µs a call "
+          + ", ".join(f"{k[:48]} {v:.2f}" for k, v in kernel_us.items()),
+          flush=True)
     line = json.dumps(result)
     if args.json:
         pathlib.Path(args.json).write_text(line + "\n")
     print(line)
-    return 0 if ok else 1
+    return 0 if ok and ok_bwd else 1
 
 
 if __name__ == "__main__":

@@ -40,23 +40,14 @@
 // Tiles reach shared memory by cp.async (16 bytes a copy, zero-filled past
 // S, N and P); the wrapper hands over x, B and C 16-byte aligned.
 //
-// The four products (C h, C B^T, M xdt, B^T X) run on the tensor cores:
-// mma.sync m16n8k8 in TF32 with fp32 accumulation, in the 3xTF32 split.
-// Each fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
-// (by bit masks), and each product takes hi*lo + lo*hi + hi*hi (lo*lo
-// dropped): about fp32 accuracy, where plain TF32 (10-bit mantissas)
-// misses the kernel's 1e-4 gate on most outputs.  It costs three
-// tensor-core products for each product needed, so the operation bound is
-// the TF32 rate over 3.  The cumulative decay, the masks and the
-// exponentials stay in fp32.  mma.sync reaches only part of the TF32 rate
-// that wgmma reaches (scripts/mma_sync_rate.cu measures it; PERF.md has
-// the reading), and with the fragment loads and splits between products
-// and the state scan's serial walk the kernel stays far from either.
-//
-// Shared-memory layouts are padded so that every fragment load of a warp
-// hits 32 different banks: a row stride of 4 mod 32 words where lanes
-// read (row g, column t), 8 mod 32 where they read (row t, column g)
-// (g = lane / 4, t = lane % 4).
+// The four products (C h, C B^T, M xdt, B^T X) run on the tensor cores
+// in 3xTF32 (ssd_mma.cuh, shared with K5-bwd, says how and lays out the
+// shared-memory rows against bank conflicts).  The cumulative decay, the
+// masks and the exponentials stay in fp32.  mma.sync reaches only part of
+// the TF32 rate that wgmma reaches (scripts/mma_sync_rate.cu measures it;
+// PERF.md has the reading), and with the fragment loads and splits between
+// products and the state scan's serial walk the kernel stays far from
+// either.
 //
 // Inputs are read where they lie: x (B, S, H, P), dt (B, S, H) and B / C
 // (B, S, N) with their batch and sequence strides, the inner dims dense.
@@ -64,12 +55,10 @@
 // (B, H, N, P).  Steps past the sequence end (a ragged last chunk) are
 // identities (a = 0, xdt = 0) and write no y.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ssd_mma.cuh"
 
 namespace {
 
-constexpr int kQ = 64;            // steps of one chunk
 constexpr int kPB = 64;           // columns of P one CTA computes
 constexpr int kThreads = 256;     // 8 warps a CTA
 constexpr int kLdP = kPB + 8;     // rows of xdt and of the state (8 mod 32)
@@ -77,118 +66,6 @@ constexpr int kLdM = kQ + 4;      // rows of the masked scores (4 mod 32)
 constexpr int kNB = 128;          // state rows (of N) one state-scan CTA owns
 constexpr int kLdNB = kNB + 8;    // rows of its block of B (8 mod 32)
 constexpr int kStages = 3;        // chunks a state-scan CTA has in flight
-constexpr unsigned kFull = 0xffffffffu;
-
-__host__ __device__ constexpr int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-// ---- 3xTF32 tensor-core products --------------------------------------------
-
-// x = hi + lo with hi = x rounded to TF32's 10 explicit mantissa bits (a
-// half-ulp add, then the low 13 bits cleared) and lo = (x - hi) with its
-// low 13 bits cleared: integer and fp32 ops at the full rate, where
-// cvt.rna.tf32.f32 runs in the quarter-rate conversion pipe.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32: the small terms first, then hi * hi.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// The A fragment (16 x 8, row major) of a(m, k) = p[m * sm + k * sk], split.
-__device__ __forceinline__ void load_a(const float* p, int sm, int sk,
-                                       int lane, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  split(p[g * sm + t * sk], hi[0], lo[0]);
-  split(p[(g + 8) * sm + t * sk], hi[1], lo[1]);
-  split(p[g * sm + (t + 4) * sk], hi[2], lo[2]);
-  split(p[(g + 8) * sm + (t + 4) * sk], hi[3], lo[3]);
-}
-
-// The B fragment (8 x 8, column major) of b(k, n) = p[k * sk + n * sn], split.
-__device__ __forceinline__ void load_b(const float* p, int sk, int sn,
-                                       int lane, uint32_t (&hi)[2],
-                                       uint32_t (&lo)[2]) {
-  const int g = lane >> 2, t = lane & 3;
-  split(p[t * sk + g * sn], hi[0], lo[0]);
-  split(p[(t + 4) * sk + g * sn], hi[1], lo[1]);
-}
-
-// acc[mt][nt] += A (16 MT x 8k) B (8k x 8 NT) over k steps [0, ksteps): MT
-// m-tiles of 16 rows, NT n-tiles of 8 columns; each fragment is split
-// once.  a(m, k) = A[m * sam + k * sak], b(k, n) = B[k * sbk + n * sbn].
-template <int MT, int NT>
-__device__ __forceinline__ void warp_gemm(float (*acc)[NT][4],
-                                          const float* A, int sam, int sak,
-                                          const float* B, int sbk, int sbn,
-                                          int ksteps, int lane) {
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      load_a(A + 16 * mt * sam + 8 * ks * sak, sam, sak, lane, ah[mt],
-             al[mt]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t bh[2], bl[2];
-      load_b(B + 8 * ks * sbk + 8 * nt * sbn, sbk, sbn, lane, bh, bl);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
-    }
-  }
-}
-
-// ---- asynchronous copies into shared memory ---------------------------------
-
-// 16 bytes from global to shared memory without passing through registers;
-// zero-filled (nothing read) where !valid.  Both addresses 16-byte aligned.
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes, zero-filled where !valid; src 4-byte aligned.
-__device__ __forceinline__ void copy4(float* dst, const float* src,
-                                      bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void copies_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` committed groups of this thread are in flight.
-template <int pending>
-__device__ __forceinline__ void copies_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // kQ rows of a (B, S, N) matrix from step t0, columns [0, np) (zero past S
 // and past N) into dst with row stride ld, by all threads of the CTA.
@@ -231,25 +108,6 @@ __device__ __forceinline__ void scale_rows(float* Xs, const float* scale,
 }
 
 // ---- the chunk's decays -----------------------------------------------------
-
-// One warp: a_cum of the chunk's kQ steps from their dt in shared memory
-// (0 past S), a = dt * Ah, two steps a lane: cum = a_cum at steps 2 lane
-// and 2 lane + 1.  Returns the chunk's total in every lane.
-__device__ __forceinline__ float warp_cumsum(const float* d, float Ah,
-                                             int lane, float (&cum)[2]) {
-  const float a0 = d[2 * lane] * Ah, a1 = d[2 * lane + 1] * Ah;
-  float incl = a0 + a1;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += o;
-  }
-  float excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = 0.f;
-  cum[0] = excl + a0;
-  cum[1] = cum[0] + a1;
-  return __shfl_sync(kFull, cum[1], 31);
-}
 
 // kQ values of dt for head h from step t0 (zero past S) into d, by the
 // first kQ threads.

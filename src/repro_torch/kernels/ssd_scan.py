@@ -30,18 +30,22 @@ for a CPU tensor.  ``ssd_scan_cuda.launches`` counts calls that launched
 the kernel (two CUDA launches each: the state scan and the chunk scan).
 
 K5-bwd (``csrc/ssd_scan_bwd.cu``, no TPU counterpart: the reference
-differentiates its jnp chunk loop) computes the scan's gradients from the
-state entering each 64-step chunk, which K5 writes and
-``SSDScanFunction`` keeps.  ``ssd_scan_bwd_cuda`` launches it for a CUDA
-tensor (one CUDA launch, counted in ``ssd_scan_bwd_cuda.launches``) and
-runs ``ssd_scan_bwd_plain`` for a CPU tensor.  ``ops.ssd_scan`` routes a
-grad-enabled CUDA scan through ``SSDScanFunction``; nothing on the card
+differentiates its jnp chunk loop) computes the scan's gradients in K5's
+chunk-parallel form run backwards, from the state entering each 64-step
+chunk, which K5 writes and ``SSDScanFunction`` keeps: a reverse state pass
+(the gradient of the state leaving each chunk) and a chunk kernel (every
+chunk at once, gB and gC summed over a group of heads inside), both on
+3xTF32 ``mma.sync``.  ``ssd_scan_bwd_cuda`` launches it for a CUDA tensor
+(two CUDA launches a call, counted once in ``ssd_scan_bwd_cuda.launches``)
+and runs ``ssd_scan_bwd_plain`` for a CPU tensor.  ``ops.ssd_scan`` routes
+a grad-enabled CUDA scan through ``SSDScanFunction``; nothing on the card
 falls back to a plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -355,32 +359,67 @@ ssd_scan_cuda.launches = 0
 # ---------------------------------------------------------------------------
 # K5-bwd: the gradients (csrc/ssd_scan_bwd.cu)
 # ---------------------------------------------------------------------------
-BWD_COLUMNS = 32                # columns of P one backward CTA owns
-BWD_MAX_STATE = 256             # state rows (N): one thread each
+BWD_ROWS = 128                  # state rows (of N) a backward CTA owns
+BWD_COLUMNS = 64                # columns of P a backward CTA owns
+BWD_STATE_THREADS = 256         # the reverse state pass: 8 warps
+BWD_CHUNK_THREADS = 512         # the chunk kernel: 16 warps, one CTA an SM
+BWD_GRID_CTAS = 132             # the chunk grid's aim: an H100 SXM's SMs
 
 
-def bwd_smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one backward CTA (csrc/ssd_scan_bwd.cu's
-    ``smem_floats``): a 64-step chunk's B and C rows, its x and gy
-    columns, its dt, decays and <gu, x>, and each warp's partial sums of
-    gu (half a chunk's steps), of C gC and of <h, lam>."""
-    q, pb = KERNEL_CHUNK, BWD_COLUMNS
-    nr = -(-n // 32) * 32
-    warps = nr // 32
-    return 4 * (2 * q * nr + 2 * q * pb + 3 * q
-                + warps * (q // 2 * pb + q + 1))
+def bwd_state_smem_bytes() -> int:
+    """Dynamic shared memory of one reverse-state-pass CTA
+    (csrc/ssd_scan_bwd.cu's ``state_bwd_smem_floats``): three buffers of a
+    64-step chunk's C block (128 state rows), gy columns and dt, then the
+    chunk's scales and total and the warps' parts of <H0, G>."""
+    q, stages = KERNEL_CHUNK, 3
+    return 4 * (stages * (q * (BWD_ROWS + 8) + q * (BWD_COLUMNS + 8) + q)
+                + q + 4 + BWD_STATE_THREADS // 32)
+
+
+def bwd_chunk_smem_bytes() -> int:
+    """Dynamic shared memory of one chunk-kernel CTA
+    (``chunk_bwd_smem_floats``): a chunk's C and B blocks, a head's x and
+    gy columns, its G_c and H0_c blocks, the masked scores M, the products
+    E behind ga and 25 per-step vectors.  Neither CTA grows with N or P,
+    which the launches cut into blocks of 128 rows and 64 columns."""
+    q, nb, pb = KERNEL_CHUNK, BWD_ROWS, BWD_COLUMNS
+    vectors = 5 + 3 * 4 + BWD_CHUNK_THREADS // q
+    return 4 * (2 * q * (nb + 4) + 2 * q * (pb + 4) + nb * (pb + 8)
+                + nb * (pb + 4) + q * (q + 8) + q * (q + 4) + vectors * q)
+
+
+def bwd_heads_per_cta(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Heads one chunk-kernel CTA walks: as many as still leave a CTA for
+    each of ``BWD_GRID_CTAS`` SMs (it takes one CTA an SM).  It follows
+    from the shape alone, not from the card: gB and gC are summed over a
+    CTA's heads, so the group fixes their rounding, and a run resumed on
+    another card goes on bit-equal."""
+    per_head = (-(-s // KERNEL_CHUNK) * -(-n // BWD_ROWS) * b
+                * -(-p // BWD_COLUMNS))
+    return min(h, max(1, -(-per_head * h // BWD_GRID_CTAS)))
+
+
+def bwd_launches(b: int, s: int, h: int, p: int, n: int) -> list[dict]:
+    """K5-bwd's CUDA launches for one call, in order: each kernel's name,
+    grid, threads and dynamic shared bytes.  The chunk kernel does not run
+    when S = 0."""
+    chunks, nnb = -(-s // KERNEL_CHUNK), -(-n // BWD_ROWS)
+    npb = -(-p // BWD_COLUMNS)
+    out = [{"kernel": "state_bwd_kernel", "grid": (nnb, h, b * npb),
+            "threads": BWD_STATE_THREADS, "smem": bwd_state_smem_bytes()}]
+    if chunks:
+        groups = -(-h // bwd_heads_per_cta(b, s, h, p, n))
+        out.append({"kernel": "chunk_bwd_kernel",
+                    "grid": (chunks * nnb, groups, b * npb),
+                    "threads": BWD_CHUNK_THREADS,
+                    "smem": bwd_chunk_smem_bytes()})
+    return out
 
 
 def _check_bwd_inputs(x, gy, states, g_hlast, n: int) -> None:
-    """What the backward kernel takes beyond the forward's inputs."""
+    """What the backward kernels take beyond the forward's inputs (whose
+    limits, checked by ``_check_kernel_inputs``, bound them too)."""
     b, s, h, p = x.shape
-    if n > BWD_MAX_STATE:
-        raise NotImplementedError(
-            f"the SSD backward kernel runs one thread a state row, at most "
-            f"{BWD_MAX_STATE}; got N={n}")
-    if bwd_smem_bytes(n) > SMEM_LIMIT_BYTES:
-        raise NotImplementedError(
-            f"N={n} needs {bwd_smem_bytes(n)} B of shared memory")
     want = {"gy": (gy, (b, s, h, p)),
             "states": (states, (b, h, -(-s // KERNEL_CHUNK), n, p))}
     if g_hlast is not None:
@@ -394,15 +433,27 @@ def _check_bwd_inputs(x, gy, states, g_hlast, n: int) -> None:
                 f"{tuple(getattr(t, 'shape', ()))}")
 
 
+def _dense16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, starting on 16 bytes (copied where it does not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _add_parts(t: torch.Tensor, dims: int) -> torch.Tensor:
+    """t summed over its ``dims`` leading axes of parts, one add after
+    another in a fixed order (a single part is returned as it is)."""
+    parts = t.reshape(-1, *t.shape[dims:]).unbind(0)
+    return functools.reduce(torch.add, parts)
+
+
 def _bwd_lib():
     from repro_torch.kernels import _build
 
     fn = _build.library("ssd_scan_bwd.cu").ssd_scan_bwd_launch
     if fn.argtypes is None:
         ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [ptr, ll, ll, ptr, ll, ll, ptr, ptr, ll, ll, ptr, ll,
-                       ll, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i,
-                       i, i, i, ptr]
+        fn.argtypes = ([ptr, ll, ll, ptr, ll, ll, ptr, ptr, ll, ll, ptr, ll,
+                        ll] + [ptr] * 11 + [i] * 6 + [ptr])
         fn.restype = ctypes.c_int
     return fn
 
@@ -420,10 +471,11 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, *, states, chunk: int, h0=None,
       g_hlast: optional (B, H, N, P) float32 gradient in h_last.
 
     ``gh0`` is None when ``h0`` is.  A CPU tensor runs
-    ``ssd_scan_bwd_plain``; a CUDA tensor launches K5-bwd or raises.
-    The kernel writes gB, gC, gdt and ga per head and per 32 columns of
-    P; those partial sums are added here in a fixed order (no atomics:
-    the gradients are the same from run to run).
+    ``ssd_scan_bwd_plain``; a CUDA tensor launches K5-bwd or raises.  The
+    kernels write gB and gC per head group (summed over its heads inside)
+    and, where N or P spans more than one block of 128 rows or 64 columns,
+    gx, gdt and ga per block; those parts are added here in a fixed order
+    (no atomics: the gradients are the same from run to run).
     """
     check_inputs(x, dt, A, Bm, Cm, chunk, h0)
     _check_kernel_inputs(x, dt, Bm, Cm, h0)
@@ -434,39 +486,46 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, *, states, chunk: int, h0=None,
     n = Bm.shape[-1]
     _check_bwd_inputs(x, gy, states, g_hlast, n)
     A = A.contiguous()
-    gy, states = gy.contiguous(), states.contiguous()
+    # The kernels copy 16-byte pieces of x, B, C, gy and the states.
+    x, Bm, Cm = (t if _aligned16(t) else t.clone() for t in (x, Bm, Cm))
+    gy, states = _dense16(gy), _dense16(states)
     if g_hlast is not None:
         g_hlast = g_hlast.contiguous()
+    chunks, nnb = -(-s // KERNEL_CHUNK), -(-n // BWD_ROWS)
     npb = -(-p // BWD_COLUMNS)
+    hg = bwd_heads_per_cta(b, s, h, p, n)
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x.device)
 
-    gx = out(b, s, h, p)
-    gdt_part, ga_part = out(npb, b, s, h), out(npb, b, s, h)
-    gB_part, gC_part = out(npb, b, s, h, n), out(npb, b, s, h, n)
+    gstates, base = out(b, h, chunks, n, p), out(nnb, npb, b, h, chunks)
+    gx = out(nnb, b, s, h, p)
+    gdt_part, ga_part = out(nnb, npb, b, s, h), out(nnb, npb, b, s, h)
+    gB_part, gC_part = (out(npb, -(-h // hg), b, s, n) for _ in range(2))
     gh0 = None if h0 is None else out(b, h, n, p)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     fn = _bwd_lib()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), x.stride(0), x.stride(1),
                  dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
                  Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
                  Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
-                 gy.data_ptr(), states.data_ptr(),
-                 None if g_hlast is None else g_hlast.data_ptr(),
-                 gx.data_ptr(), gdt_part.data_ptr(), ga_part.data_ptr(),
-                 gB_part.data_ptr(), gC_part.data_ptr(),
-                 None if gh0 is None else gh0.data_ptr(),
-                 b, s, h, p, n,
+                 gy.data_ptr(), states.data_ptr(), ptr(g_hlast),
+                 gstates.data_ptr(), base.data_ptr(), gx.data_ptr(),
+                 gdt_part.data_ptr(), ga_part.data_ptr(), gB_part.data_ptr(),
+                 gC_part.data_ptr(), ptr(gh0), b, s, h, p, n, hg,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"ssd_scan backward kernel launch failed: CUDA error {err}")
     ssd_scan_bwd_cuda.launches += 1
-    ga = ga_part.sum(0)
-    return (gx, gdt_part.sum(0), (ga * dt).sum((0, 1)),
-            gB_part.sum((0, 3))[:, :, None], gC_part.sum((0, 3))[:, :, None],
-            gh0)
+    ga = _add_parts(ga_part, 2)
+    return (_add_parts(gx, 1), _add_parts(gdt_part, 2), (ga * dt).sum((0, 1)),
+            _add_parts(gB_part, 2)[:, :, None],
+            _add_parts(gC_part, 2)[:, :, None], gh0)
 
 
 ssd_scan_bwd_cuda.launches = 0
@@ -477,11 +536,11 @@ class SSDScanFunction(torch.autograd.Function):
     tensors when a gradient is wanted.
 
     The forward launches K5 (``ssd_scan_cuda``) and keeps its inputs and
-    the state entering each 64-step chunk (12.6 MB a layer at B=4, S=1024,
-    H=24, P=64, N=128); the backward launches K5-bwd from them
-    (``ssd_scan_bwd_cuda``).  An unused ``h_last`` (training) seeds the
-    backward with nothing.  ``apply(x, dt, A, Bm, Cm, h0, chunk)`` returns
-    (y, h_last)."""
+    the state entering each 64-step chunk (12.6 M floats, 50.3 MB, a layer
+    at B=4, S=1024, H=24, P=64, N=128); the backward launches K5-bwd from
+    them (``ssd_scan_bwd_cuda``).  An unused ``h_last`` (training) seeds
+    the backward with nothing.  ``apply(x, dt, A, Bm, Cm, h0, chunk)``
+    returns (y, h_last)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):

@@ -462,8 +462,8 @@ def test_mamba2_prefill_launches_k5_once_per_layer(cuda_device, no_tf32):
 # the plain scan: each gradient's largest error over its largest magnitude
 # (chip_smoke.py's K5BWD_RTOL; gA sums B x S terms with cancellation).  A
 # gradient that is exactly zero (gA from h0 = 0 at S = 1) is held to
-# SSD_BWD_ZERO: the kernel computes ga_t as <h_t, lam_t> - <u_t, gu_t>,
-# equal terms that leave their fp32 rounding.
+# SSD_BWD_ZERO, an absolute bound: a relative one would ask a kernel that
+# sums the same terms in another order for exact zeros.
 SSD_BWD_RTOL, SSD_BWD_ZERO = 1e-4, 1e-5
 _GRAD_NAMES = ("gx", "gdt", "gA", "gBm", "gCm", "gh0")
 
@@ -485,6 +485,9 @@ def _assert_rel(got, want, rtol=SSD_BWD_RTOL):
     (1, 320, 2, 64, 128, False, True), (2, 130, 3, 40, 20, True, False),
     (4, 1024, 24, 64, 128, False, False), (4, 1000, 24, 64, 128, True, True),
     (1, 64, 2, 16, 256, True, True),
+    # P = 128: two blocks of 64 columns; N = 192: two blocks of 128 state
+    # rows, the second ragged.
+    (2, 130, 3, 128, 32, True, True), (1, 200, 2, 32, 192, True, True),
 ])
 def test_ssd_scan_bwd_kernel_equals_plain(cuda_device, no_tf32, b, s, h, p,
                                           n, with_h0, with_ghl):

@@ -15,6 +15,7 @@ throughout; each tolerance is stated with the largest error measured.
 
 import contextlib
 import ctypes
+import functools
 import types
 
 import jax
@@ -28,9 +29,16 @@ from repro.models.ssm import ssd_chunked as ref_ssd_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as K
 from repro_torch.kernels.ssd_scan import (
+    BWD_CHUNK_THREADS,
     BWD_COLUMNS,
+    BWD_GRID_CTAS,
+    BWD_ROWS,
+    BWD_STATE_THREADS,
     KERNEL_CHUNK,
-    bwd_smem_bytes,
+    bwd_chunk_smem_bytes,
+    bwd_heads_per_cta,
+    bwd_launches,
+    bwd_state_smem_bytes,
     segsum_decay,
     ssd_scan_bwd_cuda,
     ssd_scan_bwd_plain,
@@ -47,8 +55,8 @@ NAMES = ("x", "dt", "A", "Bm", "Cm", "h0")
 # 5.1e-6 for every other gradient.
 GRAD_RTOL = 1e-4
 # The kernel's algorithm (and the routed Function) against the plain
-# version: the per-step walk and the q identity for ga sum in another
-# order.  Largest measured 1.8e-5 for gA, 3.5e-6 elsewhere.
+# version: the chunk products and ga's four sums add in another order.
+# Largest measured 6.2e-6 (gx at 256-step chunks), 3.1e-6 for gA.
 DESIGN_RTOL = 1e-4
 
 
@@ -193,89 +201,154 @@ def _entry_states(x, dt, A, Bm, Cm, h0, q=KERNEL_CHUNK):
     return torch.stack(out, 2) if out else torch.zeros((b, h, 0, *hs.shape[2:]))
 
 
-def _k5_bwd_restated(x, dt, A, Bm, Cm, gy, states, g_hlast, with_h0,
-                     q=KERNEL_CHUNK, pb=BWD_COLUMNS):
-    """csrc/ssd_scan_bwd.cu step for step: per 32 columns of P, the chunks
-    from the last, h recomputed forwards from the chunk's entry state
-    (gC, C gC), lam walked backwards (gB, gu, <h, lam> at the chunk's
-    end), then ga from the q identity by a suffix sum.  Returns the
-    kernel's outputs: gx, gdt and ga per column block, gB and gC per
-    column block and head, gh0."""
+def _k5_bwd_restated(x, dt, A, Bm, Cm, gy, states, g_hlast, with_h0, hg,
+                     q=KERNEL_CHUNK, nbk=BWD_ROWS, pbk=BWD_COLUMNS):
+    """csrc/ssd_scan_bwd.cu step for step, with ``hg`` heads a group.
+
+    Launch 1, per block of state rows and columns: the chunks from the
+    last, G_c written, the block's exp(total) <H0_c, G_c>, then G_{c-1} =
+    exp(total) G_c + C^T diag(exp(a_cum)) gy.  Launch 2, per chunk, block
+    and group of heads: C B^T once; per head W~ = gy u^T, M, W and
+    E = W * C B^T, gu (its B G_c term apart), gx, <x, gu> and <x, B G_c>,
+    gB's G_c term and gC's H0_c term T into the group's sums, ga from the
+    base, the suffix of <C, T>, E's rectangles and the prefix of
+    v = dt dout <x, B G_c>; then the summed W times B and C.  Returns the
+    kernels' outputs: gx per block of rows, gdt and ga per (rows, columns)
+    block, gB and gC per (columns, group), gh0."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
-    npb, chunks = -(-p // pb), -(-s // q)
-    sp, pp = chunks * q, npb * pb
+    chunks, nnb, npb = -(-s // q), -(-n // nbk), -(-p // pbk)
+    groups = -(-h // hg)
+    sp, np_, pp = chunks * q, nnb * nbk, npb * pbk
     xp = F.pad(x, (0, pp - p, 0, 0, 0, sp - s))
     gyp = F.pad(gy, (0, pp - p, 0, 0, 0, sp - s))
     dtp = F.pad(dt, (0, 0, 0, sp - s))
-    Bp, Cp = (F.pad(m[:, :, 0], (0, 0, 0, sp - s)) for m in (Bm, Cm))
-    st = F.pad(states, (0, pp - p))
-    gx = torch.zeros((b, sp, h, pp))
-    gdt_part, ga_part = torch.zeros((2, npb, b, sp, h))
-    gB_part, gC_part = torch.zeros((2, npb, b, sp, h, n))
-    gh0 = torch.zeros((b, h, n, pp))
-    for k in range(npb):
-        cols = slice(k * pb, (k + 1) * pb)
-        lam = (torch.zeros((b, h, n, pb)) if g_hlast is None
-               else F.pad(g_hlast, (0, pp - p))[..., cols])
-        decay_next = torch.ones((b, h))
-        for c in reversed(range(chunks)):
-            t0 = c * q
-            ea = torch.exp(dtp[:, t0:t0 + q] * A)
-            u = xp[:, t0:t0 + q, :, cols] * dtp[:, t0:t0 + q, :, None]
-            hs = st[:, :, c, :, cols]
-            cg = torch.zeros((b, q, h))
-            for i in range(q):
-                hs = (ea[:, i, :, None, None] * hs
-                      + Bp[:, t0 + i][:, None, :, None]
-                      * u[:, i][:, :, None, :])
-                gc = (hs * gyp[:, t0 + i, :, None, cols]).sum(-1)
-                gC_part[k, :, t0 + i] = gc
-                cg[:, i] = (Cp[:, t0 + i][:, None, :] * gc).sum(-1)
-            gu = torch.zeros((b, q, h, pb))
-            for i in reversed(range(q)):
-                lam = (decay_next[..., None, None] * lam
-                       + Cp[:, t0 + i][:, None, :, None]
-                       * gyp[:, t0 + i, :, None, cols])
-                if i == q - 1:
-                    q_end = (hs * lam).sum((-2, -1))
-                gB_part[k, :, t0 + i] = (lam * u[:, i][:, :, None, :]).sum(-1)
-                gu[:, i] = (lam * Bp[:, t0 + i][:, None, :, None]).sum(-2)
-                decay_next = ea[:, i]
-            gx[:, t0:t0 + q, :, cols] = gu * dtp[:, t0:t0 + q, :, None]
-            gux = (gu * xp[:, t0:t0 + q, :, cols]).sum(-1)
-            d = cg - dtp[:, t0:t0 + q] * gux
-            suffix = torch.flip(torch.cumsum(torch.flip(d, [1]), 1), [1])
-            ga = (q_end - cg[:, q - 1])[:, None] + suffix
-            ga_part[k, :, t0:t0 + q] = ga
-            gdt_part[k, :, t0:t0 + q] = gux + ga * A
-        gh0[..., cols] = decay_next[..., None, None] * lam
-    return (gx[:, :s, :, :p], gdt_part[:, :, :s], ga_part[:, :, :s],
-            gB_part[:, :, :s], gC_part[:, :, :s],
-            gh0[..., :p] if with_h0 else None)
+    Bp, Cp = (F.pad(m[:, :, 0], (0, np_ - n, 0, sp - s)) for m in (Bm, Cm))
+    st = F.pad(states, (0, pp - p, 0, np_ - n))
+    zero = torch.zeros((b, h, np_, pp))
+    ghl = zero if g_hlast is None else F.pad(g_hlast, (0, pp - p, 0, np_ - n))
+    rows = [slice(k * nbk, (k + 1) * nbk) for k in range(nnb)]
+    cols = [slice(k * pbk, (k + 1) * pbk) for k in range(npb)]
+
+    # Launch 1: the reverse state pass.
+    gst = torch.zeros((b, h, chunks, np_, pp))
+    base = torch.zeros((nnb, npb, b, h, chunks))
+    G = ghl
+    for c in reversed(range(chunks)):
+        t = slice(c * q, (c + 1) * q)
+        a_cum = torch.cumsum(dtp[:, t] * A, 1)              # (b, q, h)
+        gst[:, :, c] = G
+        for i, nsl in enumerate(rows):
+            for k, psl in enumerate(cols):
+                base[i, k, ..., c] = torch.exp(a_cum[:, -1]) * (
+                    st[:, :, c, nsl, psl] * G[:, :, nsl, psl]).sum((-2, -1))
+        D = torch.einsum("bjn,bjhp->bhnp", Cp[:, t],
+                         gyp[:, t] * torch.exp(a_cum)[..., None])
+        G = torch.exp(a_cum[:, -1])[..., None, None] * G + D
+
+    # Launch 2: every chunk, block and group of heads.
+    gx = torch.zeros((nnb, b, sp, h, pp))
+    gdt_p, ga_p = torch.zeros((2, nnb, npb, b, sp, h))
+    gB_p, gC_p = torch.zeros((2, npb, groups, b, sp, np_))
+    for c in range(chunks):
+        t = slice(c * q, (c + 1) * q)
+        for i, nsl in enumerate(rows):
+            Cq, Bq = Cp[:, t, nsl], Bp[:, t, nsl]           # (b, q, nbk)
+            CB = Cq @ Bq.transpose(1, 2)
+            for k, psl in enumerate(cols):
+                for grp in range(groups):
+                    wsum = torch.zeros((b, q, q))
+                    gBs, gCs = torch.zeros((2, b, q, nbk))
+                    for hh in range(grp * hg, min(h, (grp + 1) * hg)):
+                        d_t = dtp[:, t, hh]                 # (b, q)
+                        a_cum = torch.cumsum(d_t * A[hh], 1)
+                        L = segsum_decay(a_cum)
+                        ea = torch.exp(a_cum)
+                        dout = torch.exp(a_cum[:, -1:] - a_cum)
+                        xq, yq = xp[:, t, hh, psl], gyp[:, t, hh, psl]
+                        Gc = gst[:, hh, c, nsl, psl]
+                        H0 = st[:, hh, c, nsl, psl]
+                        W = (yq @ (xq * d_t[..., None]).transpose(1, 2)) * L
+                        M = CB * L
+                        E = W * CB
+                        wsum = wsum + W
+                        BG = Bq @ Gc
+                        gu = M.transpose(1, 2) @ yq + dout[..., None] * BG
+                        gx[i, :, t, hh, psl] = gu * d_t[..., None]
+                        ux = (gu * xq).sum(-1)
+                        v = d_t * dout * (BG * xq).sum(-1)
+                        gBs = gBs + ((xq * (d_t * dout)[..., None])
+                                     @ Gc.transpose(1, 2))
+                        T = (yq * ea[..., None]) @ H0.transpose(1, 2)
+                        tc = (Cq * T).sum(-1)
+                        gCs = gCs + T
+                        # sum_{r >= i} <C_r, T_r>; sum_{r >= i, j < i} E[r, j]
+                        # (rows' exclusive prefixes, then columns from the
+                        # diagonal down); sum_{j < i} v_j.
+                        suffix = torch.flip(torch.cumsum(
+                            torch.flip(tc, [1]), 1), [1])
+                        Fr = torch.cumsum(E, 2) - E
+                        rect = (Fr * torch.tril(torch.ones(q, q))).sum(1)
+                        prefix = torch.cumsum(v, 1) - v
+                        ga = (base[i, k, :, hh, c][:, None] + suffix + rect
+                              + prefix)
+                        ga_p[i, k, :, t, hh] = ga
+                        gdt_p[i, k, :, t, hh] = ux + ga * A[hh]
+                    gB_p[k, grp, :, t, nsl] = gBs + wsum.transpose(1, 2) @ Cq
+                    gC_p[k, grp, :, t, nsl] = gCs + wsum @ Bq
+    return (gx[:, :, :s, :, :p], gdt_p[..., :s, :], ga_p[..., :s, :],
+            gB_p[..., :s, :n], gC_p[..., :s, :n],
+            G[:, :, :n, :p] if with_h0 else None)
 
 
-@pytest.mark.parametrize("s,p,n,with_h0,with_ghl", [
-    (64, 8, 16, True, True), (130, 40, 20, False, True),
-    (200, 36, 16, True, False), (37, 32, 8, False, False), (1, 4, 4, True, True),
-])
-def test_kernel_design_equals_plain(s, p, n, with_h0, with_ghl):
-    """K5-bwd's algorithm (per 32 columns, the q identity for ga, partial
-    sums added as the wrapper adds them) equals the plain backward."""
-    a = _inputs(44 + s, b=2, s=s, h=3, p=p, n=n, with_h0=with_h0)
+def _restated_grads(a, with_ghl, hg):
+    """The restated kernels' outputs from ``a``'s inputs, their parts added
+    as ``ssd_scan_bwd_cuda`` adds them."""
     t = {k: _t(v) for k, v in a.items()}
     ghl = t["g_hlast"] if with_ghl else None
     states = _entry_states(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"], t["h0"])
     gx, gdt_p, ga_p, gB_p, gC_p, gh0 = _k5_bwd_restated(
         t["x"], t["dt"], t["A"], t["Bm"], t["Cm"], t["gy"], states, ghl,
-        with_h0)
-    got = [gx, gdt_p.sum(0), (ga_p.sum(0) * t["dt"]).sum((0, 1)),
-           gB_p.sum((0, 3))[:, :, None], gC_p.sum((0, 3))[:, :, None], gh0]
+        t["h0"] is not None, hg)
+    parts = [functools.reduce(torch.add,
+                              g.reshape(-1, *g.shape[d:]).unbind(0))
+             for g, d in ((gx, 1), (gdt_p, 2), (ga_p, 2), (gB_p, 2),
+                          (gC_p, 2))]
+    gx, gdt, ga, gB, gC = parts
+    return [gx, gdt, (ga * t["dt"]).sum((0, 1)), gB[:, :, None],
+            gC[:, :, None], gh0]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,with_h0,with_ghl,hg,const_dt", [
+    (2, 64, 3, 8, 16, True, True, 2, None),
+    (2, 130, 3, 40, 20, False, True, 3, None),
+    (2, 200, 3, 36, 16, True, False, 1, None),
+    (2, 37, 3, 32, 8, False, False, 2, None),
+    (2, 1, 3, 4, 4, True, True, 3, None),
+    # Mamba2-130M's init over 256-step chunks: the reference reads NaN.
+    (1, 256, 2, 8, 16, False, False, 2, 0.69),
+    # More than one block of state rows (the second ragged) and of columns.
+    (1, 100, 3, 72, 136, True, True, 2, None),
+])
+def test_kernel_design_equals_plain(b, s, h, p, n, with_h0, with_ghl, hg,
+                                    const_dt):
+    """K5-bwd's algorithm (the reverse state pass, the chunk kernel's
+    products, the ga suffix, the parts added as the wrapper adds them)
+    equals the plain backward."""
+    a = _inputs(44 + s, b=b, s=s, h=h, p=p, n=n, with_h0=with_h0,
+                const_dt=const_dt)
+    got = _restated_grads(a, with_ghl, hg)
+    t = {k: _t(v) for k, v in a.items()}
+    chunk = 256 if const_dt is not None else s
     want = ssd_scan_bwd_plain(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"],
-                              t["gy"], chunk=s, h0=t["h0"], g_hlast=ghl)
+                              t["gy"], chunk=chunk, h0=t["h0"],
+                              g_hlast=t["g_hlast"] if with_ghl else None)
     _assert_grads([None if g is None else g.numpy() for g in got],
                   [None if w is None else w.numpy() for w in want],
                   DESIGN_RTOL)
+    if const_dt is not None:
+        ref = _ref_grads({**a, "g_hlast": np.zeros_like(a["g_hlast"])}, 256)
+        assert np.isnan(ref[1]).any()
 
 
 # --------------------------------------------------------------------------
@@ -340,20 +413,20 @@ def _fake_forward(calls):
 
 
 def _fake_backward(calls):
-    """ssd_scan_bwd_launch's contract, from the restated kernel."""
+    """ssd_scan_bwd_launch's contract, from the restated kernels."""
     def launch(*args):
-        b, s, h, p, n = args[22:27]
+        b, s, h, p, n, hg = args[24:30]
         x, dt, A, Bm, Cm = _inputs_at(args, b, s, h, p, n)
         chunks = -(-s // KERNEL_CHUNK)
         gy = _tensor(args[13], (b, s, h, p))
         states = _tensor(args[14], (b, h, chunks, n, p))
         g_hlast = _tensor(args[15], (b, h, n, p))
         outs = _k5_bwd_restated(x, dt, A, Bm, Cm, gy, states, g_hlast,
-                                args[21] is not None)
-        for ptr, val in zip(args[16:22], outs):
+                                args[23] is not None, hg)
+        for ptr, val in zip(args[18:24], outs):
             if val is not None:
                 _at(ptr, val.shape)[...] = val.numpy()
-        calls.append("bwd")
+        calls.append(("bwd", hg))
         return 0
     return launch
 
@@ -362,11 +435,13 @@ def _fake_backward(calls):
 def stand_ins(monkeypatch):
     """"cuda" scans on tensors that report is_cuda, with Python stand-ins
     for the kernels' C functions; the CUDA device context and stream
-    stubbed, the launch counters at 0."""
+    stubbed, a chunk grid aimed at 8 CTAs (so that a CTA walks more than
+    one head), the launch counters at 0."""
     calls = []
     monkeypatch.setattr(ops, "kernel_backend", lambda backend, dev: "cuda")
     monkeypatch.setattr(K, "_lib", lambda: _fake_forward(calls))
     monkeypatch.setattr(K, "_bwd_lib", lambda: _fake_backward(calls))
+    monkeypatch.setattr(K, "BWD_GRID_CTAS", 8)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -393,7 +468,9 @@ def test_grad_enabled_scan_runs_k5_bwd_through_the_function(
     else:
         a["g_hlast"] = np.zeros_like(a["g_hlast"])
     loss.backward()
-    assert stand_ins == ["fwd", "bwd"]
+    # 4 CTAs a head (2 chunks x 2 batches) for 8: groups of 2 heads and
+    # 1.
+    assert stand_ins == ["fwd", ("bwd", 2)]
     assert K.ssd_scan_cuda.launches == 1 and ssd_scan_bwd_cuda.launches == 1
     got = [None if t[k] is None else t[k].grad.numpy() for k in NAMES]
     _assert_grads(got, _autograd_grads(a, 25), DESIGN_RTOL)
@@ -412,12 +489,35 @@ def test_no_grad_scan_on_the_card_runs_k5_alone(stand_ins):
 
 
 def test_backward_kernel_refuses_what_it_cannot_run():
-    """The backward's launch contract: one thread a state row (N <= 256),
-    its shared memory within the opt-in limit, the entry states' shape."""
-    assert bwd_smem_bytes(128) == 4 * (2 * 64 * 128 + 2 * 64 * 32 + 3 * 64
-                                       + 4 * (32 * 32 + 64 + 1))
-    assert 2 * (bwd_smem_bytes(128) + 1024) <= 228 * 1024   # two CTAs an SM
-    assert bwd_smem_bytes(256) <= 227 * 1024
+    """The backward's launch contract: two CTAs whose shared memory does
+    not grow with N or P (blocks of 128 state rows and 64 columns), each
+    within the opt-in limit; the grids at the training shape; N bounded
+    only by the forward's limit; the entry states', gy's and g_hlast's
+    shapes."""
+    q = KERNEL_CHUNK
+    assert bwd_state_smem_bytes() == 4 * (3 * (q * 136 + q * 72 + q) + q + 4
+                                          + BWD_STATE_THREADS // 32)
+    assert bwd_chunk_smem_bytes() == 4 * (2 * q * 132 + 2 * q * 68 + 128 * 72
+                                          + 128 * 68 + q * 72 + q * 68
+                                          + (5 + 12 + 8) * q)
+    assert bwd_chunk_smem_bytes() == 216_320                # one CTA an SM
+    assert 2 * bwd_chunk_smem_bytes() > 228 * 1024
+    assert max(bwd_state_smem_bytes(), bwd_chunk_smem_bytes()) <= 227 * 1024
+    # B=4, S=1024, H=24, P=64, N=128 for 132 SMs: 12 heads a CTA, 128
+    # CTAs, whatever the card.
+    assert BWD_GRID_CTAS == 132
+    assert bwd_heads_per_cta(4, 1024, 24, 64, 128) == 12
+    assert bwd_launches(4, 1024, 24, 64, 128) == [
+        {"kernel": "state_bwd_kernel", "grid": (1, 24, 4),
+         "threads": BWD_STATE_THREADS, "smem": bwd_state_smem_bytes()},
+        {"kernel": "chunk_bwd_kernel", "grid": (16, 2, 4),
+         "threads": BWD_CHUNK_THREADS, "smem": bwd_chunk_smem_bytes()}]
+    # N = 192 (two blocks of rows) and P = 128 (two of columns) at S = 1000.
+    assert [d["grid"] for d in bwd_launches(2, 1000, 3, 128, 192)] == [
+        (2, 3, 4), (32, 1, 4)]
+    assert [d["kernel"] for d in bwd_launches(1, 0, 2, 8, 16)] == [
+        "state_bwd_kernel"]
+    assert (BWD_ROWS, BWD_COLUMNS) == (128, 64)
     a = _inputs(47, s=64, n=16)
     t = {k: _on_card(a[k]) for k in NAMES}
     states = _on_card(np.zeros((2, 3, 1, 16, 8), np.float32))
@@ -428,10 +528,38 @@ def test_backward_kernel_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="gy"):
         ssd_scan_bwd_cuda(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"],
                           gy[..., :4], states=states, chunk=16)
-    big = _on_card(np.zeros((1, 16, 1, 260), np.float32))
-    with pytest.raises(NotImplementedError, match="N=260"):
-        ssd_scan_bwd_cuda(_on_card(np.zeros((1, 16, 1, 8), np.float32)),
-                          _on_card(np.ones((1, 16, 1), np.float32)),
-                          _on_card(-np.ones(1, np.float32)), big, big,
-                          _on_card(np.zeros((1, 16, 1, 8), np.float32)),
-                          states=None, chunk=16)
+    with pytest.raises(ValueError, match="g_hlast"):
+        ssd_scan_bwd_cuda(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"], gy,
+                          states=states, chunk=16,
+                          g_hlast=_on_card(a["g_hlast"])[:, :, :8])
+
+    def at_n(n):
+        return [_on_card(np.zeros((1, 16, 1, 8), np.float32)),
+                _on_card(np.ones((1, 16, 1), np.float32)),
+                _on_card(-np.ones(1, np.float32)),
+                _on_card(np.zeros((1, 16, 1, n), np.float32)),
+                _on_card(np.zeros((1, 16, 1, n), np.float32)),
+                _on_card(np.zeros((1, 16, 1, 8), np.float32))]
+
+    # N = 260 (three blocks of rows), refused by the old one-thread-a-row
+    # kernel, passes every check and reaches the C function with its
+    # gradients' parts shaped for three blocks; N = 384 passes the
+    # forward's shared-memory limit and is refused by it.
+    seen = []
+
+    def record(*args):
+        seen.append(args[24:30])
+        return 0
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(K, "_bwd_lib", lambda: record)
+        mp.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        mp.setattr(torch.cuda, "current_stream",
+                   lambda: types.SimpleNamespace(cuda_stream=0))
+        mp.setattr(ssd_scan_bwd_cuda, "launches", 0)
+        gx = ssd_scan_bwd_cuda(
+            *at_n(260), states=_on_card(np.zeros((1, 1, 1, 260, 8),
+                                                 np.float32)), chunk=16)[0]
+        assert seen == [(1, 16, 1, 8, 260, 1)] and gx.shape == (1, 16, 1, 8)
+        with pytest.raises(NotImplementedError, match="N=384"):
+            ssd_scan_bwd_cuda(*at_n(384), states=None, chunk=16)
