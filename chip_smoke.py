@@ -134,6 +134,17 @@ non-zero before the result line is printed:
           and tokens/s beside the card line; the launch counts are read
           again where serve hands the prefilled cache to decode_loop, so
           prefill and decode are two paths of the kernels line
+  transformer
+          the dense, moe and vlm families, which run no kernel of ours
+          (every request's counts all 0: paths tf_prefill, tf_decode,
+          moe_prefill, moe_decode, tf_long_prefill): (a) the seven smoke
+          configs in fp32, seed-0 weights made on the CPU and copied to the
+          card, a 70-token prefill (chunked attention) and 4 decode steps
+          against the port on the CPU (TF_CARD_ATOL), each step run with
+          CUDA's sync debug mode at "error" (no host sync); (d)
+          attention_chunked against attention at B=1, S=8192, 32/8 heads
+          of 128, fp32 and bf16, with both times; the models at scale are
+          served last (transformer at scale)
   train   repro_torch.launch.train.main on mamba2-130m at full size (bf16
           compute over fp32 master weights, AdamW), batch 4 x 1024
           tokens, 8 steps, a checkpoint every 4 steps into a temporary
@@ -173,11 +184,35 @@ non-zero before the result line is printed:
           shape beside its plain version, its bound at the 3xTF32 rate
           with the fp32 one beside it and its chunk form's GFLOP, and the
           train step's share of it logged
+  transformer at scale
+          last, because after half a minute of this serving the card's
+          kernel timestamps leave the profiler's window (Kineto counts
+          them out of range and drops them, in this process or another)
+          and every earlier trace would lose its kernels: profiles of a
+          prefill and of decode steps of llava-next-mistral-7b and of the
+          2-layer llama4-scout (kernel launches, device busy and idle
+          share); then (b) llava-next-mistral-7b at full size through
+          serve.main (batch 4, 576 prefix embeddings + 1024-token prompts,
+          32 greedy tokens, seed 0; dense attention every layer and step),
+          a prompt + gen cache refusing the prefill before any launch, the
+          fp32 model's prefill + 4 decode steps through an fp32 cache
+          against one full forward (TF_CACHE_ATOL32), the served bf16
+          prefill within TF_PREC16 of the largest fp32 logit (another
+          prompt's logits and the model less its last layer must fail it),
+          warm prefill ms, decode ms a token, tokens/s and peak memory, and
+          one bf16 prefill of 1 x 8192 tokens (chunked attention in every
+          layer); (c) llama4-scout-17b-a16e at its published widths cut to
+          2 layers, the same request: each MoE layer of the fp32 prefill
+          against moe_block_plain (TF_MOE_RTOL), its dropped assignments
+          and aux loss, the cache against the full forward (capacity factor
+          16: no drops), the bf16 reading and times; the kernels line's
+          launches_by_path are read after it
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
-service, mesh, lm and train phases runs with all seven launch counters
-set to 0 just before it and read just after; the kernels line carries
-each kernel's counts per path (``launches_by_path``).
+service, mesh, lm, transformer, train and transformer at scale phases
+runs with all seven launch counters set to 0 just before it and read
+just after; the kernels line carries each kernel's counts per path
+(``launches_by_path``).
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the rest of
@@ -251,6 +286,46 @@ TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_SEED = 4, 6, 0
 # 1.7e-2.
 TRAIN_LOSS32_RTOL, TRAIN_GNORM32_RTOL, TRAIN_GRAD32_RTOL = 1e-5, 1e-4, 1e-3
 TRAIN_LOSS16_RTOL, TRAIN_GNORM16_RTOL = 1e-3, 0.05
+# The transformer phase (no kernel of ours runs on it).  (a) The seven
+# smoke configs in fp32 (seed-0 weights made on the CPU and copied to the
+# card): a prefill of TF_SMOKE_PROMPT tokens (the chunked attention path)
+# and TF_SMOKE_STEPS decode steps, the card's logits against the CPU's
+# (|logit| up to ~5; TF32 off, matmuls sum in another order; measured on
+# the H100 4.2e-6).
+TF_ARCHS = ("qwen2-1.5b", "qwen2.5-3b", "qwen3-4b", "llama3-8b",
+            "llama4-scout-17b-a16e", "kimi-k2-1t-a32b",
+            "llava-next-mistral-7b")
+TF_SMOKE_PROMPT, TF_SMOKE_STEPS = 70, 4
+TF_CARD_ATOL = 1e-4
+# (b) llava-next-mistral-7b at its published widths and depth and (c)
+# llama4-scout-17b-a16e at its published widths, its 48 layers cut to
+# TF_MOE_LAYERS (109B parameters do not fit in 80 GB), each served through
+# serve.main: batch, prompt tokens (after llava's 576 prefix embeddings),
+# greedy tokens, seed.
+TF_VLM_ARCH, TF_MOE_ARCH, TF_MOE_LAYERS = (
+    "llava-next-mistral-7b", "llama4-scout-17b-a16e", 2)
+TF_BATCH, TF_PROMPT, TF_GEN, TF_SEED = 4, 1024, 32, 0
+# fp32 prefill + TF_CACHE_STEPS decode steps through an fp32 cache against
+# one full forward with no cache (logits up to ~5): the sums' order only;
+# measured on the H100 1.2e-5 (llava), 2.1e-5 (scout).
+TF_CACHE_STEPS, TF_CACHE_ATOL32 = 4, 1e-4
+# llava's served bf16 prefill logits against the fp32 model, as a fraction
+# of the largest fp32 logit: 1.3% on the H100, where the fp32 model less
+# its last layer reads 19.0% and another prompt's logits 132.5%; the gate
+# lies between the sound reading and the faults (near their geometric
+# mean), and the phase checks that both faults fail it.
+TF_PREC16 = 0.05
+# Each MoE layer's output on the fp32 prefill against moe_block_plain (a
+# per-expert loop), as a fraction of its largest |output|: measured on
+# the H100 3.4e-6.
+TF_MOE_RTOL = 1e-4
+# (d) attention_chunked against attention at B=1, S=TF_LONG, llava's
+# heads (32 query, 8 kv, 128 wide), max abs error: measured on the H100
+# 7.7e-7 in fp32, 1.6e-2 in bf16 (the chunked path rounds unnormalized
+# probabilities to bf16, the dense path normalized ones); then one bf16
+# prefill of 1 x TF_LONG tokens through llava.
+TF_LONG = 8192
+TF_CHUNK_ATOL32, TF_CHUNK_ATOL16 = 1e-5, 0.05
 # K1's shapes, (n, h, w, bins, with a carry), and the paths whose launches
 # each one counts: the dense clip; one frame (the first video frame and
 # the 50% fallback); a video frame's 48-row dirty run with its carry; one
@@ -644,6 +719,474 @@ def phase(name: str):
 
 
 phase.current = None        # the name of the phase that is running
+
+
+def tree_to(tree, dev):
+    """A nested dict of tensors copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def no_sync(torch, fn, what: str):
+    """``fn()`` with CUDA's sync debug mode at "error": a call that waits
+    for the card on the host (an ``.item()``, a copy to the host, a
+    bincount's size) raises, and the phase fails."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        raise SmokeFailure(f"{what} waits for the card on the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+class CallCount:
+    """Counts the calls of a module's function while it is installed
+    (``with CallCount(mod, "name") as c: ...; c.calls``)."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.calls = mod, name, 0
+        self.orig = getattr(mod, name)
+
+    def __enter__(self):
+        def wrapped(*args, **kwargs):
+            self.calls += 1
+            return self.orig(*args, **kwargs)
+        setattr(self.mod, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+        return False
+
+
+def transformer_phase(torch, dev, counted, tally, read_counts, only):
+    """The transformer phase (see the module docstring): (a) the seven
+    smoke configs on the card against the CPU, (d) chunked against dense
+    attention at llava's head shape.  The models at scale are served last
+    (``transformer_at_scale``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import api, layers
+
+    def zero(counts, what):
+        tf_zero(counts, what, only)
+
+    # (a) the seven smoke configs in fp32: the card against the CPU, each
+    # prefill and decode step on the card with the sync debug mode on.
+    smoke_errs = {}
+    for arch in TF_ARCHS:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        cpu_model = api.init_params(torch.Generator().manual_seed(TF_SEED),
+                                    cfg)
+        card_model = api.model_over(
+            tree_to(api.stacked_params(cpu_model), dev), cfg)
+        rng = np.random.default_rng(21)
+        toks = rng.integers(0, cfg.vocab_size,
+                            (2, TF_SMOKE_PROMPT + TF_SMOKE_STEPS))
+        prefix = (rng.standard_normal((2, cfg.num_prefix_embeds,
+                                       cfg.d_model)) * 0.02
+                  if cfg.family == "vlm" else None)
+        max_len = (cfg.num_prefix_embeds + TF_SMOKE_PROMPT + TF_SMOKE_STEPS)
+        out = {}
+        for where, model, d in (("cpu", cpu_model, torch.device("cpu")),
+                                ("card", card_model, dev)):
+            t = torch.as_tensor(toks, dtype=torch.int32, device=d)
+            batch = {"tokens": t[:, :TF_SMOKE_PROMPT]}
+            if prefix is not None:
+                batch["prefix_embeds"] = torch.as_tensor(
+                    prefix, dtype=torch.float32, device=d)
+            cache = api.init_cache(cfg, 2, max_len, dtype=torch.float32,
+                                   device=d)
+            steps = []
+
+            def prefill():
+                return api.prefill(model, batch, cfg, cache)
+
+            if where == "card":
+                (lg, cache), _, counts = counted(tf_path(cfg, "prefill"), (
+                    lambda: no_sync(torch, prefill, f"{arch}'s prefill")))
+                zero(counts, f"{arch}'s prefill")
+            else:
+                lg, cache = prefill()
+            steps.append(lg)
+            for i in range(TF_SMOKE_PROMPT, TF_SMOKE_PROMPT + TF_SMOKE_STEPS):
+                def step(i=i, cache=cache):
+                    return api.decode_step(model, t[:, i:i + 1], cfg, cache)
+                if where == "card":
+                    (lg, cache), _, counts = counted(
+                        tf_path(cfg, "decode"), lambda: no_sync(
+                            torch, step, f"{arch}'s decode step"))
+                    zero(counts, f"{arch}'s decode step")
+                else:
+                    lg, cache = step()
+                steps.append(lg)
+            out[where] = torch.stack(steps, 1).cpu()
+        err = float((out["card"] - out["cpu"]).abs().max())
+        smoke_errs[arch] = err
+        check(bool(torch.isfinite(out["card"]).all()), f"{arch}: logits")
+        check(err <= TF_CARD_ATOL, f"{arch}: the card's logits are off the "
+              f"CPU's by {err}")
+        del cpu_model, card_model, cache
+    log(f"   (a) smoke configs, fp32, prefill {TF_SMOKE_PROMPT} tokens "
+        f"(chunked attention) + {TF_SMOKE_STEPS} decode steps, card vs CPU "
+        f"(tolerance {TF_CARD_ATOL}), no host sync in any step: "
+        + ", ".join(f"{a} {e:.3e}" for a, e in smoke_errs.items()))
+
+    # (d) chunked against dense attention at llava's head shape.
+    vcfg = get_config(TF_VLM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(TF_SEED)
+    hq, hkv, hd = vcfg.num_heads, vcfg.num_kv_heads, vcfg.head_dim
+    q = torch.randn((1, TF_LONG, hq, hd), generator=g, device=dev)
+    k = torch.randn((1, TF_LONG, hkv, hd), generator=g, device=dev)
+    v = torch.randn((1, TF_LONG, hkv, hd), generator=g, device=dev)
+    pos = torch.arange(TF_LONG, device=dev, dtype=torch.int32)[None]
+    for dt, atol in ((torch.float32, TF_CHUNK_ATOL32),
+                     (torch.bfloat16, TF_CHUNK_ATOL16)):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        kw = dict(positions_q=pos, positions_kv=pos, causal=True)
+        dense = layers.attention(qd, kd, vd, **kw)
+        chunked = layers.attention_chunked(qd, kd, vd,
+                                           block_kv=vcfg.attn_block_kv, **kw)
+        err = float((dense.float() - chunked.float()).abs().max())
+        del dense, chunked
+        torch.cuda.empty_cache()
+        dense_ms = time_ms(lambda: layers.attention(qd, kd, vd, **kw),
+                           runs=3, launches=1)
+        torch.cuda.empty_cache()
+        chunked_ms = time_ms(lambda: layers.attention_chunked(
+            qd, kd, vd, block_kv=vcfg.attn_block_kv, **kw), runs=3,
+            launches=1)
+        log(f"   (d) attention_chunked vs attention, B=1, S={TF_LONG}, "
+            f"Hq={hq}, Hkv={hkv}, D={hd}, {dt}: max abs err {err:.3e} "
+            f"(tolerance {atol}); dense {dense_ms:.3f} ms, chunked (blocks "
+            f"of {vcfg.attn_block_kv}) {chunked_ms:.3f} ms (CUDA events, "
+            f"median of 3)")
+        check(err <= atol, f"chunked attention off dense by {err} in {dt}")
+        del qd, kd, vd
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def transformer_at_scale(torch, dev, counted, tally, read_counts, only):
+    """The profiles of a prefill and a decode step of both models, then
+    (b) llava-next-mistral-7b served at full size, with the 8192-token
+    prefill, and (c) llama4-scout at its published widths and
+    TF_MOE_LAYERS layers.  The last phase: after half a minute of this
+    serving the card's kernel timestamps leave the profiler's window
+    (Kineto counts them out of range and drops them), in this process and
+    in any other, so every profiler trace comes before it."""
+    transformer_profiles(torch, dev)
+    for arch in (TF_VLM_ARCH, TF_MOE_ARCH):
+        serve_at_scale(torch, dev, arch, counted, tally, read_counts, only)
+
+
+def tf_path(cfg, stage: str) -> str:
+    """The kernels line's path of a transformer request: tf_prefill,
+    tf_decode, moe_prefill or moe_decode."""
+    return f"{'moe' if cfg.is_moe else 'tf'}_{stage}"
+
+
+def tf_zero(counts, what: str, only) -> None:
+    check(counts == only(), f"{what} launched {counts}, want no kernel of "
+          "ours (no TPU kernel lies on this path)")
+
+
+def tf_config(arch):
+    """The config the phase serves: the published one, llama4-scout's
+    depth cut to TF_MOE_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == TF_MOE_ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=TF_MOE_LAYERS)
+    return cfg
+
+
+def serve_at_scale(torch, dev, arch, counted, tally, read_counts, only):
+    """(b) or (c): ``arch`` served through serve.main, its logits held
+    against the fp32 model, warm times; llava's 8192-token prefill."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import api, layers, moe, transformer
+    from repro_torch.train.serve_step import decode_loop, make_serve_fns
+
+    def zero(counts, what):
+        tf_zero(counts, what, only)
+
+    cfg = tf_config(arch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    argv = ["--arch", arch, "--batch", str(TF_BATCH), "--prompt-len",
+            str(TF_PROMPT), "--gen", str(TF_GEN), "--seed", str(TF_SEED)]
+    at_decode = {}
+    serve_decode_loop, serve_get_config = serve.decode_loop, serve.get_config
+
+    def observed_decode_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        at_decode.update(read_counts())
+        return serve_decode_loop(*args, **kwargs)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve.decode_loop = observed_decode_loop
+    serve.get_config = tf_config
+    try:
+        with CallCount(layers, "attention") as dense_calls, \
+                CallCount(layers, "attention_chunked") as chunked_calls:
+            served, t_serve, counts = counted(None, lambda: serve.main(argv))
+    finally:
+        serve.decode_loop, serve.get_config = (serve_decode_loop,
+                                               serve_get_config)
+    serve_peak = torch.cuda.max_memory_allocated()
+    decode_counts = {k: counts[k] - at_decode[k] for k in counts}
+    tally(tf_path(cfg, "prefill"), at_decode)
+    tally(tf_path(cfg, "decode"), decode_counts)
+    zero(at_decode, f"{arch}'s served prefill")
+    zero(decode_counts, f"{arch}'s {TF_GEN} decode steps")
+    attn_calls = cfg.num_layers * (1 + TF_GEN)
+    check(dense_calls.calls == attn_calls and chunked_calls.calls == 0,
+          f"serve.main ran dense attention {dense_calls.calls} times and "
+          f"chunked {chunked_calls.calls}, want {attn_calls} and 0")
+    check(tuple(served.shape) == (TF_BATCH, TF_GEN)
+          and served.dtype == torch.int32 and 0 <= int(served.min())
+          and int(served.max()) < cfg.padded_vocab,
+          f"served tokens {tuple(served.shape)} {served.dtype}")
+    log(f"   {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}" + (f", {cfg.num_experts} experts top-"
+                                f"{cfg.num_experts_per_token} + "
+                                f"{cfg.num_shared_experts} shared"
+                                if cfg.is_moe else "")
+        + (f", {cfg.num_prefix_embeds} prefix embeddings"
+           if cfg.family == "vlm" else "")
+        + f"): serve.main (cold) {t_serve * 1e3:.1f} ms, batch "
+        f"{TF_BATCH}, {TF_PROMPT}-token prompts, {TF_GEN} greedy tokens; "
+        f"launched {at_decode} then {decode_counts}; peak device memory "
+        f"{serve_peak / 1e9:.2f} GB")
+    del served
+
+    # The same request again (weights, prompts, prefix from the seed).
+    params, request = serve.make_request(cfg, TF_BATCH, TF_PROMPT, TF_SEED,
+                                         dev)
+    max_len = serve.cache_len(cfg, TF_PROMPT, TF_GEN)
+    s_total = max_len - TF_GEN
+
+    def fresh(dtype=torch.bfloat16):
+        return api.init_cache(cfg, TF_BATCH, max_len, dtype=dtype)
+
+    if cfg.family == "vlm":
+        # the reference's sizing (prompt + gen) is refused before a launch
+        small = api.init_cache(cfg, TF_BATCH, TF_PROMPT + TF_GEN)
+        try:
+            api.prefill(params, request, cfg, small)
+            refused = False
+        except ValueError as e:
+            refused = "overrun" in str(e)
+        check(refused and small.written == 0
+              and int(small["seg0"]["len"]) == 0
+              and not bool(small["seg0"]["k"].any()),
+              "a prefill past a prompt + gen cache was not refused")
+        log(f"   a {TF_PROMPT + TF_GEN}-position cache (the reference's "
+            f"prompt + gen) refuses the {s_total}-position prefill with "
+            "ValueError before any launch; serve.cache_len sizes it "
+            f"{max_len}")
+        del small
+    (logits, cache), _, counts = counted(
+        tf_path(cfg, "prefill"), lambda: api.prefill(params, request, cfg,
+                                                     fresh()))
+    zero(counts, f"{arch}'s prefill")
+    check(tuple(logits.shape) == (TF_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    # The fp32 model, prefill then TF_CACHE_STEPS decode steps through an
+    # fp32 cache, against one full forward with no cache; for the moe, a
+    # capacity factor that drops nothing (drops differ between a
+    # T-token prefill and a longer forward), as the reference's own test.
+    records = []
+    if cfg.is_moe:
+        moe_block = moe.moe_block
+
+        def recording(x, p, c):
+            out, aux = moe_block(x, p, c)
+            records.append((x, p, out, aux))
+            return out, aux
+
+        moe.moe_block = recording
+    try:
+        (ref_logits, _), _, counts = counted(None, lambda: api.prefill(
+            params, request, cfg32, fresh(torch.float32)))
+    finally:
+        if cfg.is_moe:
+            moe.moe_block = moe_block
+    zero(counts, f"{arch}'s fp32 prefill")
+    if cfg.is_moe:
+        for i, (x, p, out, aux) in enumerate(records):
+            with torch.no_grad():
+                want, dropped = moe.moe_block_plain(x, p, cfg32)
+            err = float((out - want).abs().max())
+            scale = float(want.abs().max())
+            tokens = x.shape[0] * x.shape[1]
+            log(f"   (c) MoE layer {i} of the fp32 prefill ({tokens} "
+                f"tokens, capacity {moe._capacity(tokens, cfg32)}) vs the "
+                f"plain per-expert loop: max abs err {err:.3e} (|out| up to "
+                f"{scale:.3f}, tolerance {TF_MOE_RTOL} of it); {dropped} of "
+                f"{tokens * cfg.num_experts_per_token} assignments dropped; "
+                f"aux loss {float(aux):.6f}")
+            check(err <= TF_MOE_RTOL * scale,
+                  f"MoE layer {i} off the plain loop by {err}")
+        del records
+    cfg_cache = (dataclasses.replace(cfg32, capacity_factor=float(
+        cfg.num_experts // cfg.num_experts_per_token))
+        if cfg.is_moe else cfg32)
+    steps_tok = torch.cat([first[:, None], torch.randint(
+        0, cfg.vocab_size, (TF_BATCH, TF_CACHE_STEPS - 1),
+        generator=torch.Generator(device=dev).manual_seed(TF_SEED + 1),
+        device=dev, dtype=torch.int32)], 1)
+    with torch.no_grad():
+        lg, c = api.prefill(params, request, cfg_cache, fresh(torch.float32))
+        steps = [lg]
+        for i in range(TF_CACHE_STEPS):
+            lg, c = api.decode_step(params, steps_tok[:, i:i + 1], cfg_cache,
+                                    c)
+            steps.append(lg)
+        full_req = {**request, "tokens": torch.cat([request["tokens"],
+                                                    steps_tok], 1)}
+        full, _, _ = api.forward(params, full_req, cfg_cache)
+        full = full[:, -(TF_CACHE_STEPS + 1):]
+    err_cache = float((torch.stack(steps, 1) - full).abs().max())
+    log(f"   fp32 prefill + {TF_CACHE_STEPS} decode steps through an fp32 "
+        f"cache vs one full forward with no cache"
+        + (f" (capacity factor {cfg_cache.capacity_factor})"
+           if cfg.is_moe else "")
+        + f": max abs err {err_cache:.3e} (|logit| up to "
+        f"{float(full.abs().max()):.3f}, tolerance {TF_CACHE_ATOL32})")
+    check(err_cache <= TF_CACHE_ATOL32,
+          f"decode through the cache off the full forward by {err_cache}")
+    del steps, full, c, full_req
+
+    # The served bf16 prefill against the fp32 model, beside two wrong
+    # answers the gate must refuse (another prompt's fp32 logits, the fp32
+    # model less its last layer).
+    tree = params.param_tree()
+    last = f"seg{len(tree['segments']) - 1}"
+    short_tree = {**tree, "segments": {
+        **tree["segments"],
+        last: {"layers": tree["segments"][last]["layers"][:-1]}}}
+    cfg_short = dataclasses.replace(cfg32, num_layers=cfg.num_layers - 1)
+    short = transformer.TransformerLM(cfg_short, short_tree)
+    short_logits, _ = api.prefill(short, request, cfg_short, api.init_cache(
+        cfg_short, TF_BATCH, max_len, dtype=torch.float32))
+    scale = float(ref_logits.abs().max())
+    err16 = float((logits - ref_logits).abs().max())
+    err_other = float((logits - ref_logits.roll(1, 0)).abs().max())
+    err_short = float((logits - short_logits).abs().max())
+    log(f"   served bf16 prefill logits vs the fp32 model (|logit| up to "
+        f"{scale:.3f}): {err16:.3e} ({err16 / scale:.1%}"
+        + (f", gate {TF_PREC16:.0%}" if arch == TF_VLM_ARCH else
+           ", not gated")
+        + f"); wrong answers: another prompt's fp32 logits "
+        f"{err_other / scale:.1%}, the fp32 model less its last layer "
+        f"{err_short / scale:.1%}")
+    if arch == TF_VLM_ARCH:
+        check(err16 <= TF_PREC16 * scale,
+              f"bf16 logits off the fp32 model by {err16}")
+        check(min(err_other, err_short) > TF_PREC16 * scale,
+              f"the bf16 gate passes a wrong answer (another prompt "
+              f"{err_other}, one layer less {err_short})")
+    agree = first == torch.argmax(ref_logits, dim=-1).to(torch.int32)
+    log(f"   first greedy token, served bf16 vs fp32: {int(agree.sum())} of "
+        f"{TF_BATCH} agree")
+    del short, short_tree, tree, ref_logits, short_logits
+
+    # Warm times of the served (bf16) request.
+    prefill_fn, _ = make_serve_fns(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = request_ms(lambda: prefill_fn(params, request, fresh()),
+                            reps=3)
+    decode_ms = request_ms(lambda: decode_loop(params, first, cache, cfg,
+                                               TF_GEN), reps=3) / TF_GEN
+    peak = torch.cuda.max_memory_allocated()
+    log(f"   {arch}, bf16 over fp32 masters (cast every call), warm, host "
+        f"clock, median of 3 | card {card_line()}")
+    log(f"   prefill {TF_BATCH}x{s_total}: {prefill_ms:.3f} ms "
+        f"({TF_BATCH * s_total / prefill_ms * 1e3:.0f} tokens/s); decode: "
+        f"{decode_ms:.3f} ms per step of {TF_BATCH} tokens "
+        f"({TF_BATCH / decode_ms * 1e3:.0f} tokens/s, {TF_GEN} steps); "
+        f"peak device memory {peak / 1e9:.2f} GB")
+    del cache, logits
+
+    if cfg.family == "vlm":
+        # (d) one bf16 prefill of TF_LONG tokens through the backbone: its
+        # cache reaches flash_min_seq, so every layer takes the chunked path.
+        long_req = {"tokens": torch.randint(
+            0, cfg.vocab_size, (1, TF_LONG), dtype=torch.int32, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(TF_SEED))}
+
+        def long_prefill():
+            return prefill_fn(params, long_req,
+                              api.init_cache(cfg, 1, TF_LONG))
+
+        torch.cuda.reset_peak_memory_stats()
+        with CallCount(layers, "attention") as dense_calls, \
+                CallCount(layers, "attention_chunked") as chunked_calls:
+            (toks, _), _, counts = counted("tf_long_prefill", long_prefill)
+        zero(counts, "the long prefill")
+        check(chunked_calls.calls == cfg.num_layers
+              and dense_calls.calls == 0,
+              f"the {TF_LONG}-token prefill ran chunked attention "
+              f"{chunked_calls.calls} times and dense {dense_calls.calls}")
+        long_ms = request_ms(long_prefill, reps=2)
+        long_peak = torch.cuda.max_memory_allocated()
+        log(f"   (d) {arch} bf16 prefill of 1x{TF_LONG} tokens (chunked "
+            f"attention, blocks of {cfg.attn_block_kv}, in every layer): "
+            f"{long_ms:.3f} ms warm, host clock, median of 2 "
+            f"({TF_LONG / long_ms * 1e3:.0f} tokens/s); peak device memory "
+            f"{long_peak / 1e9:.2f} GB | card {card_line()}")
+        del toks
+    del params, request, first
+    torch.cuda.empty_cache()
+
+
+def transformer_profiles(torch, dev):
+    """The served models' profiles (the run's last): two bf16
+    prefills and a few decode steps of each, its weights from the
+    seed."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.train.serve_step import decode_loop, make_serve_fns
+
+    for arch in (TF_VLM_ARCH, TF_MOE_ARCH):
+        cfg = tf_config(arch)
+        params, request = serve.make_request(cfg, TF_BATCH, TF_PROMPT,
+                                             TF_SEED, dev)
+        max_len = serve.cache_len(cfg, TF_PROMPT, TF_GEN)
+        prefill_fn, _ = make_serve_fns(cfg)
+        first, cache = prefill_fn(params, request, api.init_cache(
+            cfg, TF_BATCH, max_len))
+        steps = min(8, TF_GEN)          # the cache has room for TF_GEN
+        decode_loop(params, first, cache, cfg, steps)
+        log(f"   {arch} ({cfg.num_layers} layers) prefill "
+            f"{TF_BATCH}x{max_len - TF_GEN}, torch.profiler over 2: "
+            + profile_requests(torch, lambda: [
+                prefill_fn(params, request, api.init_cache(
+                    cfg, TF_BATCH, max_len)) for _ in range(2)], n=2))
+        log(f"   {arch} decode step, batch {TF_BATCH}, torch.profiler over "
+            f"{steps}: " + profile_requests(
+                torch, lambda: decode_loop(params, first, cache, cfg, steps),
+                n=steps)
+            + f" | card {card_line()}")
+        del params, request, cache, first
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2112,9 +2655,8 @@ def run(torch) -> list[dict]:
 
         # The same request again (weights and prompts from the same seed),
         # prefill and decode apart, for its logits.
-        params, prompts = serve.make_request(cfg, LM_BATCH, LM_PROMPT,
-                                             LM_SEED, dev)
-        batch = {"tokens": prompts}
+        params, batch = serve.make_request(cfg, LM_BATCH, LM_PROMPT,
+                                           LM_SEED, dev)
         max_len = LM_PROMPT + LM_GEN
 
         def fresh_cache():
@@ -2206,6 +2748,10 @@ def run(torch) -> list[dict]:
             torch, lambda: decode_loop(params, first, cache, cfg, 8), n=8))
         del params, cache, logits, served, toks
         torch.cuda.empty_cache()
+
+    with phase("transformer: the dense, moe and vlm families through "
+               "repro_torch.launch.serve"):
+        transformer_phase(torch, dev, counted, tally, read_counts, only)
 
     with phase(f"train: {LM_ARCH} training through repro_torch.launch.train"):
         import tempfile
@@ -2885,6 +3431,16 @@ def run(torch) -> list[dict]:
                 torch, lambda: [train_profile_step(state0, batch0)
                                 for _ in range(2)], n=2))
         del state0, batch0, train_profile_step
+        torch.cuda.empty_cache()
+
+    with phase("transformer at scale: llava-next-mistral-7b and "
+               "llama4-scout through repro_torch.launch.serve"):
+        transformer_at_scale(torch, dev, counted, tally, read_counts, only)
+        # the kernels line carries this phase's paths too
+        for rec in records:
+            rec["launches_by_path"] = {path: counts[rec["name"]]
+                                       for path, counts in paths.items()}
+            rec["launches"] = sum(rec["launches_by_path"].values())
     return records
 
 

@@ -2,10 +2,11 @@
 
 Port of ``repro/configs/__init__.py``.  ``ARCH_IDS`` lists every
 architecture of the reference; ``get_config`` returns the full published
-config of one whose family the port runs, and raises
-``NotImplementedError`` for the rest (their model families are ROADMAP
-1.9).  ``smoke_config(...)`` returns the reduced same-family config the
-CPU tests run, computed as the reference computes it.
+config of one whose family the port runs (ssm, dense, moe, vlm), and
+raises ``NotImplementedError`` for the rest (the hybrid and encdec
+families, ROADMAP 1.9c).  ``smoke_config(...)`` returns the reduced
+same-family config the CPU tests run, computed as the reference computes
+it.
 """
 
 from __future__ import annotations
@@ -29,7 +30,16 @@ ARCH_IDS = (
 )
 
 # Architectures whose model family has been ported (ROADMAP 1.9).
-PORTED = ("mamba2-130m",)
+PORTED = (
+    "llama4-scout-17b-a16e",
+    "kimi-k2-1t-a32b",
+    "qwen2.5-3b",
+    "qwen3-4b",
+    "llama3-8b",
+    "qwen2-1.5b",
+    "llava-next-mistral-7b",
+    "mamba2-130m",
+)
 
 
 def _module_name(arch_id: str) -> str:
@@ -41,8 +51,8 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id!r}: its model family is not ported yet (ROADMAP 1.9); "
-            f"ported: {PORTED}")
+            f"{arch_id!r}: its model family is not ported yet (ROADMAP "
+            f"1.9c: Griffin, then encdec); ported: {PORTED}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG

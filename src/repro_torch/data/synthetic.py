@@ -52,12 +52,12 @@ class TokenStream:
 
 def make_stream(cfg, batch: int, seq_len: int, seed: int = 0):
     """The stream for a ModelConfig of a ported family.  The reference's
-    ``MultimodalStream`` (vlm and audio) comes with those families (ROADMAP
-    1.9)."""
+    ``MultimodalStream`` (vlm and audio) comes with their training (ROADMAP
+    1.9c)."""
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family's stream is not ported "
-            "yet (ROADMAP 1.9)")
+            "yet (ROADMAP 1.9c)")
     return TokenStream(cfg.vocab_size, batch, seq_len, seed)
 
 

@@ -8,9 +8,11 @@ the card unless ``cpu`` (or another torch device) is named.  The data
 stream is seekable, checkpoints are atomic, and the loop restarts on
 failure (train/fault.py).  Weights are random from a ``torch.Generator``
 seeded with ``--seed`` on the device.  The default ``--arch`` is
-``mamba2-130m``, the one ported family (the reference defaults to
-``qwen2-1.5b``).  ``--mesh`` other than ``none`` raises: state and batch
-shardings come with the sharding item of ROADMAP 1.9.
+``mamba2-130m``, the one family the port trains (the reference defaults
+to ``qwen2-1.5b``): an arch of another family raises, its training (with
+the reference's ``MultimodalStream``) being ROADMAP 1.9c.  ``--mesh``
+other than ``none`` raises: state and batch shardings come with the
+sharding item of ROADMAP 1.9.
 """
 
 from __future__ import annotations
@@ -60,8 +62,14 @@ def main(argv=None):
             "and batch shardings) is the sharding item of ROADMAP 1.9, not "
             "ported yet")
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family (with "
+            "MultimodalStream for vlm) is ROADMAP 1.9c, not ported yet; "
+            "only the ssm family trains")
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
     dev = resolve_device(args.device)
     opt = make_optimizer(cfg, peak_lr=args.lr, warmup=max(args.steps // 20, 5),
                          total_steps=args.steps)

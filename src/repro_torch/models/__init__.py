@@ -1,2 +1,3 @@
 """The model zoo's ported families (ROADMAP 1.9): the ssm family
-(Mamba-2) for serving.  ``api`` is the uniform entry point."""
+(Mamba-2) for serving and training, and the transformer's dense, moe and
+vlm families for serving.  ``api`` is the uniform entry point."""

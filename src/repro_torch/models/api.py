@@ -14,10 +14,12 @@ cfg)`` is a model whose parameters are views of them.
 
 batch keys: "tokens" (B, S) int, "labels" (B, S) int and an optional
 "loss_mask" (B, S); "prefix_embeds" (B, P, d) and "positions" pass
-through.  Only the ssm family (Mamba-2) is ported; every other family
-raises ``NotImplementedError`` (ROADMAP 1.9).  ``backend`` (forward,
-prefill, loss_fn) picks the SSD scan's implementation
-(``kernels.ops.ssd_scan``: K5 on the card, with K5-bwd under autograd).
+through.  The ssm family (Mamba-2) and the transformer's three (dense,
+moe, vlm) are ported; the hybrid and audio families raise
+``NotImplementedError`` (ROADMAP 1.9c).  ``backend`` (forward, prefill,
+loss_fn) picks the SSD scan's implementation (``kernels.ops.ssd_scan``:
+K5 on the card, with K5-bwd under autograd); the transformer runs no
+kernel of ours and ignores it.
 """
 
 from __future__ import annotations
@@ -25,16 +27,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import ssm
+from repro_torch.models import ssm, transformer
 
-_FAMILY = {"ssm": ssm}
+_FAMILY = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "ssm": ssm,
+}
 
 
 def module_for(cfg):
     if cfg.family not in _FAMILY:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP 1.9); ported families: {sorted(_FAMILY)}")
+            f"(ROADMAP 1.9c); ported families: {sorted(_FAMILY)}")
     return _FAMILY[cfg.family]
 
 
@@ -72,7 +79,8 @@ def prefill(params, batch, cfg, cache, *, backend: str = "auto"):
 def decode_step(params, tokens, cfg, cache):
     """One decode step. tokens: (B, 1). Returns (logits (B, V), new_cache).
 
-    The single-step recurrence is plain torch: no scan kernel runs."""
+    No kernel of ours runs: the SSM's single-step recurrence and the
+    transformer's attention over its cache are plain torch."""
     logits, _, new_cache = forward(params, {"tokens": tokens}, cfg,
                                    cache=cache)
     return logits[:, -1, :], new_cache
@@ -87,7 +95,7 @@ def stacked_params(params) -> dict:
 def model_over(params: dict, cfg):
     """The model whose parameters are views of ``params`` (the
     reference's layout): what a train step differentiates."""
-    return module_for(cfg).Mamba2LM.over(cfg, params)
+    return module_for(cfg).LM.over(cfg, params)
 
 
 def loss_fn(params, batch, cfg, *, backend: str = "auto"):

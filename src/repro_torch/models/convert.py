@@ -4,7 +4,9 @@ reference.
 The reference keeps parameters as a pytree with the layer stack along a
 leading L axis (``repro.models.api.init_params``); handed over as a nested
 dict of numpy arrays, ``params_from_numpy`` builds the port's module from
-it, and ``ssm_state_from_numpy`` does the same for a decode cache.  A
+it, and ``ssm_state_from_numpy`` and ``kv_cache_from_numpy`` do the same
+for a decode cache.  A transformer's layers are stacked per segment
+(``{"segments": {"seg{i}": {"layers": ...}}}``).  A
 train state (``repro.train.init_state``: params, optimizer moments, step,
 error buffer) keeps that layout in the port too, so
 ``train_state_from_numpy`` carries it over leaf for leaf.  Values are
@@ -18,10 +20,15 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.models.cache import KVCache
+from repro_torch.models.transformer import segments_spec
 
 
 def _tensor(a, device) -> torch.Tensor:
     arr = np.array(a)               # a copy: numpy views of JAX are read-only
+    if arr.dtype.name == "bfloat16":        # numpy has no bf16 of its own
+        return torch.as_tensor(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
     return torch.as_tensor(arr).to(device)
 
 
@@ -49,6 +56,19 @@ def ssm_state_from_numpy(tree: dict, device=None) -> dict:
                                    dtype=torch.int32, device=dev)}
 
 
+def kv_cache_from_numpy(tree: dict, device=None) -> KVCache:
+    """A reference transformer cache (``{"seg{i}": {"k", "v", "len"}}``,
+    k and v (L, B, S, Hkv, D), a scalar ``len`` shared by the segments) as
+    the port's ``KVCache`` on ``device``; bf16 stays bf16."""
+    dev = resolve_device(device)
+    written = int(np.asarray(tree["seg0"]["len"]))
+    segs = {name: {"k": _tensor(seg["k"], dev), "v": _tensor(seg["v"], dev),
+                   "len": torch.as_tensor(written, dtype=torch.int32,
+                                          device=dev)}
+            for name, seg in tree.items()}
+    return KVCache(segs, written)
+
+
 def train_state_from_numpy(tree: dict, cfg, device=None) -> dict:
     """A reference train state (numpy arrays: "params" in the reference's
     layout, "opt" with AdamW's "mu"/"nu" or Adafactor's per-leaf
@@ -65,10 +85,23 @@ def train_state_from_numpy(tree: dict, cfg, device=None) -> dict:
 
 
 def _check_depth(params: dict, cfg) -> None:
-    depth = {int(v.shape[0]) for v in _leaves(params["layers"])}
-    if depth != {cfg.num_layers}:
-        raise ValueError(f"layer stacks of depth {sorted(depth)} for a "
-                         f"{cfg.num_layers}-layer config")
+    """Every layer stack as deep as the config says: ``num_layers`` for
+    the ssm family, each segment's count (``segments_spec``) for the
+    transformer's."""
+    if "segments" not in params:
+        stacks = {"layers": (params["layers"], cfg.num_layers)}
+    else:
+        spec = segments_spec(cfg)
+        if sorted(params["segments"]) != [f"seg{i}" for i in range(len(spec))]:
+            raise ValueError(f"segments {sorted(params['segments'])} for a "
+                             f"config of {len(spec)}")
+        stacks = {f"seg{i}": (params["segments"][f"seg{i}"]["layers"], n)
+                  for i, (_, n) in enumerate(spec)}
+    for name, (layers, n) in stacks.items():
+        depth = {int(v.shape[0]) for v in _leaves(layers)}
+        if depth != {n}:
+            raise ValueError(f"{name}: layer stacks of depth {sorted(depth)} "
+                             f"for a {n}-layer config")
 
 
 def _leaves(t):

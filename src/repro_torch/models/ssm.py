@@ -141,36 +141,9 @@ class Mamba2LM(nn.Module):
         return stack_layers(grads(self.param_tree()))
 
 
-def stack_layers(tree: dict) -> dict:
-    """A ``param_tree()`` (layers a list of per-layer dicts) in the
-    reference's layout: every layer leaf stacked on a leading L axis (a
-    copy, detached)."""
-    def stack(items):
-        if isinstance(items[0], dict):
-            return {k: stack([it[k] for it in items]) for k in items[0]}
-        return torch.stack([it.detach() for it in items])
-
-    def detach(t):
-        if isinstance(t, dict):
-            return {k: detach(v) for k, v in t.items()}
-        return t.detach()
-
-    return {k: stack(v) if k == "layers" else detach(v)
-            for k, v in tree.items()}
-
-
-def unstack_layers(tree: dict) -> dict:
-    """The reference's layout as ``Mamba2LM``'s: layer ``i`` of every
-    stacked leaf, as views.  Stacks of unequal depth raise ValueError."""
-    def split(t):
-        if isinstance(t, dict):
-            parts = {k: split(v) for k, v in t.items()}
-            return [dict(zip(parts, layer))
-                    for layer in zip(*parts.values(), strict=True)]
-        return list(t.unbind(0))
-
-    return {**{k: v for k, v in tree.items() if k != "layers"},
-            "layers": split(tree["layers"])}
+LM = Mamba2LM
+stack_layers = L.stack_layers
+unstack_layers = L.unstack_layers
 
 
 def init_params(gen: torch.Generator, cfg, dtype=torch.float32) -> Mamba2LM:

@@ -444,7 +444,8 @@ def test_mamba2_prefill_launches_k5_once_per_layer(cuda_device, no_tf32):
     from repro_torch.models import api
 
     cfg = dataclasses.replace(smoke_config("mamba2-130m"), dtype="float32")
-    params, prompts = make_request(cfg, 2, 40, seed=0)
+    params, request = make_request(cfg, 2, 40, seed=0)
+    prompts = request["tokens"]
     cache = api.init_cache(cfg, 2, 48)
     ssd_scan_cuda.launches = 0
     logits, cache = api.prefill(params, {"tokens": prompts}, cfg, cache)
@@ -804,3 +805,85 @@ def test_distributed_service_on_logical_shards(cuda_device):
         for g, w in zip(svc.process(trace), want):
             assert torch.equal(g, w)
         assert svc.snapshot()["engine_runs"] == 4
+
+
+# The decoder transformer (dense, moe, vlm) runs no kernel of ours: the
+# smoke configs on the card against the same model on the CPU, as
+# chip_smoke's transformer phase (a) holds them (its TF_CARD_ATOL), and the
+# MoE block against its plain per-expert loop, as its phase (c) does.
+TF_CARD_ATOL = 1e-4
+_TF_ARCHS = ("qwen2-1.5b", "qwen2.5-3b", "qwen3-4b", "llama3-8b",
+             "llama4-scout-17b-a16e", "kimi-k2-1t-a32b",
+             "llava-next-mistral-7b")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", _TF_ARCHS)
+def test_transformer_on_the_card_equals_the_cpu(cuda_device, no_tf32, arch):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    cpu_model = api.init_params(torch.Generator().manual_seed(0), cfg)
+    models = {"cpu": cpu_model, "cuda": api.model_over(
+        _to(api.stacked_params(cpu_model), cuda_device), cfg)}
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, cfg.vocab_size, (2, 74)).astype(np.int32)
+    prefix = (rng.standard_normal((2, cfg.num_prefix_embeds, cfg.d_model))
+              * 0.02).astype(np.float32)
+    out = {}
+    for where, model in models.items():
+        t = torch.as_tensor(toks, device=where)
+        batch = {"tokens": t[:, :70]}
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = torch.as_tensor(prefix, device=where)
+        cache = api.init_cache(cfg, 2, cfg.num_prefix_embeds + 74,
+                               dtype=torch.float32, device=where)
+        ssd_scan_cuda.launches = 0
+        if where == "cuda":           # no step waits for the card
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg, cache = api.prefill(model, batch, cfg, cache)
+            steps = [lg]
+            for i in range(70, 74):
+                lg, cache = api.decode_step(model, t[:, i:i + 1], cfg, cache)
+                steps.append(lg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ssd_scan_cuda.launches == 0
+        out[where] = torch.stack(steps, 1).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=TF_CARD_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("k,capacity_factor", [(1, 0.25), (2, 0.5),
+                                               (2, 3.0)])
+def test_moe_block_on_the_card_equals_its_plain_version(cuda_device, no_tf32,
+                                                        k, capacity_factor):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(
+        smoke_config("kimi-k2-1t-a32b"), dtype="float32",
+        num_experts_per_token=k, capacity_factor=capacity_factor)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    p = moe.moe_params(gen, cfg)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen, device=cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = moe.moe_block(x, p, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, dropped = moe.moe_block_plain(x, p, cfg)
+    assert (dropped > 0) == (capacity_factor < 1)
+    torch.testing.assert_close(got, want, atol=1e-5 * float(
+        want.abs().max()), rtol=0)

@@ -1,4 +1,5 @@
-"""repro_torch's Mamba-2 serving path held against the JAX reference.
+"""repro_torch's Mamba-2 serving path held against the JAX reference,
+and the port's architecture registry.
 
 The weights come from the reference's ``init_params`` (PRNGKey 0) and are
 carried over with ``params_from_numpy``; prompts are made with numpy.
@@ -26,7 +27,7 @@ from repro.models import cache as ref_cache
 from repro.models import layers as ref_layers
 from repro.train.serve_step import decode_loop as ref_decode_loop
 from repro_torch import config
-from repro_torch.configs import ARCH_IDS, get_config, smoke_config
+from repro_torch.configs import ARCH_IDS, PORTED, get_config, smoke_config
 from repro_torch.launch import serve
 from repro_torch.models import api, cache, layers
 from repro_torch.models.convert import params_from_numpy, ssm_state_from_numpy
@@ -91,7 +92,13 @@ def test_arch_ids_and_ported_configs_equal_reference():
         ref.attention_free, ref.sub_quadratic, ref.is_moe)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != ARCH])
+TRANSFORMER_ARCHS = ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b",
+                     "qwen2.5-3b", "qwen3-4b", "llama3-8b", "qwen2-1.5b",
+                     "llava-next-mistral-7b")
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "recurrentgemma-9b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
         get_config(arch)
@@ -100,6 +107,21 @@ def test_unported_families_raise(arch):
                               .family)
     with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
         api.module_for(cfg)
+
+
+@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+def test_ported_configs_equal_reference(arch):
+    assert set(PORTED) == set(TRANSFORMER_ARCHS) | {ARCH}
+    for cfg_fn, ref_fn in ((get_config, ref_get_config),
+                           (smoke_config, ref_smoke_config)):
+        assert (dataclasses.asdict(cfg_fn(arch))
+                == dataclasses.asdict(ref_fn(arch)))
+    cfg, ref = get_config(arch), ref_get_config(arch)
+    assert cfg.padded_vocab == ref.padded_vocab
+    assert cfg.padded_vocab % 2048 == 0 and cfg.padded_vocab >= cfg.vocab_size
+    assert cfg.param_count() == ref.param_count()
+    assert cfg.active_param_count() == ref.active_param_count()
+    assert api.module_for(cfg) is api.module_for(smoke_config(arch))
 
 
 def test_shapes_and_cells_equal_reference():
@@ -281,26 +303,41 @@ def test_model_module_forward_and_explicit_cuda_backend(ref_params):
 # the launcher
 # --------------------------------------------------------------------------
 def test_serve_main_smoke_on_cpu(capsys):
-    toks = serve.main(["--smoke", "--device", "cpu", "--batch", "2",
-                       "--prompt-len", "20", "--gen", "4", "--seed", "1"])
+    toks = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "20", "--gen", "4",
+                       "--seed", "1"])
     assert tuple(toks.shape) == (2, 4) and toks.dtype == torch.int32
     assert int(toks.min()) >= 0
     assert int(toks.max()) < smoke_config(ARCH).padded_vocab
     out = capsys.readouterr().out
     assert "arch=mamba2-130m-smoke" in out and "prefill:" in out
     # The same seed gives the same request.
-    again = serve.main(["--smoke", "--device", "cpu", "--batch", "2",
-                        "--prompt-len", "20", "--gen", "4", "--seed", "1"])
+    again = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "20", "--gen", "4",
+                        "--seed", "1"])
     assert torch.equal(toks, again)
 
 
 def test_serve_make_request_is_seeded():
     cfg = smoke_config(ARCH)
-    p1, t1 = serve.make_request(cfg, 2, 8, seed=3, device="cpu")
-    p2, t2 = serve.make_request(cfg, 2, 8, seed=3, device="cpu")
+    p1, r1 = serve.make_request(cfg, 2, 8, seed=3, device="cpu")
+    p2, r2 = serve.make_request(cfg, 2, 8, seed=3, device="cpu")
+    t1, t2 = r1["tokens"], r2["tokens"]
+    assert sorted(r1) == ["tokens"]
     assert torch.equal(t1, t2) and t1.dtype == torch.int32
     assert int(t1.max()) < cfg.vocab_size
     assert torch.equal(p1.embed, p2.embed)
+    # a vlm's request draws its prefix after the prompt, from the same
+    # generator
+    vlm = smoke_config("llava-next-mistral-7b")
+    _, r3 = serve.make_request(vlm, 2, 8, seed=3, device="cpu")
+    _, r4 = serve.make_request(vlm, 2, 8, seed=3, device="cpu")
+    pe = r3["prefix_embeds"]
+    assert pe.dtype == torch.bfloat16 and tuple(pe.shape) == (2, 8, 128)
+    assert torch.equal(pe, r4["prefix_embeds"])
+    assert 0.01 < float(pe.float().std()) < 0.03
+    assert serve.cache_len(vlm, 32, 16) == 8 + 32 + 16
+    assert serve.cache_len(cfg, 32, 16) == 32 + 16
 
 
 def _ref_logits_rounded_per_op(params, toks, rcfg):

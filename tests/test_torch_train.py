@@ -443,3 +443,14 @@ def test_launch_train_smoke_on_cpu():
 def test_launch_train_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
         train_launch.main(["--smoke", "--device", "cpu", "--mesh", "host"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama4-scout-17b-a16e",
+                                  "llava-next-mistral-7b"])
+def test_launch_train_refuses_a_transformer_arch(arch):
+    """The transformer families serve; their training is ROADMAP 1.9c."""
+    with tempfile.TemporaryDirectory() as d:
+        with pytest.raises(NotImplementedError, match="ROADMAP 1.9c"):
+            train_launch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                               "--ckpt-dir", d, "--steps", "1"])
+        assert os.listdir(d) == []
