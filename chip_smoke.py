@@ -145,6 +145,17 @@ non-zero before the result line is printed:
           attention_chunked against attention at B=1, S=8192, 32/8 heads
           of 128, fp32 and bf16, with both times; the models at scale are
           served last (transformer at scale)
+  families
+          the dense, moe, vlm, hybrid (Griffin) and audio
+          (encoder-decoder) families, which run no kernel of ours (paths
+          train_<family>, hybrid_prefill, hybrid_decode, audio_prefill,
+          audio_decode, all counts 0): one train step of each smoke
+          config in fp32 on the card against the same step on the CPU
+          (loss, grad norm, parameters); Griffin's and the
+          encoder-decoder's prefill of 70 tokens (past the smoke ring of
+          32 slots; chunked attention) and 3 decode steps, each with
+          CUDA's sync debug mode at "error", against the CPU and against
+          one full forward on the card
   train   repro_torch.launch.train.main on mamba2-130m at full size (bf16
           compute over fp32 master weights, AdamW), batch 4 x 1024
           tokens, 8 steps, a checkpoint every 4 steps into a temporary
@@ -205,11 +216,33 @@ non-zero before the result line is printed:
           2 layers, the same request: each MoE layer of the fp32 prefill
           against moe_block_plain (TF_MOE_RTOL), its dropped assignments
           and aux loss, the cache against the full forward (capacity factor
-          16: no drops), the bf16 reading and times; the kernels line's
-          launches_by_path are read after it
+          16: no drops), the bf16 reading and times.  Before that
+          serving, the profiles of recurrentgemma-9b's 4 x 256 prefill
+          and decode steps, and qwen2-1.5b's uninterrupted run of (c)
+          below (8 steps, the loss finite and falling, step ms, tokens/s
+          and the peak; its final state kept in the host's pinned
+          memory) with a ninth step profiled
+  families at scale
+          the run's last: (c) qwen2-1.5b through launch/train.main, 8
+          steps of 4 x 1024 tokens with a fault at step 6 (restored from
+          the step-4 checkpoint) against the uninterrupted run bit for
+          bit; (b) recurrentgemma-9b at its published config through
+          serve.main (a 1 x 2560 prefill past its 2048-slot ring with 16
+          greedy tokens, then 4 x 256 and 16), its fp32 prefill of 2560 +
+          4 decode steps through an fp32 cache against one full forward,
+          warm prefill and decode times and the peak; (d)
+          seamless-m4t-large-v2 through serve.main (batch 4, 32-token
+          prompts and source frames, 16 greedy tokens), a request of 1024
+          source frames (its fp32 cache against one full forward, warm
+          times) and 4 train steps of 2 x 1024 tokens and frames (4
+          rows run out of memory at the fp32 logits); (e)
+          recurrentgemma-9b at its published widths cut to one pattern
+          group (3 layers), 4 train steps of 2 x 1024; no kernel of ours
+          launched; the kernels line's launches_by_path are read after it
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
-service, mesh, lm, transformer, train and transformer at scale phases
+service, mesh, lm, transformer, families, train, transformer at scale
+and families at scale phases
 runs with all seven launch counters set to 0 just before it and read
 just after; the kernels line carries each kernel's counts per path
 (``launches_by_path``).
@@ -326,6 +359,61 @@ TF_MOE_RTOL = 1e-4
 # prefill of 1 x TF_LONG tokens through llava.
 TF_LONG = 8192
 TF_CHUNK_ATOL32, TF_CHUNK_ATOL16 = 1e-5, 0.05
+# The families phase and the families at scale: the dense, moe, vlm,
+# hybrid (Griffin) and audio (encoder-decoder) families' training and the
+# hybrid and audio families' serving, none of which runs a kernel of ours
+# (paths train_<family>, hybrid_prefill, hybrid_decode, audio_prefill,
+# audio_decode, every count 0).  (a) The smoke configs in fp32 (seed-0
+# weights made on the CPU and copied to the card): one train step (AdamW,
+# lr FAM_LR) of FAM_BATCH x FAM_SEQ tokens of the family's stream, the
+# card's loss and grad norm against the CPU's (relative) and its
+# parameters after the step (absolute, away from gradients within a few
+# AdamW eps of 0, where the step's direction is rounding); Griffin's and
+# the encoder-decoder's prefill of FAM_PROMPT tokens (past the smoke
+# ring's 32 slots; chunked attention) and FAM_STEPS decode steps, each
+# with CUDA's sync debug mode at "error", against the CPU's and against
+# one full forward on the card.
+FAM_ARCHS = {"dense": "qwen2-1.5b", "moe": "llama4-scout-17b-a16e",
+             "vlm": "llava-next-mistral-7b", "hybrid": "recurrentgemma-9b",
+             "audio": "seamless-m4t-large-v2"}
+FAM_BATCH, FAM_SEQ, FAM_LR = 2, 64, 1e-3
+FAM_PROMPT, FAM_STEPS = 70, 4
+FAM_STEP_RTOL, FAM_PARAM_ATOL, FAM_NEAR_ZERO_MU = 1e-5, 5e-5, 1e-7
+# (b) recurrentgemma-9b at its published config (38 layers, 9.57 B
+# parameters, a 2048-slot ring in its 12 attention layers), bf16 over fp32
+# masters, through serve.main: a 1 x HY_LONG prefill that passes the ring
+# (then HY_GEN greedy tokens), then HY_BATCH x HY_PROMPT and HY_GEN
+# tokens; the fp32 model's HY_LONG prefill + HY_CACHE_STEPS decode steps
+# through an fp32 cache against one full forward (the sliding window masks
+# what the ring dropped).
+HY_ARCH, HY_LONG, HY_BATCH, HY_PROMPT, HY_GEN = (
+    "recurrentgemma-9b", 2560, 4, 256, 16)
+HY_CACHE_STEPS, HY_CACHE_ATOL32 = 4, 1e-3
+# (c) qwen2-1.5b trained at its published config through train.main:
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, a fault injected
+# at TRAIN_FAIL_AT (restored from the step-TRAIN_CKPT_EVERY checkpoint),
+# against an uninterrupted run of the same steps bit for bit.
+# DENSE_TRAIN_LR is examples/train_lm.py's default peak lr (train.main's
+# is 3e-4).  The stream's rows are 70% arithmetic progressions
+# (learnable) and 30% uniform tokens.
+DENSE_TRAIN_ARCH, DENSE_TRAIN_LR = "qwen2-1.5b", 6e-4
+# (d) seamless-m4t-large-v2 at its published config: serve.main (batch
+# ED_BATCH, ED_PROMPT-token prompts and as many source frames, ED_GEN
+# greedy tokens), then a request of ED_SRC source frames; its fp32
+# prefill + HY_CACHE_STEPS decode steps against one full forward; and
+# ED_TRAIN_STEPS train steps of ED_TRAIN_BATCH x ED_TRAIN_SEQ tokens (as
+# many source frames).
+ED_ARCH, ED_BATCH, ED_SRC, ED_PROMPT, ED_GEN = (
+    "seamless-m4t-large-v2", 4, 1024, 32, 16)
+ED_CACHE_ATOL32 = 1e-3
+# Its train batch is cut from 4 to 2 rows: at 4 x 1024 the fp32 logits
+# (258,048 columns, 4.2 GB a copy) ran the card out of its 79.2 GiB.
+ED_TRAIN_STEPS, ED_TRAIN_BATCH, ED_TRAIN_SEQ = 4, 2, 1024
+# (e) recurrentgemma-9b trained at its published widths, cut to one pattern
+# group (3 layers: 2.7 B parameters with its untied 256,000-row embedding
+# and head; its 38 layers' AdamW state, 16 B a parameter, is 153 GB):
+# HY_TRAIN_STEPS steps of HY_TRAIN_BATCH x HY_TRAIN_SEQ tokens.
+HY_TRAIN_LAYERS, HY_TRAIN_STEPS, HY_TRAIN_BATCH, HY_TRAIN_SEQ = 3, 4, 2, 1024
 # K1's shapes, (n, h, w, bins, with a carry), and the paths whose launches
 # each one counts: the dense clip; one frame (the first video frame and
 # the 50% fallback); a video frame's 48-row dirty run with its carry; one
@@ -374,6 +462,12 @@ STREAM_FRAMES = 64
 # Traces a launch check takes at most when the profiler drops a call's
 # kernel events.
 TRACE_ATTEMPTS = 3
+# Device records a profiler session may drop at its start: with
+# KINETO_LOG_LEVEL=1, Kineto counted "Out-of-range = 2" in nearly every
+# session of chip_smoke's timing phase on one machine (PR 22), where a
+# launch check of two one-kernel calls then held no kernel event.  Each
+# trace that is read makes this many calls more before the ones it reads.
+TRACE_DROPS = 2
 # The tracker phase: frames tracked after the first, its bins and radius.
 TRACK_FRAMES, TRACK_BINS, TRACK_RADIUS = 32, 16, 12
 
@@ -549,9 +643,9 @@ def device_kernels(torch, fn, calls: int = 10):
     ``record_function`` range.  The range's mark on the device's timeline
     spans the device work of its calls, on the kernels' own clock, and is
     the window (the range on the host's clock where the trace has no such
-    mark).  Left out of the count: the trace's first call (a trace can
-    miss the launches just after it starts), every event outside the
-    window, and the mark itself.  None and {} when the window holds no
+    mark).  Left out of the count: the trace's first ``TRACE_DROPS``
+    calls (a trace can miss the launches just after it starts), every
+    event outside the window, and the mark itself.  None and {} when the window holds no
     device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -561,7 +655,8 @@ def device_kernels(torch, fn, calls: int = 10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(TRACE_DROPS):
+            fn()
         torch.cuda.synchronize()
         with record_function(mark):
             for _ in range(calls):
@@ -626,22 +721,24 @@ def trace_streams(torch, fn):
 def traced_launches(torch, fn, per_call: int) -> list[dict]:
     """The CUDA launches of one call of ``fn`` as an exported
     torch.profiler trace records them: each kernel event's name, grid,
-    block, shared memory and registers per thread.  ``fn`` runs twice in
-    the trace (its first launch is often missed as the trace starts); the
-    last ``per_call`` kernel events are the second call's.  A trace that
-    misses more than that first launch (the profiler can drop a
-    session's events, even all of them) is taken again, up to
-    ``TRACE_ATTEMPTS`` traces; the last one is read whatever it holds."""
+    block, shared memory and registers per thread.  ``fn`` runs once, and
+    ``TRACE_DROPS`` times more, in the trace (the profiler can drop the
+    records a session starts with); the last ``per_call`` kernel events
+    are the last call's.  A trace that misses more than ``TRACE_DROPS``
+    of them (the profiler can drop a session's events, even all of them)
+    is taken again, up to ``TRACE_ATTEMPTS`` traces; the last one is read
+    whatever it holds."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
+    calls = 1 + TRACE_DROPS
     fn()
     torch.cuda.synchronize()
     for attempt in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
+            for _ in range(calls):
                 fn()
                 torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
@@ -650,10 +747,10 @@ def traced_launches(torch, fn, per_call: int) -> list[dict]:
             events = json.loads(path.read_text()).get("traceEvents", [])
         kernels = sorted((e for e in events if e.get("ph") == "X" and str(
             e.get("cat", "")).lower() == "kernel"), key=lambda e: e["ts"])
-        if len(kernels) >= 2 * per_call - 1:
+        if len(kernels) >= calls * per_call - TRACE_DROPS:
             break
         log(f"   (trace {attempt + 1}: {len(kernels)} kernel events of the "
-            f"two calls' {2 * per_call}; "
+            f"{calls} calls' {calls * per_call}; "
             + ("taken again)" if attempt + 1 < TRACE_ATTEMPTS
                else "read as is)"))
     out = []
@@ -726,6 +823,16 @@ def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def tree_to_pinned(torch, tree):
+    """A nested dict of tensors copied to the host's pinned memory (a
+    copy back to the card then takes a fraction of a pageable one's
+    time)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_pinned(torch, v) for k, v in tree.items()}
+    out = torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True)
+    return out.copy_(tree)
 
 
 def no_sync(torch, fn, what: str):
@@ -878,13 +985,17 @@ def transformer_at_scale(torch, dev, counted, tally, read_counts, only):
     """The profiles of a prefill and a decode step of both models, then
     (b) llava-next-mistral-7b served at full size, with the 8192-token
     prefill, and (c) llama4-scout at its published widths and
-    TF_MOE_LAYERS layers.  The last phase: after half a minute of this
-    serving the card's kernel timestamps leave the profiler's window
-    (Kineto counts them out of range and drops them), in this process and
-    in any other, so every profiler trace comes before it."""
+    TF_MOE_LAYERS layers.  After half a minute of this serving the card's
+    kernel timestamps leave the profiler's window (Kineto counts them out
+    of range and drops them), in this process and in any other, so every
+    profiler trace comes before it, family_profiles' too.  Returns
+    family_profiles' uninterrupted qwen2-1.5b run for families at
+    scale."""
     transformer_profiles(torch, dev)
+    clean = family_profiles(torch, dev, counted, only)
     for arch in (TF_VLM_ARCH, TF_MOE_ARCH):
         serve_at_scale(torch, dev, arch, counted, tally, read_counts, only)
+    return clean
 
 
 def tf_path(cfg, stage: str) -> str:
@@ -927,31 +1038,16 @@ def serve_at_scale(torch, dev, arch, counted, tally, read_counts, only):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     argv = ["--arch", arch, "--batch", str(TF_BATCH), "--prompt-len",
             str(TF_PROMPT), "--gen", str(TF_GEN), "--seed", str(TF_SEED)]
-    at_decode = {}
-    serve_decode_loop, serve_get_config = serve.decode_loop, serve.get_config
-
-    def observed_decode_loop(*args, **kwargs):
-        torch.cuda.synchronize()
-        at_decode.update(read_counts())
-        return serve_decode_loop(*args, **kwargs)
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    serve.decode_loop = observed_decode_loop
+    serve_get_config = serve.get_config
     serve.get_config = tf_config
     try:
         with CallCount(layers, "attention") as dense_calls, \
                 CallCount(layers, "attention_chunked") as chunked_calls:
-            served, t_serve, counts = counted(None, lambda: serve.main(argv))
+            served, t_serve, serve_peak, at_decode, decode_counts = \
+                serve_main_counted(torch, counted, tally, read_counts, only,
+                                   argv, tf_path(cfg, "")[:-1])
     finally:
-        serve.decode_loop, serve.get_config = (serve_decode_loop,
-                                               serve_get_config)
-    serve_peak = torch.cuda.max_memory_allocated()
-    decode_counts = {k: counts[k] - at_decode[k] for k in counts}
-    tally(tf_path(cfg, "prefill"), at_decode)
-    tally(tf_path(cfg, "decode"), decode_counts)
-    zero(at_decode, f"{arch}'s served prefill")
-    zero(decode_counts, f"{arch}'s {TF_GEN} decode steps")
+        serve.get_config = serve_get_config
     attn_calls = cfg.num_layers * (1 + TF_GEN)
     check(dense_calls.calls == attn_calls and chunked_calls.calls == 0,
           f"serve.main ran dense attention {dense_calls.calls} times and "
@@ -1187,6 +1283,560 @@ def transformer_profiles(torch, dev):
             + f" | card {card_line()}")
         del params, request, cache, first
         torch.cuda.empty_cache()
+
+
+def families_phase(torch, dev, counted, tally, read_counts, only):
+    """(a) of the families (see FAM_ARCHS): a train step of each family's
+    smoke config on the card against the CPU; Griffin's and the
+    encoder-decoder's prefill and decode against the CPU and against the
+    full forward."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import make_stream
+    from repro_torch.models import api
+    from repro_torch.train import init_state, make_optimizer, make_train_step
+
+    for family, arch in FAM_ARCHS.items():
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        opt = make_optimizer(cfg, peak_lr=FAM_LR, warmup=2, total_steps=40)
+        cpu_state = init_state(torch.Generator().manual_seed(TF_SEED), cfg,
+                               opt)
+        card_state = tree_to(cpu_state, dev)
+        batch = make_stream(cfg, FAM_BATCH, FAM_SEQ, TF_SEED).batch_at(0)
+        step = make_train_step(cfg, opt)
+        cpu_new, cpu_m = step(cpu_state, batch)
+        (card_new, card_m), _, counts = counted(
+            f"train_{family}", lambda: step(card_state, batch))
+        tf_zero(counts, f"{arch}'s train step", only)
+        m_err = max(abs(float(card_m[k]) - float(cpu_m[k]))
+                    / abs(float(cpu_m[k])) for k in ("loss", "grad_norm"))
+        got, want = flat(card_new["params"]), flat(cpu_new["params"])
+        mu = flat(cpu_new["opt"]["mu"])
+        p_err = max(float(((got[k].cpu() - want[k]).abs()
+                           * (mu[k].abs() >= FAM_NEAR_ZERO_MU)).max())
+                    for k in want)
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+        log(f"   (a) {family} ({arch} smoke, fp32) train step {FAM_BATCH}x"
+            f"{FAM_SEQ}, card vs CPU: loss {float(card_m['loss']):.6f}, "
+            f"loss and grad norm rel {m_err:.3e} (tolerance "
+            f"{FAM_STEP_RTOL}), parameters after the step {p_err:.3e} "
+            f"(tolerance {FAM_PARAM_ATOL})")
+        check(finite and m_err <= FAM_STEP_RTOL and p_err <= FAM_PARAM_ATOL,
+              f"{arch}'s train step on the card is off the CPU's")
+        del cpu_state, card_state, cpu_new, card_new
+
+    for family, arch in (("hybrid", HY_ARCH), ("audio", ED_ARCH)):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        cpu_model = api.init_params(torch.Generator().manual_seed(TF_SEED),
+                                    cfg)
+        card_model = api.model_over(
+            tree_to(api.stacked_params(cpu_model), dev), cfg)
+        rng = np.random.default_rng(22)
+        toks = rng.integers(0, cfg.vocab_size, (2, FAM_PROMPT + FAM_STEPS))
+        src = (rng.standard_normal((2, FAM_PROMPT, cfg.d_model)) * 0.02
+               if family == "audio" else None)
+        out, full = {}, None
+        for where, model, d in (("cpu", cpu_model, torch.device("cpu")),
+                                ("card", card_model, dev)):
+            t = torch.as_tensor(toks, dtype=torch.int32, device=d)
+            batch = {"tokens": t[:, :FAM_PROMPT]}
+            if src is not None:
+                batch["src_embeds"] = torch.as_tensor(
+                    src, dtype=torch.float32, device=d)
+            cache = api.init_cache(
+                cfg, 2, FAM_PROMPT + FAM_STEPS, dtype=torch.float32,
+                device=d, src_len=FAM_PROMPT if src is not None else None)
+            steps = []
+
+            def prefill(batch=batch, cache=cache, model=model):
+                return api.prefill(model, batch, cfg, cache)
+
+            if where == "card":
+                (lg, cache), _, counts = counted(f"{family}_prefill", (
+                    lambda: no_sync(torch, prefill, f"{arch}'s prefill")))
+                tf_zero(counts, f"{arch}'s prefill", only)
+            else:
+                lg, cache = prefill()
+            steps.append(lg)
+            for i in range(FAM_PROMPT, FAM_PROMPT + FAM_STEPS - 1):
+                def step(i=i, cache=cache, model=model, t=t):
+                    return api.decode_step(model, t[:, i:i + 1], cfg, cache)
+                if where == "card":
+                    (lg, cache), _, counts = counted(
+                        f"{family}_decode", lambda: no_sync(
+                            torch, step, f"{arch}'s decode step"))
+                    tf_zero(counts, f"{arch}'s decode step", only)
+                else:
+                    lg, cache = step()
+                steps.append(lg)
+            out[where] = torch.stack(steps, 1).cpu()
+            if where == "card":
+                with torch.no_grad():
+                    full, _, _ = api.forward(model, {**batch, "tokens": t[
+                        :, :FAM_PROMPT + FAM_STEPS - 1]}, cfg)
+                full = full[:, FAM_PROMPT - 1:].cpu()
+        err = float((out["card"] - out["cpu"]).abs().max())
+        err_full = float((out["card"] - full).abs().max())
+        log(f"   (a) {family} ({arch} smoke, fp32) prefill {FAM_PROMPT} "
+            f"tokens + {FAM_STEPS - 1} decode steps, no host sync in any "
+            f"step: card vs CPU {err:.3e}, vs the card's full forward "
+            f"{err_full:.3e} (|logit| up to "
+            f"{float(full.abs().max()):.3f}, tolerance {TF_CARD_ATOL})")
+        check(bool(torch.isfinite(out["card"]).all())
+              and max(err, err_full) <= TF_CARD_ATOL,
+              f"{arch}: the card's prefill and decode are off")
+        del cpu_model, card_model, cache
+    torch.cuda.empty_cache()
+
+
+def family_profiles(torch, dev, counted, only):
+    """The profiles of recurrentgemma-9b's prefill (HY_BATCH x HY_PROMPT)
+    and decode steps, before the heavy serving (see transformer_at_scale);
+    then (c)'s uninterrupted qwen2-1.5b run, TRAIN_STEPS steps at
+    DENSE_TRAIN_LR (its step times and losses), and one more step under
+    the profiler.  Returns {"state": that run's final state in the host's
+    pinned memory, which dense_trained's restarted run must equal,
+    "steps": its [(host ms, loss)] by step}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_stream
+    from repro_torch.launch import serve
+    from repro_torch.train.serve_step import decode_loop, make_serve_fns
+
+    t0 = time.perf_counter()
+    cfg = get_config(HY_ARCH)
+    params, request = serve.make_request(cfg, HY_BATCH, HY_PROMPT, TF_SEED,
+                                         dev)
+    prefill_fn, _ = make_serve_fns(cfg)
+
+    def fresh():
+        return serve.init_request_cache(cfg, HY_BATCH, HY_PROMPT, HY_GEN)
+
+    first, cache = prefill_fn(params, request, fresh())
+    steps = 4
+    decode_loop(params, first, cache, cfg, steps)
+    log(f"   {HY_ARCH} prefill {HY_BATCH}x{HY_PROMPT}, torch.profiler over "
+        "1: " + profile_requests(
+            torch, lambda: prefill_fn(params, request, fresh()), n=1))
+    log(f"   {HY_ARCH} decode step, batch {HY_BATCH}, torch.profiler over "
+        f"{steps}: " + profile_requests(
+            torch, lambda: decode_loop(params, first, cache, cfg, steps),
+            n=steps) + f" | card {card_line()}")
+    del params, request, cache, first
+    torch.cuda.empty_cache()
+    log(f"   (profiles of {HY_ARCH} in {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    steps, peak, state, step = train_steps(
+        torch, dev, counted, only, cfg, "dense", TRAIN_STEPS, TRAIN_BATCH,
+        TRAIN_SEQ, DENSE_TRAIN_LR)
+    log_train(f"(c) {DENSE_TRAIN_ARCH}, uninterrupted", steps, TRAIN_BATCH,
+              TRAIN_SEQ, peak)
+    losses = [x for _, x in steps]
+    check(sum(losses[-2:]) < sum(losses[:2]),
+          f"{DENSE_TRAIN_ARCH}'s loss does not fall: {losses}")
+    clean = tree_to_pinned(torch, state)
+    batch = make_stream(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                        TRAIN_SEED).batch_at(TRAIN_STEPS)
+    log(f"   {DENSE_TRAIN_ARCH} train step, {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens (step {TRAIN_STEPS + 1}), torch.profiler over 1: "
+        + profile_requests(torch, lambda: step(state, batch), n=1)
+        + f" | card {card_line()}")
+    del state
+    torch.cuda.empty_cache()
+    log(f"   (uninterrupted {DENSE_TRAIN_ARCH} run, its host copy and the "
+        f"profile in {time.perf_counter() - t0:.1f} s)")
+    return {"state": clean, "steps": steps}
+
+
+def serve_main_counted(torch, counted, tally, read_counts, only, argv,
+                       family):
+    """``serve.main(argv)``, its prefill's and decode steps' launch counts
+    read where serve hands the prefilled cache to decode_loop and tallied
+    under ``<family>_prefill`` and ``<family>_decode``, each checked to be
+    0.  Returns (tokens, seconds, peak bytes, prefill counts, decode
+    counts)."""
+    from repro_torch.launch import serve
+
+    at_decode = {}
+    serve_decode_loop = serve.decode_loop
+
+    def observed_decode_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        at_decode.update(read_counts())
+        return serve_decode_loop(*args, **kwargs)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve.decode_loop = observed_decode_loop
+    try:
+        served, secs, counts = counted(None, lambda: serve.main(argv))
+    finally:
+        serve.decode_loop = serve_decode_loop
+    peak = torch.cuda.max_memory_allocated()
+    decode_counts = {k: counts[k] - at_decode[k] for k in counts}
+    tally(f"{family}_prefill", at_decode)
+    tally(f"{family}_decode", decode_counts)
+    tf_zero(at_decode, f"serve.main {argv}'s prefill", only)
+    tf_zero(decode_counts, f"serve.main {argv}'s decode steps", only)
+    return served, secs, peak, at_decode, decode_counts
+
+
+def check_served(torch, toks, batch: int, gen: int, cfg) -> None:
+    check(tuple(toks.shape) == (batch, gen) and toks.dtype == torch.int32
+          and 0 <= int(toks.min()) and int(toks.max()) < cfg.padded_vocab,
+          f"served tokens {tuple(toks.shape)} {toks.dtype}")
+
+
+def cache_vs_full(torch, params, request, cfg32, cache, steps_tok):
+    """The fp32 model's prefill of ``request`` into ``cache`` and a decode
+    step for each column of ``steps_tok`` against one full forward over
+    the prompt and those tokens: (max abs error, largest |logit|)."""
+    from repro_torch.models import api
+
+    with torch.no_grad():
+        lg, c = api.prefill(params, request, cfg32, cache)
+        steps = [lg]
+        for i in range(steps_tok.shape[1] - 1):
+            lg, c = api.decode_step(params, steps_tok[:, i:i + 1], cfg32, c)
+            steps.append(lg)
+        del c
+        full_req = {**request, "tokens": torch.cat(
+            [request["tokens"], steps_tok[:, :-1]], 1)}
+        full, _, _ = api.forward(params, full_req, cfg32)
+        full = full[:, -steps_tok.shape[1]:]
+        err = float((torch.stack(steps, 1) - full).abs().max())
+    return err, float(full.abs().max())
+
+
+def train_steps(torch, dev, counted, only, cfg, family, n, batch, seq,
+                lr=3e-4):
+    """``n`` train steps of ``batch`` x ``seq`` tokens of the family's
+    stream from seed-0 weights, with train.main's optimizer (AdamW as the
+    config says, peak ``lr`` after a 5-step warmup), each counted under
+    train_<family> and checked to launch no kernel of ours.  Returns
+    ([(host ms, loss)], peak bytes, the final train state, the step
+    function)."""
+    from repro_torch.data import make_stream
+    from repro_torch.train import init_state, make_optimizer, make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer(cfg, peak_lr=lr, warmup=max(n // 20, 5),
+                         total_steps=n)
+    state = init_state(torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                       cfg, opt)
+    stream = make_stream(cfg, batch, seq, TRAIN_SEED)
+    step = make_train_step(cfg, opt)
+    out = []
+    for i in range(n):
+        b = stream.batch_at(i)
+        (state, metrics), secs, counts = counted(
+            f"train_{family}", lambda: step(state, b))
+        tf_zero(counts, f"{cfg.name}'s train step {i + 1}", only)
+        out.append((secs * 1e3, float(metrics["loss"])))
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in out]
+    check(all(math.isfinite(x) for x in losses),
+          f"{cfg.name}: train losses {losses}")
+    return out, peak, state, step
+
+
+def log_train(name, steps, batch, seq, peak) -> None:
+    ms = statistics.median(t for t, _ in steps[1:])
+    log(f"   {name} train step, {batch}x{seq} tokens, warm (host clock, "
+        f"median of steps 2..{len(steps)}): {ms:.3f} ms, "
+        f"{batch * seq / ms * 1e3:.0f} tokens/s; first step "
+        f"{steps[0][0]:.3f} ms; losses by step "
+        f"{[round(loss, 6) for _, loss in steps]}; peak device memory "
+        f"{peak / 1e9:.2f} GB | card {card_line()}")
+
+
+def families_at_scale(torch, dev, counted, tally, read_counts, only,
+                      clean):
+    """(c) qwen2-1.5b trained with a fault (against ``clean``, the
+    uninterrupted run, whose pinned host memory it frees first), (b)
+    recurrentgemma-9b served, (d) seamless-m4t-large-v2 served and
+    trained, (e) recurrentgemma-9b at one pattern group trained; all at
+    their published widths.  Each cell's seconds are logged."""
+    args = (torch, dev, counted, tally, read_counts, only)
+    for name, cell in (
+            ("dense_trained", lambda: dense_trained(*args, clean)),
+            ("hybrid_served", lambda: hybrid_served(*args)),
+            ("encdec_served_and_trained",
+             lambda: encdec_served_and_trained(*args)),
+            ("hybrid_trained", lambda: hybrid_trained(*args))):
+        t0 = time.perf_counter()
+        cell()
+        torch.cuda.empty_cache()
+        log(f"   ({name} in {time.perf_counter() - t0:.1f} s)")
+
+
+def hybrid_served(torch, dev, counted, tally, read_counts, only):
+    """(b) recurrentgemma-9b through serve.main past its ring, then a
+    batch; the fp32 cache against one full forward; warm times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.train.serve_step import decode_loop, make_serve_fns
+
+    cfg = get_config(HY_ARCH)
+    for b, prompt in ((1, HY_LONG), (HY_BATCH, HY_PROMPT)):
+        argv = ["--arch", HY_ARCH, "--batch", str(b), "--prompt-len",
+                str(prompt), "--gen", str(HY_GEN), "--seed", str(TF_SEED)]
+        toks, secs, peak, _, _ = serve_main_counted(
+            torch, counted, tally, read_counts, only, argv, "hybrid")
+        check_served(torch, toks, b, HY_GEN, cfg)
+        log(f"   (b) {HY_ARCH} ({cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, ring of {cfg.sliding_window} slots): serve.main "
+            f"(cold) {secs * 1e3:.1f} ms, batch {b}, {prompt}-token prompts, "
+            f"{HY_GEN} greedy tokens, no kernel of ours; peak device memory "
+            f"{peak / 1e9:.2f} GB")
+        del toks
+    params, request = serve.make_request(cfg, 1, HY_LONG, TF_SEED, dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    steps_tok = torch.randint(
+        0, cfg.vocab_size, (1, HY_CACHE_STEPS + 1), dtype=torch.int32,
+        device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    cache = serve.init_request_cache(cfg32, 1, HY_LONG, HY_CACHE_STEPS + 1,
+                                     dtype=torch.float32)
+    err, scale = cache_vs_full(torch, params, request, cfg32, cache,
+                               steps_tok)
+    del cache
+    log(f"   (b) fp32 prefill of 1x{HY_LONG} (the ring keeps the last "
+        f"{cfg.sliding_window} keys) + {HY_CACHE_STEPS} decode steps through "
+        f"an fp32 cache vs one full forward: max abs err {err:.3e} (|logit| "
+        f"up to {scale:.3f}, tolerance {HY_CACHE_ATOL32})")
+    check(err <= HY_CACHE_ATOL32,
+          f"{HY_ARCH}: decode through the ring off the full forward by {err}")
+    prefill_fn, _ = make_serve_fns(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    long_ms = request_ms(lambda: prefill_fn(
+        params, request, serve.init_request_cache(cfg, 1, HY_LONG, HY_GEN)),
+        reps=3)
+    del params, request
+    params, request = serve.make_request(cfg, HY_BATCH, HY_PROMPT, TF_SEED,
+                                         dev)
+    first, cache = prefill_fn(params, request, serve.init_request_cache(
+        cfg, HY_BATCH, HY_PROMPT, HY_GEN))
+    prefill_ms = request_ms(lambda: prefill_fn(
+        params, request, serve.init_request_cache(cfg, HY_BATCH, HY_PROMPT,
+                                                  HY_GEN)), reps=3)
+    decode_ms = request_ms(lambda: decode_loop(params, first, cache, cfg,
+                                               HY_GEN), reps=3) / HY_GEN
+    peak = torch.cuda.max_memory_allocated()
+    log(f"   (b) {HY_ARCH}, bf16 over fp32 masters (cast every call), warm, "
+        f"host clock, median of 3 | card {card_line()}")
+    log(f"   prefill 1x{HY_LONG}: {long_ms:.3f} ms ({HY_LONG / long_ms * 1e3:.0f}"
+        f" tokens/s); prefill {HY_BATCH}x{HY_PROMPT}: {prefill_ms:.3f} ms "
+        f"({HY_BATCH * HY_PROMPT / prefill_ms * 1e3:.0f} tokens/s); decode: "
+        f"{decode_ms:.3f} ms per step of {HY_BATCH} tokens "
+        f"({HY_BATCH / decode_ms * 1e3:.0f} tokens/s, {HY_GEN} steps); peak "
+        f"device memory {peak / 1e9:.2f} GB")
+    del params, request, first, cache
+    torch.cuda.empty_cache()
+
+
+def dense_trained(torch, dev, counted, tally, read_counts, only, clean):
+    """(c) qwen2-1.5b through train.main with a fault, against ``clean``,
+    family_profiles' uninterrupted run of the same steps (train.main's
+    optimizer, state and stream, with no checkpoint); its state is popped
+    from ``clean``, so its pinned host memory is freed here."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    argv = ["--arch", DENSE_TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed",
+            str(TRAIN_SEED), "--lr", str(DENSE_TRAIN_LR), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--fail-at", str(TRAIN_FAIL_AT)]
+    torch.cuda.reset_peak_memory_stats()
+    faulty, _, f_secs, f_counts, f_steps = train_main(
+        torch, counted, read_counts, "train_dense", argv)
+    peak = torch.cuda.max_memory_allocated()
+    resumed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    want_steps = TRAIN_FAIL_AT + TRAIN_STEPS - resumed
+    log(f"   (c) {DENSE_TRAIN_ARCH} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B parameters, AdamW, "
+        f"lr {DENSE_TRAIN_LR}) train.main with --fail-at {TRAIN_FAIL_AT}: "
+        f"{f_secs:.1f} s, of which the steps "
+        f"{sum(ms for ms, _, _ in f_steps) / 1e3:.1f} s (checkpoints of "
+        f"{sum(t.numel() * t.element_size() for t in flat(faulty).values()) / 1e9:.1f}"
+        f" GB at steps {TRAIN_CKPT_EVERY} and {TRAIN_STEPS}, a restore), "
+        f"{len(f_steps)} steps run (restored at step {resumed}), final step "
+        f"{int(faulty['step'])}; peak device memory {peak / 1e9:.2f} GB")
+    check(len(f_steps) == want_steps and int(faulty["step"]) == TRAIN_STEPS,
+          f"{len(f_steps)} steps run, want {want_steps}")
+    tf_zero(f_counts, f"{DENSE_TRAIN_ARCH}'s training run", only)
+    state = clean.pop("state")
+    check_restart_equal(torch, faulty, state, f_steps, [
+        (ms, None, {"loss": x}) for ms, x in clean["steps"]])
+    del faulty, state
+
+
+def encdec_served_and_trained(torch, dev, counted, tally, read_counts,
+                              only):
+    """(d) seamless-m4t-large-v2 through serve.main, a request of ED_SRC
+    source frames (its fp32 cache against one full forward, warm times)
+    and ED_TRAIN_STEPS train steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.train.serve_step import decode_loop, make_serve_fns
+
+    cfg = get_config(ED_ARCH)
+    argv = ["--arch", ED_ARCH, "--batch", str(ED_BATCH), "--prompt-len",
+            str(ED_PROMPT), "--gen", str(ED_GEN), "--seed", str(TF_SEED)]
+    toks, secs, peak, _, _ = serve_main_counted(
+        torch, counted, tally, read_counts, only, argv, "audio")
+    check_served(torch, toks, ED_BATCH, ED_GEN, cfg)
+    log(f"   (d) {ED_ARCH} ({cfg.num_encoder_layers} + "
+        f"{cfg.num_decoder_layers} layers, d_model {cfg.d_model}): "
+        f"serve.main (cold) {secs * 1e3:.1f} ms, batch {ED_BATCH}, "
+        f"{ED_PROMPT}-token prompts and source frames, {ED_GEN} greedy "
+        f"tokens, no kernel of ours; peak device memory {peak / 1e9:.2f} GB")
+    params, request = serve.make_request(cfg, ED_BATCH, ED_PROMPT, TF_SEED,
+                                         dev)
+    request["src_embeds"] = 0.02 * torch.randn(
+        (ED_BATCH, ED_SRC, cfg.d_model), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(TF_SEED + 2)).to(
+            torch.bfloat16)
+
+    def fresh(gen=ED_GEN, dtype=torch.bfloat16, c=cfg):
+        return api.init_cache(c, ED_BATCH, ED_PROMPT + gen, dtype,
+                              src_len=ED_SRC)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    steps_tok = torch.randint(
+        0, cfg.vocab_size, (ED_BATCH, HY_CACHE_STEPS + 1), dtype=torch.int32,
+        device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    err, scale = cache_vs_full(torch, params, request, cfg32,
+                               fresh(HY_CACHE_STEPS + 1, torch.float32,
+                                     cfg32), steps_tok)
+    log(f"   (d) fp32 prefill ({ED_SRC} source frames, {ED_PROMPT} tokens) "
+        f"+ {HY_CACHE_STEPS} decode steps through an fp32 cache vs one full "
+        f"forward: max abs err {err:.3e} (|logit| up to {scale:.3f}, "
+        f"tolerance {ED_CACHE_ATOL32})")
+    check(err <= ED_CACHE_ATOL32,
+          f"{ED_ARCH}: decode through the cache off the full forward by {err}")
+    prefill_fn, _ = make_serve_fns(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (first, cache), _, counts = counted(
+        "audio_prefill", lambda: prefill_fn(params, request, fresh()))
+    tf_zero(counts, f"{ED_ARCH}'s prefill", only)
+    (toks, _), _, counts = counted("audio_decode", lambda: decode_loop(
+        params, first, cache, cfg, ED_GEN))
+    tf_zero(counts, f"{ED_ARCH}'s decode steps", only)
+    check_served(torch, toks, ED_BATCH, ED_GEN, cfg)
+    prefill_ms = request_ms(lambda: prefill_fn(params, request, fresh()),
+                            reps=3)
+    decode_ms = request_ms(lambda: decode_loop(params, first, cache, cfg,
+                                               ED_GEN), reps=3) / ED_GEN
+    peak = torch.cuda.max_memory_allocated()
+    log(f"   (d) {ED_ARCH}, bf16 over fp32 masters, warm, host clock, median"
+        f" of 3 | card {card_line()}")
+    log(f"   prefill (encode {ED_BATCH}x{ED_SRC} frames, decode "
+        f"{ED_BATCH}x{ED_PROMPT} tokens, cross K/V): {prefill_ms:.3f} ms "
+        f"({ED_BATCH * (ED_SRC + ED_PROMPT) / prefill_ms * 1e3:.0f} "
+        f"frames and tokens/s); decode: {decode_ms:.3f} ms per step of "
+        f"{ED_BATCH} tokens ({ED_BATCH / decode_ms * 1e3:.0f} tokens/s, "
+        f"{ED_GEN} steps); peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    del params, request, first, cache, toks
+    steps, peak, _, _ = train_steps(torch, dev, counted, only, cfg,
+                                    "audio", ED_TRAIN_STEPS, ED_TRAIN_BATCH,
+                                    ED_TRAIN_SEQ)
+    log_train(f"(d) {ED_ARCH} ({ED_TRAIN_SEQ} source frames a row)", steps,
+              ED_TRAIN_BATCH, ED_TRAIN_SEQ, peak)
+
+
+def hybrid_trained(torch, dev, counted, tally, read_counts, only):
+    """(e) recurrentgemma-9b at its published widths, one pattern group."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(HY_ARCH), num_layers=HY_TRAIN_LAYERS)
+    steps, peak, _, _ = train_steps(torch, dev, counted, only, cfg,
+                                    "hybrid", HY_TRAIN_STEPS, HY_TRAIN_BATCH,
+                                    HY_TRAIN_SEQ)
+    log_train(f"(e) {HY_ARCH} at {HY_TRAIN_LAYERS} layers "
+              f"({cfg.param_count() / 1e9:.3f} B parameters)", steps,
+              HY_TRAIN_BATCH, HY_TRAIN_SEQ, peak)
+
+
+def flat(tree, prefix=""):
+    """A nested dict's leaves by '/'-joined path."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k in sorted(tree) for k2, v2 in flat(
+            tree[k], f"{prefix}/{k}" if prefix else k).items()}
+    return {prefix: tree}
+
+
+def train_main(torch, counted, read_counts, path, argv):
+    """``repro_torch.launch.train.main(argv)`` in a temporary checkpoint
+    directory, counted under ``path``.  Its step function is wrapped to
+    read the launch counters and the host clock around each step (each
+    ended by a synchronize) and keep the step's metrics.  Returns (state,
+    history, seconds, counts, [(step ms, step counts, metrics)])."""
+    import tempfile
+
+    from repro_torch.launch import train as train_launch
+
+    steps_log: list = []
+    make_step = train_launch.make_train_step
+
+    def observed_make_train_step(*args, **kwargs):
+        step_fn = make_step(*args, **kwargs)
+
+        def observed(state, batch):
+            torch.cuda.synchronize()
+            before, t0 = read_counts(), time.perf_counter()
+            new_state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = read_counts()
+            steps_log.append((ms, {k: after[k] - before[k] for k in after},
+                              {k: float(v) for k, v in metrics.items()}))
+            return new_state, metrics
+        return observed
+
+    train_launch.make_train_step = observed_make_train_step
+    try:
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            (state, history), secs, counts = counted(
+                path, lambda: train_launch.main(argv + ["--ckpt-dir",
+                                                        ckpt_dir]))
+    finally:
+        train_launch.make_train_step = make_step
+    return state, history, secs, counts, steps_log
+
+
+def check_restart_equal(torch, faulty, clean, f_steps, c_steps) -> None:
+    """The restarted run's train state ends equal to the uninterrupted
+    one's, bit for bit (every op on the path is deterministic), compared
+    on the restarted state's device."""
+    fa, cl = flat(faulty), flat(clean)
+    equal, diffs = sorted(fa) == sorted(cl), {}
+    for k in sorted(set(fa) & set(cl)):   # on ``faulty``'s device
+        b = cl[k].to(fa[k].device)
+        equal = equal and torch.equal(fa[k], b)
+        diffs[k] = float((fa[k].double() - b.double()).abs().max())
+    log(f"   restarted vs uninterrupted run after {int(clean['step'])} "
+        f"steps: {len(cl)} leaves, bit for bit "
+        f"{'equal' if equal else 'unequal'}; largest difference "
+        f"{max(diffs.values()):.3e} ({max(diffs, key=diffs.get)}); losses "
+        f"by step: restarted {[round(m['loss'], 6) for _, _, m in f_steps]}"
+        f", uninterrupted {[round(m['loss'], 6) for _, _, m in c_steps]}")
+    check(equal, "the restarted run does not end equal to the "
+          "uninterrupted one (every op on the path is deterministic)")
 
 
 def main() -> int:
@@ -2753,41 +3403,17 @@ def run(torch) -> list[dict]:
                "repro_torch.launch.serve"):
         transformer_phase(torch, dev, counted, tally, read_counts, only)
 
-    with phase(f"train: {LM_ARCH} training through repro_torch.launch.train"):
-        import tempfile
+    with phase("families: the dense, moe, vlm, hybrid and audio families' "
+               "train steps and Griffin's and the encoder-decoder's "
+               "serving, card vs CPU"):
+        families_phase(torch, dev, counted, tally, read_counts, only)
 
+    with phase(f"train: {LM_ARCH} training through repro_torch.launch.train"):
         from repro_torch.data import make_stream
         from repro_torch.launch import train as train_launch
         from repro_torch.train import grad as train_grad
         from repro_torch.train import init_state, make_optimizer
         from repro_torch.train.tree import tree_leaves
-
-        def flat(tree, prefix=""):
-            if isinstance(tree, dict):
-                return {k2: v2 for k in sorted(tree) for k2, v2 in flat(
-                    tree[k], f"{prefix}/{k}" if prefix else k).items()}
-            return {prefix: tree}
-
-        # train.main is the main path's run.  Its step function is wrapped
-        # to read the launch counters and the host clock around each step
-        # (each ended by a synchronize) and keep the step's metrics.
-        steps_log: list = []
-        make_step = train_launch.make_train_step
-
-        def observed_make_train_step(*args, **kwargs):
-            step_fn = make_step(*args, **kwargs)
-
-            def observed(state, batch):
-                torch.cuda.synchronize()
-                before, t0 = read_counts(), time.perf_counter()
-                new_state, metrics = step_fn(state, batch)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                after = read_counts()
-                steps_log.append((ms, {k: after[k] - before[k] for k in after},
-                                  {k: float(v) for k, v in metrics.items()}))
-                return new_state, metrics
-            return observed
 
         train_argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
                       "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
@@ -2795,16 +3421,8 @@ def run(torch) -> list[dict]:
                       str(TRAIN_SEED)]
 
         def train_run(path, extra):
-            steps_log.clear()
-            train_launch.make_train_step = observed_make_train_step
-            try:
-                with tempfile.TemporaryDirectory() as ckpt_dir:
-                    (state, history), secs, counts = counted(
-                        path, lambda: train_launch.main(
-                            train_argv + extra + ["--ckpt-dir", ckpt_dir]))
-            finally:
-                train_launch.make_train_step = make_step
-            return state, history, secs, counts, list(steps_log)
+            return train_main(torch, counted, read_counts, path,
+                              train_argv + extra)
 
         nl = cfg.num_layers
         torch.cuda.reset_peak_memory_stats()
@@ -2835,20 +3453,8 @@ def run(torch) -> list[dict]:
         check(c_counts == only(ssd_scan=nl * TRAIN_STEPS,
                                ssd_scan_bwd=nl * TRAIN_STEPS),
               f"the uninterrupted run launched {c_counts}")
-        fa, cl = flat(faulty), flat(clean)
-        diffs = {k: float((fa[k].double() - cl[k].double()).abs().max())
-                 for k in cl}
-        equal = sorted(fa) == sorted(cl) and all(
-            torch.equal(fa[k], cl[k]) for k in cl)
-        log(f"   restarted vs uninterrupted run after {TRAIN_STEPS} steps: "
-            f"{len(cl)} leaves, bit for bit {'equal' if equal else 'unequal'}"
-            f"; largest difference {max(diffs.values()):.3e} "
-            f"({max(diffs, key=diffs.get)}); losses by step: restarted "
-            f"{[round(m['loss'], 6) for _, _, m in f_steps]}, uninterrupted "
-            f"{[round(m['loss'], 6) for _, _, m in c_steps]}")
-        check(equal, "the restarted run does not end equal to the "
-              "uninterrupted one (every op on the path is deterministic)")
-        del faulty, fa
+        check_restart_equal(torch, faulty, clean, f_steps, c_steps)
+        del faulty
 
         # Step 1 again, out of the run: its state (init_state from the
         # seed) and batch (the stream's batch 0), the gradients of the bf16
@@ -2911,8 +3517,8 @@ def run(torch) -> list[dict]:
             f"run): {train_step_ms:.3f} ms, "
             f"{TRAIN_BATCH * TRAIN_SEQ / train_step_ms * 1e3:.0f} tokens/s; "
             f"first step {c_steps[0][0]:.3f} ms | card {card_line()}")
-        del g16, g32, gp, g16f, g32f, gpf, clean, cl
-        train_profile_step = make_step(cfg, opt)
+        del g16, g32, gp, g16f, g32f, gpf, clean
+        train_profile_step = train_launch.make_train_step(cfg, opt)
         torch.cuda.empty_cache()
 
     with phase("timing"):
@@ -3435,12 +4041,20 @@ def run(torch) -> list[dict]:
 
     with phase("transformer at scale: llava-next-mistral-7b and "
                "llama4-scout through repro_torch.launch.serve"):
-        transformer_at_scale(torch, dev, counted, tally, read_counts, only)
-        # the kernels line carries this phase's paths too
-        for rec in records:
-            rec["launches_by_path"] = {path: counts[rec["name"]]
-                                       for path, counts in paths.items()}
-            rec["launches"] = sum(rec["launches_by_path"].values())
+        clean = transformer_at_scale(torch, dev, counted, tally,
+                                     read_counts, only)
+
+    with phase("families at scale: recurrentgemma-9b served and trained, "
+               "qwen2-1.5b trained, seamless-m4t-large-v2 served and "
+               "trained"):
+        families_at_scale(torch, dev, counted, tally, read_counts, only,
+                          clean)
+        del clean
+    # the kernels line carries the last phases' paths too
+    for rec in records:
+        rec["launches_by_path"] = {path: counts[rec["name"]]
+                                   for path, counts in paths.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     return records
 
 

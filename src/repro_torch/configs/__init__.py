@@ -1,10 +1,8 @@
 """Architecture registry: one module per arch, exact configs.
 
 Port of ``repro/configs/__init__.py``.  ``ARCH_IDS`` lists every
-architecture of the reference; ``get_config`` returns the full published
-config of one whose family the port runs (ssm, dense, moe, vlm), and
-raises ``NotImplementedError`` for the rest (the hybrid and encdec
-families, ROADMAP 1.9c).  ``smoke_config(...)`` returns the reduced
+architecture of the reference, and ``get_config`` returns the full
+published config of each.  ``smoke_config(...)`` returns the reduced
 same-family config the CPU tests run, computed as the reference computes
 it.
 """
@@ -29,18 +27,6 @@ ARCH_IDS = (
     "recurrentgemma-9b",
 )
 
-# Architectures whose model family has been ported (ROADMAP 1.9).
-PORTED = (
-    "llama4-scout-17b-a16e",
-    "kimi-k2-1t-a32b",
-    "qwen2.5-3b",
-    "qwen3-4b",
-    "llama3-8b",
-    "qwen2-1.5b",
-    "llava-next-mistral-7b",
-    "mamba2-130m",
-)
-
 
 def _module_name(arch_id: str) -> str:
     return arch_id.replace("-", "_").replace(".", "_")
@@ -49,17 +35,14 @@ def _module_name(arch_id: str) -> str:
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r}: its model family is not ported yet (ROADMAP "
-            f"1.9c: Griffin, then encdec); ported: {PORTED}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
 
 
 def smoke_config(arch_id: str) -> ModelConfig:
-    """Reduced same-family config: runs a real forward step on CPU."""
+    """Reduced same-family config: runs a real forward and train step on
+    CPU."""
     cfg = get_config(arch_id)
     r = dict(
         num_layers=max(2, min(4, cfg.num_layers // 12)),
@@ -96,5 +79,5 @@ def smoke_config(arch_id: str) -> ModelConfig:
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **r)
 
 
-__all__ = ["ARCH_IDS", "PORTED", "get_config", "smoke_config",
+__all__ = ["ARCH_IDS", "get_config", "smoke_config",
            "SHAPES", "ShapeConfig", "cell_is_runnable", "ModelConfig"]

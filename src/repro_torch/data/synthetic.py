@@ -10,6 +10,8 @@ The port's own copy of ``repro/data/synthetic.py``:
   uniform noise in the rest), drawn from a numpy ``Generator`` seeded with
   (seed, step): not ``jax.random``'s bits, which torch cannot reproduce,
   so tests hand both packages the same numpy batch.
+* ``MultimodalStream``: a ``TokenStream`` with the stub embeddings of the
+  vlm (a prefix) and audio (the encoder's source frames) families.
 * ``video_frames``: the integral-histogram frames, numpy in both packages,
   so the same seed gives the same frames.
 """
@@ -50,15 +52,47 @@ class TokenStream:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+@dataclasses.dataclass(frozen=True)
+class MultimodalStream:
+    """TokenStream + stub modality embeddings (the vlm and audio families).
+
+    ``batch_at`` adds "prefix_embeds" (batch, num_prefix, d_model) for a
+    vlm or "src_embeds" (batch, src_len, d_model) for audio: 0.02 * normal,
+    rounded to ``dtype``, drawn from a numpy ``Generator`` seeded with
+    (seed + 77, step).  So they are seekable like the tokens; their bits
+    are not the reference's ``jax.random`` draws."""
+    base: TokenStream
+    d_model: int
+    num_prefix: int = 0            # vlm: patch embeddings
+    src_len: int = 0               # audio: encoder frame embeddings
+    dtype: str = "bfloat16"
+
+    def batch_at(self, step: int) -> dict:
+        out = self.base.batch_at(step)
+        rng = np.random.default_rng([self.base.seed + 77, step])
+        for key, n in (("prefix_embeds", self.num_prefix),
+                       ("src_embeds", self.src_len)):
+            if n:
+                e = 0.02 * rng.standard_normal(
+                    (self.base.batch, n, self.d_model))
+                out[key] = torch.as_tensor(e.astype(np.float32)).to(
+                    getattr(torch, self.dtype))
+        return out
+
+
 def make_stream(cfg, batch: int, seq_len: int, seed: int = 0):
-    """The stream for a ModelConfig of a ported family.  The reference's
-    ``MultimodalStream`` (vlm and audio) comes with their training (ROADMAP
-    1.9c)."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family's stream is not ported "
-            "yet (ROADMAP 1.9c)")
-    return TokenStream(cfg.vocab_size, batch, seq_len, seed)
+    """The family's stream for a ModelConfig: a vlm's has ``seq_len -
+    num_prefix_embeds`` tokens after its prefix, audio's ``seq_len``
+    source frames beside ``seq_len`` tokens."""
+    base = TokenStream(cfg.vocab_size, batch, seq_len, seed)
+    if cfg.family == "vlm":
+        return MultimodalStream(
+            TokenStream(cfg.vocab_size, batch, seq_len - cfg.num_prefix_embeds,
+                        seed),
+            cfg.d_model, num_prefix=cfg.num_prefix_embeds)
+    if cfg.family == "audio":
+        return MultimodalStream(base, cfg.d_model, src_len=seq_len)
+    return base
 
 
 def video_frames(h: int, w: int, num_frames: int, seed: int = 0,

@@ -7,8 +7,10 @@ Port of ``repro/launch/serve.py`` with the same flags and default
 (``--arch qwen2-1.5b``), plus ``--device``: the card unless ``cpu`` (or
 another torch device) is named.  Weights are random from a
 ``torch.Generator`` seeded with ``--seed`` on that device, and so are the
-prompts and a vlm's prefix embeddings (bf16, 0.02 * normal), drawn in
-that order from the one generator.
+prompts and a vlm's prefix embeddings or an encoder-decoder's source
+frames (bf16, 0.02 * normal), drawn in that order from the one
+generator.  An audio request's source has ``prompt_len`` frames, and its
+cache cross K/V of as many (the reference's ``src_len=prompt_len``).
 
 The cache holds the vlm's prefix too: ``num_prefix_embeds + prompt_len +
 gen`` positions, where the reference sizes it ``prompt_len + gen``, so
@@ -33,26 +35,40 @@ from repro_torch.train.serve_step import decode_loop, make_serve_fns
 def make_request(cfg, batch: int, prompt_len: int, seed: int, device=None):
     """(params, request): the request is {"tokens": (batch, prompt_len)
     int32} and, for a vlm, "prefix_embeds" (batch, num_prefix_embeds,
-    d_model) bf16; all drawn from one ``torch.Generator`` seeded with
-    ``seed`` on ``device``."""
+    d_model) bf16, for audio "src_embeds" (batch, prompt_len, d_model)
+    bf16; all drawn from one ``torch.Generator`` seeded with ``seed`` on
+    ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = api.init_params(gen, cfg)
     request = {"tokens": torch.randint(
         0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev,
         dtype=torch.int32)}
-    if cfg.family == "vlm":
-        request["prefix_embeds"] = 0.02 * torch.randn(
-            (batch, cfg.num_prefix_embeds, cfg.d_model), generator=gen,
+    extra = {"vlm": ("prefix_embeds", cfg.num_prefix_embeds),
+             "audio": ("src_embeds", prompt_len)}.get(cfg.family)
+    if extra is not None:
+        key, n = extra
+        request[key] = 0.02 * torch.randn(
+            (batch, n, cfg.d_model), generator=gen,
             device=dev).to(torch.bfloat16)
     return params, request
 
 
 def cache_len(cfg, prompt_len: int, gen: int) -> int:
     """Positions a request's cache needs: a vlm's prefix, the prompt and
-    every generated token."""
+    every generated token (an encoder-decoder's source frames are no
+    positions: ``init_cache``'s ``src_len``)."""
     prefix = cfg.num_prefix_embeds if cfg.family == "vlm" else 0
     return prefix + prompt_len + gen
+
+
+def init_request_cache(cfg, batch: int, prompt_len: int, gen: int,
+                       dtype=torch.bfloat16, device=None):
+    """A request's empty cache: ``cache_len`` positions and, for audio,
+    cross K/V of the ``prompt_len`` source frames."""
+    kw = {"src_len": prompt_len} if cfg.family == "audio" else {}
+    return api.init_cache(cfg, batch, cache_len(cfg, prompt_len, gen),
+                          dtype, device=device, **kw)
 
 
 def _sync(dev: torch.device) -> None:
@@ -76,8 +92,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     params, request = make_request(cfg, args.batch, args.prompt_len,
                                    args.seed, dev)
-    max_len = cache_len(cfg, args.prompt_len, args.gen)
-    cache = api.init_cache(cfg, args.batch, max_len, device=dev)
+    cache = init_request_cache(cfg, args.batch, args.prompt_len, args.gen,
+                               device=dev)
     prefill_fn, _ = make_serve_fns(cfg)
 
     _sync(dev)

@@ -1,18 +1,17 @@
 """End-to-end training launcher.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
-      --steps 200 --batch 4 --seq 1024 [--smoke] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+      --steps 200 --batch 8 --seq 256 [--smoke] [--device cpu]
 
-Port of ``repro/launch/train.py`` with the same flags, plus ``--device``:
-the card unless ``cpu`` (or another torch device) is named.  The data
-stream is seekable, checkpoints are atomic, and the loop restarts on
-failure (train/fault.py).  Weights are random from a ``torch.Generator``
-seeded with ``--seed`` on the device.  The default ``--arch`` is
-``mamba2-130m``, the one family the port trains (the reference defaults
-to ``qwen2-1.5b``): an arch of another family raises, its training (with
-the reference's ``MultimodalStream``) being ROADMAP 1.9c.  ``--mesh``
-other than ``none`` raises: state and batch shardings come with the
-sharding item of ROADMAP 1.9.
+Port of ``repro/launch/train.py`` with the same flags and default
+(``--arch qwen2-1.5b``), plus ``--device``: the card unless ``cpu`` (or
+another torch device) is named.  Every family trains: the data stream is
+the family's (``data.make_stream``: a vlm's prefix embeddings, an
+encoder-decoder's source frames), seekable, checkpoints are atomic, and
+the loop restarts on failure (train/fault.py).  Weights are random from
+a ``torch.Generator`` seeded with ``--seed`` on the device.  ``--mesh``
+other than ``none`` raises: state and batch shardings come with LM
+sharding, ROADMAP 1.9b.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ from repro_torch.train import (
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="mamba2-130m")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)
@@ -59,16 +58,10 @@ def main(argv=None):
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: sharded training (sharding/rules.py, state "
-            "and batch shardings) is the sharding item of ROADMAP 1.9, not "
-            "ported yet")
+            "and batch shardings) is LM sharding, ROADMAP 1.9b, not ported "
+            "yet")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family (with "
-            "MultimodalStream for vlm) is ROADMAP 1.9c, not ported yet; "
-            "only the ssm family trains")
-
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     dev = resolve_device(args.device)
     opt = make_optimizer(cfg, peak_lr=args.lr, warmup=max(args.steps // 20, 5),

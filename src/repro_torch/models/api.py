@@ -13,13 +13,14 @@ stacked): ``stacked_params(model)`` copies them out, ``model_over(params,
 cfg)`` is a model whose parameters are views of them.
 
 batch keys: "tokens" (B, S) int, "labels" (B, S) int and an optional
-"loss_mask" (B, S); "prefix_embeds" (B, P, d) and "positions" pass
-through.  The ssm family (Mamba-2) and the transformer's three (dense,
-moe, vlm) are ported; the hybrid and audio families raise
-``NotImplementedError`` (ROADMAP 1.9c).  ``backend`` (forward, prefill,
+"loss_mask" (B, S); family extras: "prefix_embeds" (B, P, d) for vlm,
+"src_embeds" (B, S_src, d) or a precomputed "memory" for audio, and
+"positions", pass through.  Every family of the reference is ported: ssm
+(Mamba-2), the transformer's three (dense, moe, vlm), hybrid (Griffin)
+and audio (the encoder-decoder).  ``backend`` (forward, prefill,
 loss_fn) picks the SSD scan's implementation (``kernels.ops.ssd_scan``:
-K5 on the card, with K5-bwd under autograd); the transformer runs no
-kernel of ours and ignores it.
+K5 on the card, with K5-bwd under autograd); the other families run no
+kernel of ours and ignore it.
 """
 
 from __future__ import annotations
@@ -27,21 +28,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, griffin, layers, ssm, transformer
 
 _FAMILY = {
     "dense": transformer,
     "moe": transformer,
     "vlm": transformer,
     "ssm": ssm,
+    "hybrid": griffin,
+    "audio": encdec,
 }
 
 
 def module_for(cfg):
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP 1.9c); ported families: {sorted(_FAMILY)}")
     return _FAMILY[cfg.family]
 
 
@@ -52,16 +51,22 @@ def init_params(gen: torch.Generator, cfg, dtype=torch.float32):
 
 def forward(params, batch, cfg, cache=None, *, backend: str = "auto"):
     mod = module_for(cfg)
-    kw = {k: batch[k] for k in ("prefix_embeds", "positions") if k in batch}
+    extras = (("src_embeds", "memory") if cfg.family == "audio"
+              else ("prefix_embeds",)) + ("positions",)
+    kw = {k: batch[k] for k in extras if k in batch}
     return mod.forward(params, batch["tokens"], cfg, cache=cache,
                        backend=backend, **kw)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None):
-    """On the card unless ``device`` names another."""
-    return module_for(cfg).init_cache(cfg, batch, max_len, dtype,
-                                      device=device)
+               device=None, src_len: int | None = None):
+    """On the card unless ``device`` names another.  ``src_len`` sizes an
+    encoder-decoder's cross K/V (``max_len`` unless given)."""
+    mod = module_for(cfg)
+    if cfg.family == "audio":
+        return mod.init_cache(cfg, batch, max_len, dtype, device=device,
+                              src_len=src_len)
+    return mod.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
 @torch.no_grad()
@@ -79,8 +84,8 @@ def prefill(params, batch, cfg, cache, *, backend: str = "auto"):
 def decode_step(params, tokens, cfg, cache):
     """One decode step. tokens: (B, 1). Returns (logits (B, V), new_cache).
 
-    No kernel of ours runs: the SSM's single-step recurrence and the
-    transformer's attention over its cache are plain torch."""
+    No kernel of ours runs: the SSM's and the RG-LRU's single-step
+    recurrences and attention over a cache are plain torch."""
     logits, _, new_cache = forward(params, {"tokens": tokens}, cfg,
                                    cache=cache)
     return logits[:, -1, :], new_cache
@@ -89,7 +94,7 @@ def decode_step(params, tokens, cfg, cache):
 def stacked_params(params) -> dict:
     """The model's parameters in the reference's layout (a detached copy,
     layers stacked on a leading L axis): a train state's ``params``."""
-    return module_for(params.cfg).stack_layers(params.param_tree())
+    return layers.stack_layers(params.param_tree())
 
 
 def model_over(params: dict, cfg):

@@ -1,19 +1,22 @@
-"""Decode-time state: KV caches, ring buffers, SSM states.
+"""Decode-time state: KV caches, ring buffers, SSM and RG-LRU states.
 
-Port of ``repro/models/cache.py`` (``rglru_state`` comes with the Griffin
-family, ROADMAP 1.9c), with the same layouts: caches are stacked along a
-leading layer dim L; ``len`` is a scalar int32 on the device, the number
-of tokens already written (= the absolute position of the next token).
-KV caches store bf16 by default (attention accumulates in fp32);
-sliding-window layers use a ring of exactly ``window`` slots.
+Port of ``repro/models/cache.py``, with the same layouts: caches are
+stacked along a leading layer dim L; ``len`` is a scalar int32 on the
+device, the number of tokens already written (= the absolute position of
+the next token).  KV caches store bf16 by default (attention accumulates
+in fp32); sliding-window layers use a ring of exactly ``window`` slots.
 
 Writes are in place (``index_copy_`` at slots computed on the device from
 ``len``): a step writes the positions at and past the ``len`` it was
-given, which no step reads before writing them, so a cache may be decoded
-from again.  A transformer's cache is a ``KVCache``, which also counts on
-the host the positions written: a write past the end raises before any
-launch, where the reference's ``dynamic_update_slice`` clamps it onto the
-last slots.
+given, which no step reads before writing them, so a KV cache may be
+decoded from again (a ring, whose slots are reused, and Griffin's RG-LRU
+state, updated in place, may not).  A transformer's cache is a
+``KVCache``, which also counts on the host the positions written: a
+write past the end raises before any launch, where the reference's
+``dynamic_update_slice`` clamps it onto the last slots.  An
+encoder-decoder's cache is an ``EncDecCache``, which counts its
+decoder's self-attention positions the same way; its cross K/V are
+written once, at prefill, and are no positions.
 """
 
 from __future__ import annotations
@@ -45,6 +48,17 @@ class KVCache(dict):
                 f"{s} new positions after {self.written} written overrun a "
                 f"{self.max_len}-position KV cache: size it for the prefix, "
                 "the prompt and every generated token")
+
+
+class EncDecCache(KVCache):
+    """An encoder-decoder's decode cache, the reference's layout:
+    ``{"k", "v", "cross_k", "cross_v", "len"}`` with the decoder's layers
+    stacked, and ``written``: the self-attention positions written (the
+    cross K/V of the source are not counted)."""
+
+    @property
+    def max_len(self) -> int:
+        return self["k"].shape[2]
 
 
 def kv_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
@@ -104,6 +118,19 @@ def ssm_state(num_layers: int, batch: int, num_heads: int, head_dim: int,
         "conv": torch.zeros((num_layers, batch, conv_kernel - 1,
                              conv_channels), dtype=dtype, device=device),
         "len": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def rglru_state(num_layers: int, batch: int, width: int, conv_kernel: int,
+                dtype=torch.float32, device=None) -> dict:
+    """RG-LRU decode state of ``num_layers`` recurrent layers: the hidden
+    vector ``h`` (L, B, w) and the causal-conv tail ``conv``
+    (L, B, K-1, w)."""
+    return {
+        "h": torch.zeros((num_layers, batch, width), dtype=dtype,
+                         device=device),
+        "conv": torch.zeros((num_layers, batch, conv_kernel - 1, width),
+                            dtype=dtype, device=device),
     }
 
 

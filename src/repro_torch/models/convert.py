@@ -6,7 +6,10 @@ leading L axis (``repro.models.api.init_params``); handed over as a nested
 dict of numpy arrays, ``params_from_numpy`` builds the port's module from
 it, and ``ssm_state_from_numpy`` and ``kv_cache_from_numpy`` do the same
 for a decode cache.  A transformer's layers are stacked per segment
-(``{"segments": {"seg{i}": {"layers": ...}}}``).  A
+(``{"segments": {"seg{i}": {"layers": ...}}}``), Griffin's per pattern
+group with an unstacked tail (``{"groups": {"layers": ...}, "tail"}``),
+an encoder-decoder's per stack (``{"encoder": {"layers": ...},
+"decoder": {"layers": ...}}``).  A
 train state (``repro.train.init_state``: params, optimizer moments, step,
 error buffer) keeps that layout in the port too, so
 ``train_state_from_numpy`` carries it over leaf for leaf.  Values are
@@ -21,6 +24,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.cache import KVCache
+from repro_torch.models.griffin import _pattern
 from repro_torch.models.transformer import segments_spec
 
 
@@ -87,16 +91,28 @@ def train_state_from_numpy(tree: dict, cfg, device=None) -> dict:
 def _check_depth(params: dict, cfg) -> None:
     """Every layer stack as deep as the config says: ``num_layers`` for
     the ssm family, each segment's count (``segments_spec``) for the
-    transformer's."""
-    if "segments" not in params:
-        stacks = {"layers": (params["layers"], cfg.num_layers)}
-    else:
+    transformer's, the pattern groups (and the tail's layers) for
+    Griffin, each stack's count for an encoder-decoder."""
+    if "segments" in params:
         spec = segments_spec(cfg)
         if sorted(params["segments"]) != [f"seg{i}" for i in range(len(spec))]:
             raise ValueError(f"segments {sorted(params['segments'])} for a "
                              f"config of {len(spec)}")
         stacks = {f"seg{i}": (params["segments"][f"seg{i}"]["layers"], n)
                   for i, (_, n) in enumerate(spec)}
+    elif "groups" in params:
+        _, n_groups, tail = _pattern(cfg)
+        got_tail = sorted(params.get("tail", {}))
+        if got_tail != [f"b{j}" for j in range(len(tail))]:
+            raise ValueError(f"tail {got_tail} for a config whose tail is "
+                             f"{list(tail)}")
+        stacks = {"groups": (params["groups"]["layers"], n_groups)}
+    elif "encoder" in params:
+        stacks = {part: (params[part]["layers"], n) for part, n in (
+            ("encoder", cfg.num_encoder_layers),
+            ("decoder", cfg.num_decoder_layers))}
+    else:
+        stacks = {"layers": (params["layers"], cfg.num_layers)}
     for name, (layers, n) in stacks.items():
         depth = {int(v.shape[0]) for v in _leaves(layers)}
         if depth != {n}:

@@ -216,11 +216,14 @@ def attention_chunked(q, k, v, *, positions_q, positions_kv,
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Memory is
     O(Sq * block_kv) instead of O(Sq * Skv): the long-context prefill
     path.  fp32 running (max, sum, acc); exact softmax.  Padded keys get
-    position int32 max; a fully masked row gives 0.
+    position int32 max and never attend, bidirectional attention included
+    (the reference's attends to them there: ROADMAP Queue 3); a fully
+    masked row gives 0.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    real_kv = skv
     if skv % block_kv:
         pad = (-skv) % block_kv
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
@@ -240,6 +243,9 @@ def attention_chunked(q, k, v, *, positions_q, positions_kv,
         pkx = positions_kv[:, None, None, None, j:j + block_kv]
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kblk.float()) * scale
         mask = _mask(pqx, pkx, causal, sliding_window, kv_valid_len)
+        if j + block_kv > real_kv:         # the padded keys of the last block
+            real = torch.arange(j, j + block_kv, device=q.device) < real_kv
+            mask = real if mask is None else mask & real
         if mask is not None:
             s = torch.where(mask, s, -math.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))

@@ -23,9 +23,8 @@ scan runs through ``SSDScanFunction`` (K5 forward, K5-bwd backward).
 
 Shapes: d_inner = expand * d_model; H = d_inner / ssm_head_dim heads;
 B/C projections are per group (ssm_groups, ssm_state).  fp32 state math.
-The sequence-parallel scan (``ssd_seq_parallel``) comes with the mesh
-side of training (ROADMAP 1.9, sharding): ``cfg.ssm_seq_parallel``
-raises.
+The sequence-parallel scan (``ssd_seq_parallel``) comes with LM
+sharding (ROADMAP 1.9b): ``cfg.ssm_seq_parallel`` raises.
 """
 
 from __future__ import annotations
@@ -268,8 +267,8 @@ def forward(params: Mamba2LM, tokens, cfg, *, prefix_embeds=None,
     if cfg.ssm_seq_parallel:
         raise NotImplementedError(
             "ssm_seq_parallel: the sequence-parallel SSD scan "
-            "(ssd_seq_parallel) is not ported yet: it comes with the "
-            "sharding item of ROADMAP 1.9")
+            "(ssd_seq_parallel) is not ported yet: it comes with LM "
+            "sharding, ROADMAP 1.9b")
     dtype = L.as_dtype(cfg.dtype)
     p = L.cast_params(params.param_tree(), dtype)
     x = p["embed"][tokens].to(dtype)

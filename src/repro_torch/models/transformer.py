@@ -9,7 +9,7 @@ reference's layout stacks each segment's layers on a leading L axis:
     {"embed", "final_norm", ["lm_head"],
      "segments": {"seg{i}": {"layers": {... stacked leaves ...}}}}
 
-The model is an ``nn.Module`` (``TransformerLM``) whose parameters carry
+The model, ``TransformerLM``, is a ``TreeLM``: its parameters carry
 those names, with each segment's layers as a ``ModuleList``, so
 ``param_tree()`` gives the same dict with ``layers`` a list of per-layer
 dicts (``layers.stack_layers`` stacks it back).  ``forward`` casts it to
@@ -68,7 +68,8 @@ def layer_params(gen: torch.Generator, cfg, kind: str,
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: each tensor a parameter
-    (sharing its storage), each dict a child module, under the dict's
+    (sharing its storage), each dict a child module and each list of
+    dicts (a ``layers`` list) a ``ModuleList`` of them, under the dict's
     keys."""
 
     def __init__(self, tree: dict):
@@ -76,16 +77,50 @@ class ParamTree(nn.Module):
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
+            elif isinstance(v, list):
+                self.add_module(k, nn.ModuleList(ParamTree(t) for t in v))
             else:
                 self.register_parameter(k, nn.Parameter(v))
 
     def param_tree(self) -> dict:
         t = dict(self.named_parameters(recurse=False))
-        t.update({k: m.param_tree() for k, m in self.named_children()})
+        t.update({k: ([x.param_tree() for x in m]
+                      if isinstance(m, nn.ModuleList) else m.param_tree())
+                  for k, m in self.named_children()})
         return t
 
 
-class TransformerLM(nn.Module):
+class TreeLM(ParamTree):
+    """A model that is its parameter tree (the port's layout: each
+    ``layers`` a list of per-layer dicts) and ``cfg``: the transformer,
+    Griffin and encoder-decoder models."""
+
+    def __init__(self, cfg, tree: dict):
+        super().__init__(tree)
+        self.cfg = cfg
+
+    @classmethod
+    def over(cls, cfg, params: dict):
+        """The model over ``params`` in the reference's layout (every
+        ``layers`` stacked on a leading L axis): its parameters are views
+        of those tensors."""
+        return cls(cfg, unstack_layers(params))
+
+    def grad_tree(self) -> dict:
+        """The parameters' gradients in the reference's layout (layers
+        stacked, a copy); zeros where a parameter has none."""
+        return stack_layers(_grads(self.param_tree()))
+
+
+def _grads(t):
+    if isinstance(t, dict):
+        return {k: _grads(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_grads(v) for v in t]
+    return torch.zeros_like(t) if t.grad is None else t.grad
+
+
+class TransformerLM(TreeLM):
     """The decoder LM: fp32 master parameters and ``cfg``.
 
     ``tree`` is the nested parameter dict of ``init_params`` (each
@@ -93,50 +128,16 @@ class TransformerLM(nn.Module):
     builds one from the reference's stacked numpy pytree."""
 
     def __init__(self, cfg, tree: dict):
-        super().__init__()
-        self.cfg = cfg
-        self.embed = nn.Parameter(tree["embed"])
-        self.final_norm = ParamTree(tree["final_norm"])
-        self.lm_head = (None if cfg.tie_embeddings
-                        else nn.Parameter(tree["lm_head"]))
         spec = segments_spec(cfg)
         if sorted(tree["segments"]) != [f"seg{i}" for i in range(len(spec))]:
             raise ValueError(f"segments {sorted(tree['segments'])} for a "
                              f"config of {len(spec)}")
-        self.segments = nn.ModuleDict()
         for i, (_, n) in enumerate(spec):
             layers = tree["segments"][f"seg{i}"]["layers"]
             if len(layers) != n:
                 raise ValueError(f"seg{i}: {len(layers)} layers for a "
                                  f"segment of {n}")
-            self.segments[f"seg{i}"] = nn.ModuleList(
-                ParamTree(t) for t in layers)
-
-    def param_tree(self) -> dict:
-        t = {"embed": self.embed, "final_norm": self.final_norm.param_tree(),
-             "segments": {name: {"layers": [blk.param_tree() for blk in seg]}
-                          for name, seg in self.segments.items()}}
-        if self.lm_head is not None:
-            t["lm_head"] = self.lm_head
-        return t
-
-    @classmethod
-    def over(cls, cfg, params: dict) -> "TransformerLM":
-        """The model over ``params`` in the reference's layout (each
-        segment's layers stacked on a leading L axis): its parameters are
-        views of those tensors."""
-        return cls(cfg, unstack_layers(params))
-
-    def grad_tree(self) -> dict:
-        """The parameters' gradients in the reference's layout (layers
-        stacked, a copy); zeros where a parameter has none."""
-        def grads(t):
-            if isinstance(t, dict):
-                return {k: grads(v) for k, v in t.items()}
-            if isinstance(t, list):
-                return [grads(v) for v in t]
-            return torch.zeros_like(t) if t.grad is None else t.grad
-        return stack_layers(grads(self.param_tree()))
+        super().__init__(cfg, tree)
 
 
 LM = TransformerLM

@@ -49,8 +49,9 @@ def init_state(gen: torch.Generator, cfg, optimizer: Optimizer, *,
 def make_train_step(cfg, optimizer: Optimizer, *, clip_norm: float = 1.0,
                     num_microbatches: int = 1, compress: bool = False):
     """Returns step_fn(state, batch) -> (new_state, metrics).  ``batch``
-    holds "tokens" and "labels" (B, S) as tensors or numpy arrays; they go
-    to the parameters' device."""
+    holds "tokens" and "labels" (B, S) and the family's extras
+    ("prefix_embeds", "src_embeds") as tensors or numpy arrays; each goes
+    to the parameters' device in its own dtype."""
 
     def loss_fn(model, batch):
         return api.loss_fn(model, batch, cfg)

@@ -863,6 +863,91 @@ def test_transformer_on_the_card_equals_the_cpu(cuda_device, no_tf32, arch):
                                rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
+def test_griffin_and_encdec_on_the_card_equal_the_cpu(cuda_device, no_tf32,
+                                                      arch):
+    """Griffin's and the encoder-decoder's smoke configs in fp32: a
+    70-token prefill (past Griffin's 32-slot ring; 70 source frames) and
+    4 decode steps on the card, none waiting for it on the host, against
+    the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    cpu_model = api.init_params(torch.Generator().manual_seed(0), cfg)
+    models = {"cpu": cpu_model, "cuda": api.model_over(
+        _to(api.stacked_params(cpu_model), cuda_device), cfg)}
+    rng = np.random.default_rng(22)
+    toks = rng.integers(0, cfg.vocab_size, (2, 74)).astype(np.int32)
+    src = (rng.standard_normal((2, 70, cfg.d_model)) * 0.02).astype(
+        np.float32)
+    audio = cfg.family == "audio"
+    out = {}
+    for where, model in models.items():
+        t = torch.as_tensor(toks, device=where)
+        batch = {"tokens": t[:, :70]}
+        if audio:
+            batch["src_embeds"] = torch.as_tensor(src, device=where)
+        cache = api.init_cache(cfg, 2, 74, dtype=torch.float32, device=where,
+                               src_len=70 if audio else None)
+        if where == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg, cache = api.prefill(model, batch, cfg, cache)
+            steps = [lg]
+            for i in range(70, 74):
+                lg, cache = api.decode_step(model, t[:, i:i + 1], cfg, cache)
+                steps.append(lg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[where] = torch.stack(steps, 1).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=TF_CARD_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama4-scout-17b-a16e",
+                                  "llava-next-mistral-7b",
+                                  "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
+def test_train_step_on_the_card_equals_the_cpu(cuda_device, no_tf32, arch):
+    """One train step (AdamW) of each family's smoke config in fp32 from
+    the same seed-0 state: loss and grad norm within 1e-5 of the CPU's
+    (relative), every parameter within 5e-5 where its gradient is not
+    within a few AdamW eps of 0 (tests/_lm_parity.py)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import make_stream
+    from repro_torch.train import init_state, make_optimizer, make_train_step
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    opt = make_optimizer(cfg, peak_lr=1e-3, warmup=2, total_steps=40)
+    cpu_state = init_state(torch.Generator().manual_seed(0), cfg, opt)
+    card_state = _to(cpu_state, cuda_device)
+    batch = make_stream(cfg, 2, 64, 0).batch_at(0)
+    step = make_train_step(cfg, opt)
+    cpu_new, cpu_m = step(cpu_state, batch)
+    card_new, card_m = step(card_state, batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(card_m[k]) - float(cpu_m[k])) <= 1e-5 * abs(
+            float(cpu_m[k])), k
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {p: v for k in tree for p, v in leaves(
+                tree[k], f"{prefix}/{k}").items()}
+        return {prefix: tree.cpu()}
+
+    got, want = leaves(card_new["params"]), leaves(cpu_new["params"])
+    mu = leaves(cpu_new["opt"]["mu"])
+    for key, w in want.items():
+        away = mu[key].abs() >= 1e-7
+        assert float(((got[key] - w).abs() * away).max()) <= 5e-5, key
+
+
 @pytest.mark.parametrize("k,capacity_factor", [(1, 0.25), (2, 0.5),
                                                (2, 3.0)])
 def test_moe_block_on_the_card_equals_its_plain_version(cuda_device, no_tf32,

@@ -27,7 +27,8 @@ from repro.models import cache as ref_cache
 from repro.models import layers as ref_layers
 from repro.train.serve_step import decode_loop as ref_decode_loop
 from repro_torch import config
-from repro_torch.configs import ARCH_IDS, PORTED, get_config, smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, smoke_config
+from repro_torch.data import make_stream
 from repro_torch.launch import serve
 from repro_torch.models import api, cache, layers
 from repro_torch.models.convert import params_from_numpy, ssm_state_from_numpy
@@ -92,26 +93,10 @@ def test_arch_ids_and_ported_configs_equal_reference():
         ref.attention_free, ref.sub_quadratic, ref.is_moe)
 
 
-TRANSFORMER_ARCHS = ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b",
-                     "qwen2.5-3b", "qwen3-4b", "llama3-8b", "qwen2-1.5b",
-                     "llava-next-mistral-7b")
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
-                                  "recurrentgemma-9b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        get_config(arch)
-    # A config of another family, built by hand, is refused by the API.
-    cfg = dataclasses.replace(get_config(ARCH), family=ref_get_config(arch)
-                              .family)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        api.module_for(cfg)
-
-
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_ported_configs_equal_reference(arch):
-    assert set(PORTED) == set(TRANSFORMER_ARCHS) | {ARCH}
+    """Every architecture of the reference, its full and smoke configs
+    field for field; each has a model family and a data stream."""
     for cfg_fn, ref_fn in ((get_config, ref_get_config),
                            (smoke_config, ref_smoke_config)):
         assert (dataclasses.asdict(cfg_fn(arch))
@@ -122,6 +107,7 @@ def test_ported_configs_equal_reference(arch):
     assert cfg.param_count() == ref.param_count()
     assert cfg.active_param_count() == ref.active_param_count()
     assert api.module_for(cfg) is api.module_for(smoke_config(arch))
+    assert make_stream(smoke_config(arch), 2, 16).batch_at(0)["tokens"].shape[0] == 2
 
 
 def test_shapes_and_cells_equal_reference():

@@ -160,7 +160,7 @@ def test_params_from_numpy_carries_every_leaf_by_segment():
     stacked = {k: v for k, v in back.items()}
     over = api.model_over(stacked, cfg)
     stacked["segments"]["seg1"]["layers"]["moe"]["router"][1].fill_(3.0)
-    assert float(over.segments["seg1"][1].moe.router.detach().max()) == 3.0
+    assert float(over.segments.seg1.layers[1].moe.router.detach().max()) == 3.0
     bad = dict(ref)
     bad["segments"] = {"seg0": ref["segments"]["seg0"],
                        "seg1": jax.tree.map(lambda a: a[:1],
