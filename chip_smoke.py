@@ -195,6 +195,25 @@ non-zero before the result line is printed:
           shape beside its plain version, its bound at the 3xTF32 rate
           with the fp32 one beside it and its chunk form's GFLOP, and the
           train step's share of it logged
+  sharded Mamba2-130M's sharded paths on logical shards of the card
+          (ROADMAP 1.9b; a mesh listing the card 4 times), after timing
+          (run before it, its work left timing's exported traces with no
+          kernel event): the fp32 prefill of the lm request under
+          ssm_seq_parallel on a 1 x 4 mesh (path sp_prefill: K5 once a shard a layer, 96) against the
+          unsharded K5 prefill (logits, final state, a decode step through
+          each cache; then decode_loop from the sharded cache, path
+          sp_decode, no launch); ssd_seq_parallel alone under CUDA's sync
+          debug mode against the unsharded K5 and the plain scan; the bf16
+          prefill's warm times sharded and not, and a profile of the
+          sharded one; step 1's fp32 gradient of the train phase's state
+          and batch on a 2 x 2 mesh against the unsharded one; 4 fp32
+          steps through run_training(state_shardings=...) with a fault at
+          step 3 (path sp_train: K5 and K5-bwd 96 times each a step),
+          step 1 against the unsharded fp32 step, beside the unsharded
+          fp32 step's time; launch/train.py --mesh host for 2 steps
+          (path train_mesh_host) bit-equal to --mesh none; K5 and K5-bwd
+          timed at the shard shapes (4 x 256 and 2 x 512) beside their
+          bounds
   transformer at scale
           last, because after half a minute of this serving the card's
           kernel timestamps leave the profiler's window (Kineto counts
@@ -216,7 +235,10 @@ non-zero before the result line is printed:
           2 layers, the same request: each MoE layer of the fp32 prefill
           against moe_block_plain (TF_MOE_RTOL), its dropped assignments
           and aux loss, the cache against the full forward (capacity factor
-          16: no drops), the bf16 reading and times.  Before that
+          16: no drops), the fp32 prefill through the expert-parallel MoE
+          on 4 logical shards (4 experts each; path moe_ep_prefill)
+          against the mesh-free one (TF_EP_ATOL32) with both warm times,
+          the bf16 reading and times.  Before that
           serving, the profiles of recurrentgemma-9b's 4 x 256 prefill
           and decode steps, and qwen2-1.5b's uninterrupted run of (c)
           below (8 steps, the loss finite and falling, step ms, tokens/s
@@ -237,12 +259,16 @@ non-zero before the result line is printed:
           times) and 4 train steps of 2 x 1024 tokens and frames (4
           rows run out of memory at the fp32 logits); (e)
           recurrentgemma-9b at its published widths cut to one pattern
-          group (3 layers), 4 train steps of 2 x 1024; no kernel of ours
-          launched; the kernels line's launches_by_path are read after it
+          group (3 layers), 4 train steps of 2 x 1024; (f) the same one
+          group in fp32, a 1 x 2048 forward and a prefill into an fp32
+          cache under rnn_seq_parallel on 4 logical shards (path
+          sp_rglru) against the unsharded model (HY_SP_ATOL32), with both
+          warm forward times; no kernel of ours launched; the kernels
+          line's launches_by_path are read after it
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
-service, mesh, lm, transformer, families, train, transformer at scale
-and families at scale phases
+service, mesh, lm, transformer, families, train, sharded, transformer at
+scale and families at scale phases
 runs with all seven launch counters set to 0 just before it and read
 just after; the kernels line carries each kernel's counts per path
 (``launches_by_path``).
@@ -414,6 +440,33 @@ ED_TRAIN_STEPS, ED_TRAIN_BATCH, ED_TRAIN_SEQ = 4, 2, 1024
 # and head; its 38 layers' AdamW state, 16 B a parameter, is 153 GB):
 # HY_TRAIN_STEPS steps of HY_TRAIN_BATCH x HY_TRAIN_SEQ tokens.
 HY_TRAIN_LAYERS, HY_TRAIN_STEPS, HY_TRAIN_BATCH, HY_TRAIN_SEQ = 3, 4, 2, 1024
+# The sharded phase: Mamba2-130M's sharded paths on logical shards of the
+# one card (a mesh that lists it several times).  (a) The fp32 prefill of
+# the lm phase's request (LM_BATCH x LM_PROMPT) under ssm_seq_parallel on a
+# SP_PREFILL_MESH (data, model) mesh: S split in 4, K5 once a shard a
+# layer; logits and a decode step through its cache within LM_ATOL32 of
+# the unsharded K5 prefill.  (b) Step 1's fp32 gradient of the train
+# phase's state and batch on a SP_TRAIN_MESH mesh (B and S split in 2)
+# within TRAIN_*32_RTOL of the unsharded one, then SP_TRAIN_STEPS steps
+# through run_training(state_shardings=...) with a fault at
+# SP_TRAIN_FAIL_AT (restored from the step-2 checkpoint).  (c)
+# launch/train.py --mesh host (a (1, 1) mesh) for MESH_HOST_STEPS steps,
+# bit-equal to --mesh none.  Measured on the H100: prefill logits 1.7e-5,
+# step 1's gradient 2.2e-5 of its largest magnitude, grad norm 2.9e-7.
+SP_PREFILL_MESH, SP_TRAIN_MESH = (1, 4), (2, 2)
+SP_TRAIN_STEPS, SP_TRAIN_FAIL_AT, MESH_HOST_STEPS = 4, 3, 2
+# In families at scale: recurrentgemma-9b at its published widths, one
+# pattern group (HY_TRAIN_LAYERS), fp32, a 1 x HY_SP_SEQ forward and a
+# prefill into an fp32 cache under rnn_seq_parallel on a (1, 4) mesh
+# against the unsharded model: logits (softcapped at 30) and the RG-LRU
+# state; measured on the H100 1.6e-5 (logits up to 5.8).
+HY_SP_SEQ, HY_SP_ATOL32 = 2048, 1e-3
+# In transformer at scale: llama4-scout's fp32 prefill (2 layers, 16
+# experts) through the expert-parallel MoE on a (1, 4) mesh (4 experts a
+# shard) against moe_block's mesh-free path, both at capacity factor 16
+# (no drops): the logits (|logit| up to ~5), the partials summed in
+# another order; measured on the H100 1.4e-5.
+TF_EP_ATOL32 = 1e-4
 # K1's shapes, (n, h, w, bins, with a carry), and the paths whose launches
 # each one counts: the dense clip; one frame (the first video frame and
 # the 50% fallback); a video frame's 48-row dirty run with its carry; one
@@ -1169,6 +1222,9 @@ def serve_at_scale(torch, dev, arch, counted, tally, read_counts, only):
     check(err_cache <= TF_CACHE_ATOL32,
           f"decode through the cache off the full forward by {err_cache}")
     del steps, full, c, full_req
+    if cfg.is_moe:
+        expert_parallel_prefill(torch, dev, counted, only, params, request,
+                                cfg_cache, fresh)
 
     # The served bf16 prefill against the fp32 model, beside two wrong
     # answers the gate must refuse (another prompt's fp32 logits, the fp32
@@ -1251,6 +1307,50 @@ def serve_at_scale(torch, dev, arch, counted, tally, read_counts, only):
         del toks
     del params, request, first
     torch.cuda.empty_cache()
+
+
+def expert_parallel_prefill(torch, dev, counted, only, params, request,
+                            cfg32, fresh):
+    """(c) llama4-scout's fp32 prefill through the expert-parallel MoE on
+    MESH_SHARDS logical shards (path moe_ep_prefill) against moe_block's
+    mesh-free path, both at ``cfg32``'s capacity factor (16: no drops);
+    the host time of each call."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, moe
+    from repro_torch.sharding import sharding_context
+
+    mesh = make_host_mesh((1, MESH_SHARDS), devices=[dev] * MESH_SHARDS)
+
+    def free():
+        return api.prefill(params, request, cfg32, fresh(torch.float32))
+
+    def sharded():
+        with sharding_context(mesh):
+            return free()
+
+    with CallCount(moe, "moe_block") as free_calls:
+        (want, _), t_free, counts = counted(None, free)
+    tf_zero(counts, "the mesh-free fp32 prefill", only)
+    with CallCount(moe, "_expert_parallel") as ep_calls:
+        (got, _), t_ep, counts = counted("moe_ep_prefill", sharded)
+    tf_zero(counts, "the expert-parallel fp32 prefill", only)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    del got, want
+    log(f"   (c) fp32 prefill through the expert-parallel MoE on "
+        f"{MESH_SHARDS} logical shards ({cfg32.num_experts // MESH_SHARDS} "
+        f"experts each, _expert_parallel {ep_calls.calls} times) vs "
+        f"moe_block's mesh-free path (capacity factor "
+        f"{cfg32.capacity_factor}): last logits max abs err {err:.3e} "
+        f"(|logit| up to {scale:.3f}, tolerance {TF_EP_ATOL32}); host clock, "
+        f"one call each (the mesh-free one warm): mesh-free "
+        f"{t_free * 1e3:.3f} ms, expert-parallel {t_ep * 1e3:.3f} ms | card "
+        f"{card_line()}")
+    check(ep_calls.calls == free_calls.calls > 0,
+          f"the sharded prefill ran _expert_parallel {ep_calls.calls} times, "
+          f"the mesh-free one moe_block {free_calls.calls}")
+    check(err <= TF_EP_ATOL32,
+          f"the expert-parallel prefill is off the mesh-free one by {err}")
 
 
 def transformer_profiles(torch, dev):
@@ -1568,7 +1668,8 @@ def families_at_scale(torch, dev, counted, tally, read_counts, only,
             ("hybrid_served", lambda: hybrid_served(*args)),
             ("encdec_served_and_trained",
              lambda: encdec_served_and_trained(*args)),
-            ("hybrid_trained", lambda: hybrid_trained(*args))):
+            ("hybrid_trained", lambda: hybrid_trained(*args)),
+            ("hybrid_seq_parallel", lambda: hybrid_seq_parallel(*args))):
         t0 = time.perf_counter()
         cell()
         torch.cuda.empty_cache()
@@ -1772,6 +1873,82 @@ def hybrid_trained(torch, dev, counted, tally, read_counts, only):
               HY_TRAIN_BATCH, HY_TRAIN_SEQ, peak)
 
 
+def hybrid_seq_parallel(torch, dev, counted, tally, read_counts, only):
+    """(f) recurrentgemma-9b at its published widths, one pattern group,
+    fp32: a 1 x HY_SP_SEQ forward and a prefill into an fp32 cache under
+    rnn_seq_parallel on MESH_SHARDS logical shards against the unsharded
+    model (path sp_rglru; no kernel of ours)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, griffin
+    from repro_torch.sharding import sharding_context
+
+    cfg = dataclasses.replace(get_config(HY_ARCH), num_layers=HY_TRAIN_LAYERS,
+                              dtype="float32")
+    sp = dataclasses.replace(cfg, rnn_seq_parallel=True)
+    mesh = make_host_mesh((1, MESH_SHARDS), devices=[dev] * MESH_SHARDS)
+    params, request = serve.make_request(cfg, 1, HY_SP_SEQ, TF_SEED, dev)
+    rec_layers = list(cfg.block_pattern).count("rec")
+
+    def sharded(fn):
+        def run():
+            with sharding_context(mesh):
+                return fn()
+        return run
+
+    def fresh():
+        return serve.init_request_cache(cfg, 1, HY_SP_SEQ, 1,
+                                        dtype=torch.float32)
+
+    with torch.no_grad():
+        (want, _, _), _, counts = counted(
+            None, lambda: api.forward(params, request, cfg))
+        tf_zero(counts, f"{HY_ARCH}'s unsharded forward", only)
+        with CallCount(griffin, "_rglru_seq_parallel") as sp_calls:
+            (got, _, _), _, counts = counted("sp_rglru", sharded(
+                lambda: api.forward(params, request, sp)))
+        tf_zero(counts, f"{HY_ARCH}'s sequence-parallel forward", only)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        del got, want
+        lg_un, c_un = api.prefill(params, request, cfg, fresh())
+        (lg_sp, c_sp), _, counts = counted("sp_rglru", sharded(
+            lambda: api.prefill(params, request, sp, fresh())))
+        tf_zero(counts, f"{HY_ARCH}'s sequence-parallel prefill", only)
+    err_pre = float((lg_sp - lg_un).abs().max())
+    h_keys = [j for j, kind in enumerate(cfg.block_pattern) if kind == "rec"]
+    err_h = max(float((c_sp["groups"][f"b{j}"]["h"]
+                       - c_un["groups"][f"b{j}"]["h"]).abs().max())
+                for j in h_keys)
+    scale_h = max(float(c_un["groups"][f"b{j}"]["h"].abs().max())
+                  for j in h_keys)
+    del lg_sp, lg_un, c_sp, c_un
+    log(f"   (f) {HY_ARCH} at {HY_TRAIN_LAYERS} layers, fp32, 1x{HY_SP_SEQ} "
+        f"under rnn_seq_parallel on {MESH_SHARDS} logical shards "
+        f"(_rglru_seq_parallel {sp_calls.calls} times, once a recurrent "
+        f"layer; no kernel of ours) vs unsharded: forward logits max abs "
+        f"err {err:.3e} (|logit| up to {scale:.3f}, tolerance "
+        f"{HY_SP_ATOL32}); prefill into an fp32 cache: last logits "
+        f"{err_pre:.3e}, RG-LRU state {err_h:.3e} (|h| up to {scale_h:.3f})")
+    check(sp_calls.calls == rec_layers,
+          f"the sharded forward ran _rglru_seq_parallel {sp_calls.calls} "
+          f"times, want {rec_layers}")
+    check(max(err, err_pre, err_h) <= HY_SP_ATOL32,
+          f"{HY_ARCH}'s sequence-parallel RG-LRU is off the unsharded scan "
+          f"by {max(err, err_pre, err_h)}")
+    with torch.no_grad():
+        ms_un = request_ms(lambda: api.forward(params, request, cfg), reps=3)
+        ms_sp = request_ms(sharded(lambda: api.forward(params, request, sp)),
+                           reps=3)
+    log(f"   (f) fp32 forward 1x{HY_SP_SEQ}, warm, host clock, median of 3: "
+        f"unsharded {ms_un:.3f} ms, sequence-parallel on {MESH_SHARDS} "
+        f"logical shards {ms_sp:.3f} ms | card {card_line()}")
+    del params, request
+
+
 def flat(tree, prefix=""):
     """A nested dict's leaves by '/'-joined path."""
     if isinstance(tree, dict):
@@ -1837,6 +2014,354 @@ def check_restart_equal(torch, faulty, clean, f_steps, c_steps) -> None:
         f", uninterrupted {[round(m['loss'], 6) for _, _, m in c_steps]}")
     check(equal, "the restarted run does not end equal to the "
           "uninterrupted one (every op on the path is deterministic)")
+
+
+def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
+    """The sharded phase (see the module docstring): Mamba2-130M's
+    sequence-parallel prefill and training on logical shards of the card
+    and launch/train.py --mesh host.  Returns K5's and K5-bwd's times at
+    the shard shapes, for the kernels line."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_stream
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.ssm import ssd_seq_parallel
+    from repro_torch.kernels.ssd_scan import (
+        KERNEL_CHUNK, ssd_scan_bwd_cuda, ssd_scan_cuda, ssd_scan_plain,
+    )
+    from repro_torch.sharding import ShardingRules, sharding_context
+    from repro_torch.train import (
+        CheckpointManager, FaultInjector, init_state, make_optimizer,
+        make_train_step, run_training, state_shardings,
+    )
+    from repro_torch.train import grad as train_grad
+    from repro_torch.train.serve_step import decode_loop, make_serve_fns
+    from repro_torch.train.train_step import eval_shape
+
+    rules = ShardingRules()
+    cfg = get_config(LM_ARCH)
+    nl = cfg.num_layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    sp32 = dataclasses.replace(cfg32, ssm_seq_parallel=True)
+    sp16 = dataclasses.replace(cfg, ssm_seq_parallel=True)
+
+    def mesh_of(shape):
+        return make_host_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+
+    mesh_p, mesh_t = mesh_of(SP_PREFILL_MESH), mesh_of(SP_TRAIN_MESH)
+    p_shards = SP_PREFILL_MESH[0] * SP_PREFILL_MESH[1]
+    t_shards = SP_TRAIN_MESH[0] * SP_TRAIN_MESH[1]
+
+    def in_ctx(mesh, fn):
+        def run():
+            with sharding_context(mesh, rules):
+                return fn()
+        return run
+
+    # (a) The fp32 prefill, sharded and not; a decode step through each
+    # cache; then decode_loop from the sharded cache.
+    params, batch = serve.make_request(cfg, LM_BATCH, LM_PROMPT, LM_SEED, dev)
+    max_len = LM_PROMPT + LM_GEN
+
+    def fresh():
+        return api.init_cache(cfg, LM_BATCH, max_len)
+
+    (want, want_cache), _, counts = counted(
+        None, lambda: api.prefill(params, batch, cfg32, fresh()))
+    check(counts == only(ssd_scan=nl), f"the unsharded prefill launched "
+          f"{counts}")
+    (got, cache), _, sp_counts = counted("sp_prefill", in_ctx(
+        mesh_p, lambda: api.prefill(params, batch, sp32, fresh())))
+    check(sp_counts == only(ssd_scan=nl * p_shards),
+          f"the sharded prefill launched {sp_counts}, want K5 "
+          f"{nl} x {p_shards} times (once a shard a layer)")
+    err = float((got - want).abs().max())
+    h_err = float((cache["h"] - want_cache["h"]).abs().max())
+    h_scale = float(want_cache["h"].abs().max())
+    tok = torch.argmax(want, dim=-1).to(torch.int32)
+    (lg_sp, cache), _, counts = counted("sp_decode", in_ctx(
+        mesh_p, lambda: api.decode_step(params, tok[:, None], sp32, cache)))
+    check(counts == only(), f"a decode step launched {counts}")
+    lg_un, _ = api.decode_step(params, tok[:, None], cfg32, want_cache)
+    err_dec = float((lg_sp - lg_un).abs().max())
+    log(f"   {LM_ARCH} fp32 prefill {LM_BATCH}x{LM_PROMPT} under "
+        f"ssm_seq_parallel on a {SP_PREFILL_MESH} mesh of the card "
+        f"(shards of {LM_BATCH}x{LM_PROMPT // p_shards}): launched "
+        f"{sp_counts}, the decode step {counts}; last-position logits vs the "
+        f"unsharded K5 prefill: max abs err {err:.3e} (|logit| up to "
+        f"{float(want.abs().max()):.3f}, tolerance {LM_ATOL32}); final "
+        f"SSD state {h_err:.3e} (|h| up to {h_scale:.3f}); a decode step "
+        f"through each cache {err_dec:.3e}")
+    check(err <= LM_ATOL32 and err_dec <= LM_ATOL32,
+          f"the sharded prefill's logits are off the unsharded ones by "
+          f"{err} (decode {err_dec})")
+    check(h_err <= LM_ATOL32 * max(h_scale, 1.0),
+          f"the sharded prefill's final state is off by {h_err}")
+    (toks, _), _, counts = counted("sp_decode", in_ctx(
+        mesh_p, lambda: decode_loop(params, torch.argmax(lg_sp, -1).to(
+            torch.int32), cache, sp32, LM_GEN - 1)))
+    check(counts == only() and tuple(toks.shape) == (LM_BATCH, LM_GEN - 1)
+          and 0 <= int(toks.min()) and int(toks.max()) < cfg.padded_vocab,
+          f"decode_loop from the sharded cache: {counts}, {toks.shape}")
+    del want, want_cache, got, cache, lg_sp, lg_un, toks
+
+    # The ladder alone at K5's shape under CUDA's sync debug mode: no
+    # host sync between the shards.
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(torch, dev, 41)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y_sp, h_sp = ssd_seq_parallel(x, dt, A, Bm, Cm, K5_SHAPE[5], mesh_p,
+                                      rules, h0=h0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    y_un, h_un = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=K5_SHAPE[5], h0=h0)
+    y_pl, h_pl = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=K5_SHAPE[5], h0=h0)
+    ladder = {name: (float((a - b).abs().max()), float(b.abs().max()))
+              for name, a, b in (("y vs K5", y_sp, y_un),
+                                 ("h vs K5", h_sp, h_un),
+                                 ("y vs plain", y_sp, y_pl),
+                                 ("h vs plain", h_sp, h_pl))}
+    log("   ssd_seq_parallel alone at " + "x".join(map(str, K5_SHAPE[:4]))
+        + f", N={K5_SHAPE[4]}, random h0, {p_shards} shards, CUDA sync "
+        "debug mode \"error\" (no host sync): max abs err "
+        + ", ".join(f"{k} {e:.3e} (of {m:.3f})"
+                    for k, (e, m) in ladder.items()))
+    check(all(torch.allclose(a, b, atol=K5_ATOL, rtol=K5_RTOL) for a, b in (
+        (y_sp, y_un), (h_sp, h_un), (y_sp, y_pl), (h_sp, h_pl))),
+          f"ssd_seq_parallel is off the unsharded scan: {ladder}")
+    del x, dt, A, Bm, Cm, h0, y_sp, h_sp, y_un, h_un, y_pl, h_pl
+
+    # Warm times of the served (bf16) prefill, sharded and not.
+    prefill_un, _ = make_serve_fns(cfg)
+    prefill_sp, _ = make_serve_fns(sp16)
+    ms_un = request_ms(lambda: prefill_un(params, batch, fresh()), reps=3)
+    ms_sp = request_ms(in_ctx(mesh_p, lambda: prefill_sp(params, batch,
+                                                         fresh())), reps=3)
+    log(f"   bf16 prefill {LM_BATCH}x{LM_PROMPT}, warm, host clock, median "
+        f"of 3: unsharded {ms_un:.3f} ms ({nl} K5 launches), "
+        f"sequence-parallel on {p_shards} logical shards {ms_sp:.3f} ms "
+        f"({nl * p_shards} K5 launches) | card {card_line()}")
+    log(f"   sequence-parallel bf16 prefill, torch.profiler over 3: "
+        + profile_requests(torch, in_ctx(mesh_p, lambda: [
+            prefill_sp(params, batch, fresh()) for _ in range(3)]), n=3))
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # (b) Step 1's fp32 gradient, sharded and not, from the train phase's
+    # state (its seed) and batch (the stream's first).
+    state0 = init_state(torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                        cfg, make_optimizer(cfg))
+    batch0 = {k: torch.as_tensor(v).to(dev) for k, v in make_stream(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED).batch_at(0).items()}
+
+    def grads(c, mesh):
+        model = api.model_over(state0["params"], c)
+
+        def run():
+            return train_grad.accumulate_grads(
+                lambda m, b: api.loss_fn(m, b, c), model, batch0, 1)
+        (loss, _, g), _, counts = counted(
+            None, run if mesh is None else in_ctx(mesh, run))
+        return float(loss), flat(g), float(train_grad.global_norm(g)), counts
+
+    l32, g32, n32, counts = grads(cfg32, None)
+    lsp, gsp, nsp, counts = grads(sp32, mesh_t)
+    check(counts == only(ssd_scan=nl * t_shards, ssd_scan_bwd=nl * t_shards),
+          f"the sharded gradient launched {counts}, want K5 and K5-bwd "
+          f"{nl} x {t_shards} times each")
+    leaf_err = {k: float((gsp[k] - g32[k]).abs().max() / g32[k].abs().max())
+                for k in g32}
+    worst = max(leaf_err, key=leaf_err.get)
+    log(f"   step 1's fp32 gradient on a {SP_TRAIN_MESH} mesh (shards of "
+        f"{TRAIN_BATCH // SP_TRAIN_MESH[0]}x"
+        f"{TRAIN_SEQ // SP_TRAIN_MESH[1]}) vs unsharded: loss {lsp:.6f} vs "
+        f"{l32:.6f} (rel {abs(lsp - l32) / abs(l32):.3e}, tolerance "
+        f"{TRAIN_LOSS32_RTOL}), grad norm {nsp:.6f} vs {n32:.6f} (rel "
+        f"{abs(nsp - n32) / n32:.3e}, {TRAIN_GNORM32_RTOL}), largest "
+        f"gradient error over its largest magnitude {leaf_err[worst]:.3e} "
+        f"({worst}, tolerance {TRAIN_GRAD32_RTOL})")
+    check(sorted(gsp) == sorted(g32)
+          and all(bool(torch.isfinite(g).all()) for g in gsp.values()),
+          "the sharded gradient has other leaves or is not finite")
+    check(abs(lsp - l32) <= TRAIN_LOSS32_RTOL * abs(l32)
+          and abs(nsp - n32) <= TRAIN_GNORM32_RTOL * n32
+          and leaf_err[worst] <= TRAIN_GRAD32_RTOL,
+          "the sharded fp32 step 1 is off the unsharded one")
+    del g32, gsp, state0, batch0
+
+    # SP_TRAIN_STEPS steps through run_training(state_shardings=...), a
+    # fault at SP_TRAIN_FAIL_AT, the restore placed by the shardings.
+    opt = make_optimizer(sp32, peak_lr=3e-4, warmup=5,
+                         total_steps=SP_TRAIN_STEPS)
+
+    def init_fn(device=dev):
+        return init_state(torch.Generator(device=device).manual_seed(
+            TRAIN_SEED), sp32, opt)
+
+    st_sh = state_shardings(eval_shape(lambda: init_fn("cpu")), mesh_t, rules)
+    step_fn = make_train_step(sp32, opt)
+    steps_log = []
+
+    def sharded_step(state, b):
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        with sharding_context(mesh_t, rules):
+            new_state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        after = read_counts()
+        steps_log.append(((time.perf_counter() - t0) * 1e3,
+                          {k: after[k] - before[k] for k in after},
+                          {k: float(v) for k, v in metrics.items()}))
+        return new_state, metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        (state, _), secs, counts = counted("sp_train", lambda: run_training(
+            init_state_fn=init_fn, train_step=sharded_step,
+            stream=make_stream(sp32, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED),
+            ckpt=CheckpointManager(ckpt_dir), num_steps=SP_TRAIN_STEPS,
+            ckpt_every=2, state_shardings=st_sh,
+            injector=FaultInjector((SP_TRAIN_FAIL_AT,)), log_every=1))
+    peak = torch.cuda.max_memory_allocated()
+    resumed = SP_TRAIN_FAIL_AT // 2 * 2
+    want_steps = SP_TRAIN_FAIL_AT + SP_TRAIN_STEPS - resumed
+    sp_ms = statistics.median(ms for ms, _, _ in steps_log[1:])
+    log(f"   run_training(state_shardings=...) on the {SP_TRAIN_MESH} mesh, "
+        f"fp32, {SP_TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} with a "
+        f"fault at step {SP_TRAIN_FAIL_AT}: {secs:.1f} s, {len(steps_log)} "
+        f"steps run (restored at step {resumed}), launched {counts}; "
+        f"losses {[round(m['loss'], 6) for _, _, m in steps_log]}; step 1 "
+        f"loss {steps_log[0][2]['loss']:.6f}, grad norm "
+        f"{steps_log[0][2]['grad_norm']:.6f}; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    check(len(steps_log) == want_steps
+          and int(state["step"]) == SP_TRAIN_STEPS,
+          f"{len(steps_log)} steps run, want {want_steps}")
+    for i, (_, c, m) in enumerate(steps_log):
+        check(c == only(ssd_scan=nl * t_shards, ssd_scan_bwd=nl * t_shards),
+              f"sharded step {i} launched {c}, want K5 and K5-bwd "
+              f"{nl} x {t_shards} times each")
+        check(math.isfinite(m["loss"]), f"sharded step {i}: loss {m}")
+    check(abs(steps_log[0][2]["loss"] - l32) <= TRAIN_LOSS32_RTOL * abs(l32)
+          and abs(steps_log[0][2]["grad_norm"] - n32)
+          <= TRAIN_GNORM32_RTOL * n32,
+          "the sharded run's step 1 is off the unsharded fp32 step")
+    check(all(t.device.type == dev.type for t in flat(state).values()),
+          "the restored sharded state left the mesh's first device")
+    del state
+
+    # The unsharded fp32 step beside it (the same state, stream and
+    # optimizer, no context).
+    opt32 = make_optimizer(cfg32, peak_lr=3e-4, warmup=5,
+                           total_steps=SP_TRAIN_STEPS)
+    state = init_state(torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                       cfg32, opt32)
+    step32 = make_train_step(cfg32, opt32)
+    stream = make_stream(cfg32, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED)
+    un_ms = []
+    for i in range(SP_TRAIN_STEPS):
+        b = stream.batch_at(i)
+        (state, _), t, counts = counted(None, lambda: step32(state, b))
+        check(counts == only(ssd_scan=nl, ssd_scan_bwd=nl),
+              f"the unsharded fp32 step launched {counts}")
+        un_ms.append(t * 1e3)
+    del state
+    log(f"   fp32 train step {TRAIN_BATCH}x{TRAIN_SEQ}, warm, host clock, "
+        f"median of steps 2..{SP_TRAIN_STEPS}: unsharded "
+        f"{statistics.median(un_ms[1:]):.3f} ms ({nl} K5 + {nl} K5-bwd "
+        f"launches), sequence-parallel on {t_shards} logical shards "
+        f"{sp_ms:.3f} ms ({nl * t_shards} + {nl * t_shards}) | card "
+        f"{card_line()}")
+    torch.cuda.empty_cache()
+
+    # (c) launch/train.py --mesh host against --mesh none.
+    argv = ["--arch", LM_ARCH, "--steps", str(MESH_HOST_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed",
+            str(TRAIN_SEED)]
+    runs = {}
+    for mesh in ("none", "host"):
+        state, _, secs, counts, steps = train_main(
+            torch, counted, read_counts,
+            "train_mesh_host" if mesh == "host" else None,
+            argv + ["--mesh", mesh])
+        check(counts == only(ssd_scan=nl * MESH_HOST_STEPS,
+                             ssd_scan_bwd=nl * MESH_HOST_STEPS),
+              f"--mesh {mesh} launched {counts}")
+        runs[mesh] = (flat(state), [m["loss"] for _, _, m in steps], secs)
+    a, b = runs["none"][0], runs["host"][0]
+    equal = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                           for k in a)
+    log(f"   launch/train.py --mesh host ({MESH_HOST_STEPS} steps on a "
+        f"(1, 1) mesh, inside the sharding context) vs --mesh none: "
+        f"{len(a)} leaves bit for bit {'equal' if equal else 'unequal'}; "
+        f"losses {runs['host'][1]} vs {runs['none'][1]}; "
+        f"{runs['host'][2]:.1f} s vs {runs['none'][2]:.1f} s")
+    check(equal, "--mesh host does not end equal to --mesh none")
+    del runs, a, b, state
+    torch.cuda.empty_cache()
+
+    # K5 and K5-bwd at the shard shapes, as the paths call them: K5 from
+    # a zero state (every shard but the first; it writes h_last), K5-bwd
+    # with the gradient of h_last the ladder hands back; first at the
+    # full shape in the same position of the run, to compare with.
+    times = {"ssd_scan": [], "ssd_scan_bwd": []}
+    for path, (bsz, seq) in (
+            (None, (K5_SHAPE[0], K5_SHAPE[1])),
+            ("sp_prefill", (LM_BATCH, LM_PROMPT // p_shards)),
+            ("sp_train", (TRAIN_BATCH // SP_TRAIN_MESH[0],
+                          TRAIN_SEQ // SP_TRAIN_MESH[1]))):
+        x, dt, A, Bm, Cm, _ = (t[:bsz] if t.dim() > 1 else t
+                               for t in ssd_inputs(torch, dev, 42, seq))
+        _, heads, pdim = x.shape[1:]
+        n = Bm.shape[-1]
+        shape = f"{bsz}x{seq}x{heads}x{pdim}, N={n}"
+        ms = time_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm,
+                                           chunk=K5_SHAPE[5]))
+        ops_f = 4 * bsz * heads * seq * n * pdim
+        bytes_f = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel()
+                       + Cm.numel() + bsz * heads * n * pdim)
+        timed = [("ssd_scan", ms, bytes_f, ops_f)]
+        if path != "sp_prefill":            # no backward on the prefill
+            _, _, states = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=K5_SHAPE[5],
+                                         return_states=True)
+            r = np.random.default_rng(43)
+            gy = torch.as_tensor(r.standard_normal(tuple(x.shape)),
+                                 dtype=torch.float32, device=dev)
+            ghl = torch.as_tensor(r.standard_normal((bsz, heads, n, pdim)),
+                                  dtype=torch.float32, device=dev)
+            ms_b = time_ms(lambda: ssd_scan_bwd_cuda(
+                x, dt, A, Bm, Cm, gy, states=states, chunk=K5_SHAPE[5],
+                g_hlast=ghl))
+            kept = bsz * heads * -(-seq // KERNEL_CHUNK) * n * pdim
+            bytes_b = 4 * (2 * (x.numel() + dt.numel() + Bm.numel()
+                                + Cm.numel())
+                           + gy.numel() + kept + ghl.numel() + heads)
+            timed.append(("ssd_scan_bwd", ms_b, bytes_b,
+                          10 * bsz * heads * seq * n * pdim))
+            del states, gy, ghl
+        for name, t, nbytes, nops in timed:
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / TF32X3_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"   {name} at "
+                + (f"the {path} shard shape" if path else "the full shape")
+                + f" {shape}: {t:.4f} ms a launch | bound {bound:.4f} ms by "
+                f"{by} at the 3xTF32 rate, {bound / t:.1%} of it | card "
+                f"{card_line()}")
+            if path is not None:
+                times[name].append({"shape": shape, "path": path, "ms": t,
+                                    "bound_ms": bound, "bound_by": by})
+        del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
+    return times
 
 
 def main() -> int:
@@ -4039,6 +4564,14 @@ def run(torch) -> list[dict]:
         del state0, batch0, train_profile_step
         torch.cuda.empty_cache()
 
+    # After timing: run before it, this phase's ~19 s of work left the
+    # timing phase's exported traces with no kernel event (Kineto's
+    # out-of-range drops, ROADMAP Open items).
+    with phase(f"sharded: {LM_ARCH}'s sequence-parallel prefill and "
+               "training on logical shards, launch/train.py --mesh host"):
+        shard_times = sharded_phase(torch, dev, counted, tally, read_counts,
+                                    only)
+
     with phase("transformer at scale: llava-next-mistral-7b and "
                "llama4-scout through repro_torch.launch.serve"):
         clean = transformer_at_scale(torch, dev, counted, tally,
@@ -4050,11 +4583,16 @@ def run(torch) -> list[dict]:
         families_at_scale(torch, dev, counted, tally, read_counts, only,
                           clean)
         del clean
-    # the kernels line carries the last phases' paths too
+    # the kernels line carries the last phases' paths too, and K5's and
+    # K5-bwd's times at the shard shapes
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
                                    for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+        if rec["name"] in shard_times:
+            rec["shard_shapes"] = [
+                {**t, "launches_per_run": paths[t["path"]][rec["name"]]}
+                for t in shard_times[rec["name"]]]
     return records
 
 

@@ -538,9 +538,12 @@ class SSDScanFunction(torch.autograd.Function):
     The forward launches K5 (``ssd_scan_cuda``) and keeps its inputs and
     the state entering each 64-step chunk (12.6 M floats, 50.3 MB, a layer
     at B=4, S=1024, H=24, P=64, N=128); the backward launches K5-bwd from
-    them (``ssd_scan_bwd_cuda``).  An unused ``h_last`` (training) seeds
-    the backward with nothing.  ``apply(x, dt, A, Bm, Cm, h0, chunk)``
-    returns (y, h_last)."""
+    them (``ssd_scan_bwd_cuda``).  An unused ``h_last`` (a training
+    forward on one device) seeds the backward with nothing; a used one (a
+    sequence-parallel shard's, which later shards read through the
+    ladder) passes its gradient as ``g_hlast``.  With ``h0`` None (every
+    shard but the first) no ``gh0`` is computed.
+    ``apply(x, dt, A, Bm, Cm, h0, chunk)`` returns (y, h_last)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):

@@ -1,8 +1,10 @@
 """Meshes over the visible cards (tests and one host).
 
-Port of ``repro/launch/mesh.py``'s ``make_host_mesh``.  The reference's
-``make_production_mesh`` (16x16 TPU v5e pods) feeds ``launch/dryrun.py``
-and comes with it (ROADMAP 1.9).
+Port of ``repro/launch/mesh.py``'s ``make_host_mesh``: what
+``launch/train.py --mesh host`` trains over, and what the sharded paths
+of the models (``sharding/rules.py``) and of §4.6 (``core/distributed.py``)
+split their work over.  The reference's ``make_production_mesh`` (16x16
+TPU v5e pods) feeds ``launch/dryrun.py`` and comes with it (ROADMAP 1.9d).
 """
 
 from __future__ import annotations

@@ -27,8 +27,11 @@ KV caches of ``min(sliding_window, max_len)`` slots.
 The decode state is updated in place: each step writes the recurrent
 layers' ``h`` and conv tail into the cache's tensors and the attention
 layers' keys into their rings, so a cache is consumed by the step it is
-given to.  The sequence-parallel RG-LRU scan (``_rglru_seq_parallel``)
-comes with LM sharding: ``cfg.rnn_seq_parallel`` raises.
+given to.  With ``cfg.rnn_seq_parallel`` under a ``sharding_context``
+whose model axis divides S (S > 1), the RG-LRU prefill runs
+``_rglru_seq_parallel``: S split over the model axis, B over the batch
+axes, each shard scanned on its device of the mesh, and the shards'
+boundary states carried across by ``ssm.decay_ladder``.
 """
 
 from __future__ import annotations
@@ -41,8 +44,11 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.cache import rglru_state, ring_kv_cache
-from repro_torch.models.ssm import _causal_conv
+from repro_torch.models.ssm import (
+    _causal_conv, _seq_parallel_ctx, _split_rows, decay_ladder,
+)
 from repro_torch.models.transformer import TreeLM
+from repro_torch.sharding.rules import shard_grid
 
 _C = 8.0  # RG-LRU exponent scale (Griffin paper)
 
@@ -188,6 +194,51 @@ def _rglru_chunked(u: torch.Tensor, p: dict, chunk: int, h0: torch.Tensor):
     return torch.cat(hs, dim=1)[:, :s], h
 
 
+def _rglru_seq_parallel(u: torch.Tensor, p: dict, chunk: int, mesh, rules,
+                        h0: torch.Tensor | None = None):
+    """Sequence-parallel RG-LRU: S sharded over the model axis, B over the
+    rules' batch axes (``sharding.rules.shard_grid``).
+
+    Each shard computes its gates and scans its steps on its device with
+    the log-depth scan (``_scan_chunks`` over the whole shard, as the
+    reference's ``associative_scan`` runs over it; ``chunk`` is unused
+    there too): rank 0 of each batch shard from ``h0`` (None: zero), the
+    others from zero.  The shards' (summed log-decay, last state) pairs
+    run the exclusive ladder (``ssm.decay_ladder``), and each rank but the
+    first adds ``exp(cumsum log_a) * h_in`` to its states.
+
+    Returns (h_seq (B, S, w), h_last (B, w)) on ``u``'s device."""
+    grid = shard_grid(mesh, rules)
+    nb, d = grid.shape
+    bsz, s, w = u.shape
+    bl = _split_rows(bsz, nb, "batch")
+    sl = _split_rows(s, d, "sequence")
+    gates = ("lam", "g_a", "b_a", "g_x", "b_x")
+    hs_out, h_fins = [], []
+    for j in range(nb):
+        rows = slice(j * bl, (j + 1) * bl)
+        hs, la_cum, la_sum, h_last = [], [], [], []
+        for i in range(d):
+            dev = grid[j, i]
+            p_i = {k: p[k].to(dev) for k in gates}
+            log_a, bgate = _rglru_gates(
+                u[rows, i * sl:(i + 1) * sl].to(dev), p_i)
+            cum = torch.cumsum(log_a, dim=1)                # (b, S_loc, w)
+            _, b_cum = _scan_chunks(log_a, bgate)
+            if i == 0 and h0 is not None:
+                b_cum = b_cum + torch.exp(cum) * h0[rows].to(dev)[:, None, :]
+            hs.append(b_cum)
+            la_cum.append(cum)
+            la_sum.append(cum[:, -1, :])
+            h_last.append(b_cum[:, -1, :])
+        prefix = decay_ladder(la_sum, h_last)
+        for i in range(1, d):
+            hs[i] = hs[i] + torch.exp(la_cum[i]) * prefix[i][:, None, :]
+        hs_out.append(torch.cat([t.to(u.device) for t in hs], dim=1))
+        h_fins.append(hs[-1][:, -1, :].to(u.device))
+    return torch.cat(hs_out, dim=0), torch.cat(h_fins, dim=0)
+
+
 def _rec_mixer(x, p, cfg, state_layer=None):
     """Griffin recurrent block mixer. Returns (out, new_state): no state,
     a prefill into ``state_layer`` (the scan seeded with its ``h``) or a
@@ -197,14 +248,26 @@ def _rec_mixer(x, p, cfg, state_layer=None):
     conv_tail = state_layer["conv"] if state_layer is not None else None
     u, new_tail = _causal_conv(u, p["conv_w"], p["conv_b"], conv_tail)
     u = u.float()
+    s_len = u.shape[1]
+    sp = (_seq_parallel_ctx(cfg.rnn_seq_parallel, s_len) if s_len > 1
+          else None)
     if state_layer is None:
-        h0 = torch.zeros((x.shape[0], u.shape[-1]), dtype=torch.float32,
-                         device=x.device)
-        h, _ = _rglru_chunked(u, p, cfg.rnn_scan_chunk, h0)
+        if sp is not None:
+            h, _ = _rglru_seq_parallel(u, p, cfg.rnn_scan_chunk, sp.mesh,
+                                       sp.rules)
+        else:
+            h0 = torch.zeros((x.shape[0], u.shape[-1]), dtype=torch.float32,
+                             device=x.device)
+            h, _ = _rglru_chunked(u, p, cfg.rnn_scan_chunk, h0)
         new_state = None
-    elif u.shape[1] > 1:
-        h, h_last = _rglru_chunked(u, p, cfg.rnn_scan_chunk,
-                                   state_layer["h"])
+    elif s_len > 1:
+        if sp is not None:
+            h, h_last = _rglru_seq_parallel(u, p, cfg.rnn_scan_chunk,
+                                            sp.mesh, sp.rules,
+                                            state_layer["h"])
+        else:
+            h, h_last = _rglru_chunked(u, p, cfg.rnn_scan_chunk,
+                                       state_layer["h"])
         new_state = {"h": h_last, "conv": new_tail}
     else:
         log_a, b = _rglru_gates(u, p)                         # (B, 1, w)
@@ -252,11 +315,6 @@ def forward(params: GriffinLM, tokens, cfg, *, prefix_embeds=None,
     cache holds the same tensors and the advanced ``len``).  ``backend``
     is accepted for the API's uniform call: no kernel of ours runs on this
     path."""
-    if cfg.rnn_seq_parallel:
-        raise NotImplementedError(
-            "rnn_seq_parallel: the sequence-parallel RG-LRU scan "
-            "(_rglru_seq_parallel) is not ported yet: it comes with LM "
-            "sharding, ROADMAP 1.9b")
     dtype = L.as_dtype(cfg.dtype)
     p = L.cast_params(params.param_tree(), dtype)
     pat, _, tail = _pattern(cfg)

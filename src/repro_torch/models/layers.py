@@ -10,8 +10,10 @@ reference asks in fp32 (``preferred_element_type``) are taken on fp32
 copies of their operands, exact for bf16 inputs.
 
 The reference's ``scan_or_unroll`` is left out: the port runs layers in
-a Python loop.  So are ``_expand_kv_for_tp`` and ``constrain``, which are
-identities without a sharding context (ROADMAP 1.9b).  Grouped-query
+a Python loop.  So are ``_expand_kv_for_tp`` and the ``constrain`` calls:
+under a sharding context they only annotate activations for GSPMD, and
+one process computes every activation whole (``sharding/rules.py``'s
+``constrain`` is the identity).  Grouped-query
 attention never materializes repeated KV: query head ``j * G + i`` reads
 KV head ``j``, as the reference's reshape does.
 """

@@ -1,8 +1,15 @@
-"""Mixture-of-Experts block: sort-based capacity dispatch.
+"""Mixture-of-Experts block: sort-based capacity dispatch + expert parallel.
 
-Port of ``repro/models/moe.py``'s mesh-free path (the expert-parallel
-``shard_map`` path comes with the sharding item, ROADMAP 1.9b; the port
-has no sharding context, so nothing reaches it).
+Port of ``repro/models/moe.py``.  With no sharding context ``moe_block``
+runs every expert on the tokens' device.  Under a ``sharding_context`` it
+runs expert-parallel as the reference's ``shard_map`` does: tokens split
+over the rules' batch axes, experts over the model axis (rank r owns
+experts ``[r * e_local, (r + 1) * e_local)``), each shard on its device
+of the mesh (``sharding.rules.shard_grid``).  Every rank dispatches its
+batch shard's tokens to its own experts, with a capacity from the
+shard's *local* token count, and the model ranks' partial outputs are
+summed in rank order (no atomics).  The reference's ZeRO-3 re-gather of
+the expert weights is not needed: the weights are held whole.
 
 Dispatch is sort-based: a *stable* argsort over the flat token -> expert
 assignments (the reference's ``jnp.argsort`` is stable) gives each
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import current_context, shard_grid
 
 
 def moe_params(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
@@ -125,8 +133,65 @@ def _shared_expert(x_flat, p):
     return h @ p["ws_down"]
 
 
+def _expert_parallel(x: torch.Tensor, p: dict, cfg, mesh, rules):
+    """``moe_block`` under a sharding context (see the module's docstring).
+
+    The shared expert's ff dim is split over the model axis when it
+    divides (each rank's part is a partial sum, added to its experts'
+    before the sum over ranks), else it runs whole on the sum.  ``aux`` is
+    each batch shard's load-balance estimate (the model ranks all route
+    the same tokens, so their mean is that value), averaged over each
+    batch axis in turn."""
+    b, s, d = x.shape
+    grid = shard_grid(mesh, rules)
+    nb, m = grid.shape
+    if cfg.num_experts % m or b % nb:
+        raise ValueError(f"{cfg.num_experts} experts and batch {b} do not "
+                         f"split over a {nb} x {m} grid of shards")
+    e_local, bl = cfg.num_experts // m, b // nb
+    fs = cfg.expert_d_ff * cfg.num_shared_experts
+    shard_fs = bool(cfg.num_shared_experts) and fs % m == 0
+    fl = fs // m if shard_fs else fs
+    outs, auxes = [], []
+    for j in range(nb):
+        dev0 = grid[j, 0]
+        x_flat = x[j * bl:(j + 1) * bl].reshape(bl * s, d).to(dev0)
+        weights, experts, aux = _route(x_flat, p["router"].to(dev0), cfg)
+        acc = None
+        for r in range(m):
+            dev = grid[j, r]
+            lo = r * e_local
+            xr = x_flat.to(dev)
+            part = _dispatch_compute_combine(
+                xr, weights.to(dev), experts.to(dev),
+                *(p[k][lo:lo + e_local].to(dev)
+                  for k in ("we_gate", "we_up", "we_down")),
+                cfg, lo=lo, e_local=e_local)
+            if shard_fs:
+                cols = slice(r * fl, (r + 1) * fl)
+                part = part + _shared_expert(xr, {
+                    "ws_gate": p["ws_gate"][:, cols].to(dev),
+                    "ws_up": p["ws_up"][:, cols].to(dev),
+                    "ws_down": p["ws_down"][cols].to(dev)})
+            acc = part.to(dev0) if acc is None else acc + part.to(dev0)
+        if cfg.num_shared_experts and not shard_fs:
+            acc = acc + _shared_expert(x_flat, {
+                k: p[k].to(dev0) for k in ("ws_gate", "ws_up", "ws_down")})
+        outs.append(acc.reshape(bl, s, d).to(x.device))
+        auxes.append(aux.to(x.device))
+    sizes = [mesh.shape[a] for a in rules.present(mesh, rules.batch_axes)]
+    aux = torch.stack(auxes).reshape(sizes)
+    for _ in sizes:                 # the first batch axis first
+        aux = aux.mean(dim=0)
+    return torch.cat(outs, dim=0), aux
+
+
 def moe_block(x: torch.Tensor, p: dict, cfg):
-    """MoE FFN. x: (B, S, d). Returns (out, aux_loss)."""
+    """MoE FFN. x: (B, S, d). Returns (out, aux_loss): expert-parallel
+    under a sharding context, on the tokens' device otherwise."""
+    ctx = current_context()
+    if ctx is not None:
+        return _expert_parallel(x, p, cfg, ctx.mesh, ctx.rules)
     b, s, d = x.shape
     x_flat = x.reshape(b * s, d)
     weights, experts, aux = _route(x_flat, p["router"], cfg)

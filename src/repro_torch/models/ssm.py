@@ -23,8 +23,14 @@ scan runs through ``SSDScanFunction`` (K5 forward, K5-bwd backward).
 
 Shapes: d_inner = expand * d_model; H = d_inner / ssm_head_dim heads;
 B/C projections are per group (ssm_groups, ssm_state).  fp32 state math.
-The sequence-parallel scan (``ssd_seq_parallel``) comes with LM
-sharding (ROADMAP 1.9b): ``cfg.ssm_seq_parallel`` raises.
+
+With ``cfg.ssm_seq_parallel`` under a ``sharding_context`` whose model
+axis divides S, a prefill or forward runs ``ssd_seq_parallel``: B split
+over the rules' batch axes, S over the model axis, each shard's chunked
+scan (K5 on the card) on its device of the mesh, then the shards'
+boundary states carried across by an exclusive Hillis-Steele ladder and
+folded into each shard's outputs.  A mesh listing one card four times
+runs four K5 launches a layer on it.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import segsum_decay as _segsum_decay  # noqa: F401
 from repro_torch.models import layers as L
 from repro_torch.models.cache import ssm_state
+from repro_torch.sharding.rules import current_context, shard_grid
 
 
 def _dims(cfg):
@@ -200,6 +207,118 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None, *,
     return y[:, :s], h_last
 
 
+def decay_ladder(log_decays: list, states: list) -> list:
+    """The exclusive prefix over sequence shards of (log-decay, state)
+    pairs, by a Hillis-Steele ladder: rank i receives the state that
+    everything before it leaves at its boundary, on rank i's device (None
+    for rank 0: nothing comes before it).
+
+    ``log_decays[i]`` is rank i's summed log-decay over its steps (B, H)
+    or (B, w), ``states[i]`` its final state from a zero start (B, H, N,
+    P) or (B, w).  Composing an earlier interval (in) with a later one
+    decays the incoming state through the later:
+    ``hs = exp(ld) * hs_in + hs; ld = ld + ld_in``.  log2(D) rounds, each
+    combining rank i with rank i - step as the reference's ``ppermute``
+    ladder does; a rank whose partner is rank 0's empty prefix keeps its
+    value, which the reference reaches by adding zeros."""
+    d = len(states)
+    ld = [None] + [log_decays[i - 1].to(states[i].device)
+                   for i in range(1, d)]
+    hs = [None] + [states[i - 1].to(states[i].device) for i in range(1, d)]
+    step = 1
+    while step < d:
+        new_ld, new_hs = list(ld), list(hs)
+        for i in range(step, d):
+            if ld[i - step] is None:
+                continue
+            dev = hs[i].device
+            decay = torch.exp(ld[i])
+            decay = decay.reshape(decay.shape
+                                  + (1,) * (hs[i].ndim - decay.ndim))
+            new_hs[i] = decay * hs[i - step].to(dev) + hs[i]
+            new_ld[i] = ld[i] + ld[i - step].to(dev)
+        ld, hs = new_ld, new_hs
+        step *= 2
+    return hs
+
+
+def _split_rows(n: int, parts: int, what: str) -> int:
+    if n % parts:
+        raise ValueError(f"{what} of {n} does not split into {parts} shards")
+    return n // parts
+
+
+def ssd_seq_parallel(xh, dt, A, Bm, Cm, chunk: int, mesh, rules, h0=None, *,
+                     backend: str = "auto"):
+    """Sequence-parallel SSD: S sharded over the model axis, B over the
+    rules' batch axes (``sharding.rules.shard_grid``).
+
+    Each shard runs ``ssd_chunked`` (K5 on the card) on its device: rank
+    0 of each batch shard from the incoming ``h0`` (None: zero), every
+    other rank from a zero state (``h0=None``).  The shards' (summed
+    log-decay, final state) pairs then run the exclusive ladder
+    (``decay_ladder``), and each rank but the first folds its incoming
+    state into its outputs, ``y += (C . hs) * exp(cumsum a)``.  The final
+    state is the last rank's inclusive prefix.
+
+    Returns (y (B, S, H, P), h_final (B, H, N, P)) on ``xh``'s device.
+    """
+    grid = shard_grid(mesh, rules)
+    nb, d = grid.shape
+    b, s, h, pdim = xh.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    hg = h // g
+    bl = _split_rows(b, nb, "batch")
+    sl = _split_rows(s, d, "sequence")
+    ys, h_fins = [], []
+    for j in range(nb):
+        rows = slice(j * bl, (j + 1) * bl)
+        y_loc, h_last, a_loc, a_sum, c_loc = [], [], [], [], []
+        for i in range(d):
+            dev = grid[j, i]
+            steps = slice(i * sl, (i + 1) * sl)
+
+            def part(t):
+                return t[rows, steps].to(dev)
+
+            x_i, dt_i, B_i, C_i = part(xh), part(dt), part(Bm), part(Cm)
+            A_i = A.to(dev)
+            h_i = h0[rows].to(dev) if (i == 0 and h0 is not None) else None
+            y, hl = ssd_chunked(x_i, dt_i, A_i, B_i, C_i, chunk, h0=h_i,
+                                backend=backend)
+            a = dt_i * A_i                                  # (b, S_loc, H)
+            y_loc.append(y)
+            h_last.append(hl)
+            a_loc.append(a)
+            a_sum.append(a.sum(dim=1))
+            c_loc.append(C_i)
+        prefix = decay_ladder(a_sum, h_last)
+        out = [y_loc[0]]
+        for i in range(1, d):
+            corr = torch.einsum("bsgn,bghnp->bsghp", c_loc[i],
+                                prefix[i].reshape(bl, g, hg, n, pdim))
+            decay = torch.exp(torch.cumsum(a_loc[i], dim=1))
+            corr = corr * decay.reshape(bl, sl, g, hg)[..., None]
+            out.append(y_loc[i] + corr.reshape(bl, sl, h, pdim))
+        last = h_last[-1] if d == 1 else (
+            torch.exp(a_sum[-1])[..., None, None] * prefix[-1] + h_last[-1])
+        ys.append(torch.cat([t.to(xh.device) for t in out], dim=1))
+        h_fins.append(last.to(xh.device))
+    return torch.cat(ys, dim=0), torch.cat(h_fins, dim=0)
+
+
+def _seq_parallel_ctx(enabled: bool, s: int):
+    """The sharding context when a sequence-parallel scan applies: the
+    flag is set, a context is present and its model axis divides S (the
+    reference's condition); None otherwise, where the single-device scan
+    runs."""
+    ctx = current_context()
+    if not enabled or ctx is None:
+        return None
+    tp = ctx.rules.present(ctx.mesh, ctx.rules.tp_axes)[0]
+    return ctx if s % ctx.mesh.shape[tp] == 0 else None
+
+
 def _mixer(x, p, cfg, state_layer=None, *, backend: str = "auto"):
     """Mamba-2 mixer. x: (B, S, d). Returns (out, new_state_layer)."""
     b, s, d = x.shape
@@ -221,16 +340,23 @@ def _mixer(x, p, cfg, state_layer=None, *, backend: str = "auto"):
     xh = xs.reshape(b, s, nheads, phd).float()
     Bm32, Cm32 = Bm.float(), Cm.float()
 
-    if state_layer is None:
-        y, _ = ssd_chunked(xh, dt, A, Bm32, Cm32, cfg.ssm_chunk,
+    sp = _seq_parallel_ctx(cfg.ssm_seq_parallel, s)
+
+    def scan(h0=None):
+        if sp is not None:
+            return ssd_seq_parallel(xh, dt, A, Bm32, Cm32, cfg.ssm_chunk,
+                                    sp.mesh, sp.rules, h0=h0,
+                                    backend=backend)
+        return ssd_chunked(xh, dt, A, Bm32, Cm32, cfg.ssm_chunk, h0=h0,
                            backend=backend)
+
+    if state_layer is None:
+        y, _ = scan()
         new_state = None
     elif s > 1:
         # prefill into an existing state: chunked scan seeded with it.
         # Note: prefill assumes an empty conv tail (fresh sequence).
-        y, h_last = ssd_chunked(xh, dt, A, Bm32, Cm32, cfg.ssm_chunk,
-                                h0=state_layer["h"].transpose(-1, -2),
-                                backend=backend)
+        y, h_last = scan(state_layer["h"].transpose(-1, -2))
         new_state = {"h": h_last.transpose(-1, -2), "conv": new_tail}
     else:
         # decode: s == 1 single-step recurrence (plain torch)
@@ -264,11 +390,6 @@ def forward(params: Mamba2LM, tokens, cfg, *, prefix_embeds=None,
     cache = ``init_cache``'s dict.  ``backend`` picks the SSD scan's
     implementation (``ops.ssd_scan``).  ``positions`` is accepted and
     unused, as in the reference."""
-    if cfg.ssm_seq_parallel:
-        raise NotImplementedError(
-            "ssm_seq_parallel: the sequence-parallel SSD scan "
-            "(ssd_seq_parallel) is not ported yet: it comes with LM "
-            "sharding, ROADMAP 1.9b")
     dtype = L.as_dtype(cfg.dtype)
     p = L.cast_params(params.param_tree(), dtype)
     x = p["embed"][tokens].to(dtype)

@@ -15,9 +15,9 @@ Guarantees:
   * atomic: written to step_X.tmp-<pid>, fsync'd, then os.rename; a crash
     mid-save never corrupts ``latest``;
   * device-agnostic: leaves are stored as host arrays and restored onto
-    the device the caller names (the reference's ``shardings`` argument
-    becomes ``device``; sharded restores come with ROADMAP 1.9's sharding
-    item);
+    the device the caller names, or where a tree of shardings
+    (``train_step.state_shardings``) places them: a sharded state is held
+    whole on its mesh's first device;
   * async: ``save_async`` copies every leaf to the host before it returns
     (the device-to-host copies, one synchronize), then writes on a thread,
     so the training loop may update the state in place at once;
@@ -135,16 +135,25 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, step: int | None = None, device=None):
-        """Load a checkpoint as a tree of tensors on ``device`` (the card
-        unless named); None when there is none."""
+    def restore(self, step: int | None = None, device=None,
+                shardings=None):
+        """Load a checkpoint as a tree of tensors; None when there is none.
+
+        ``shardings``: an optional tree of ``NamedSharding`` in the
+        state's structure; a leaf it names goes to its sharding's device
+        (the mesh's first), every other leaf to ``device`` (the card
+        unless named)."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        dev = resolve_device(device)
+        flat_sh = {} if shardings is None else _flatten(shardings)
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        flat = {key: torch.as_tensor(np.load(os.path.join(path, meta["file"])))
-                .to(dev) for key, meta in manifest["leaves"].items()}
+        flat = {}
+        for key, meta in manifest["leaves"].items():
+            dev = (flat_sh[key].device if key in flat_sh
+                   else resolve_device(device))
+            flat[key] = torch.as_tensor(
+                np.load(os.path.join(path, meta["file"]))).to(dev)
         return _unflatten(flat)

@@ -80,6 +80,7 @@ def run_training(
     num_steps: int,
     ckpt_every: int = 50,
     device=None,
+    state_shardings=None,
     injector: Optional[FaultInjector] = None,
     watchdog: Optional[Watchdog] = None,
     max_restarts: int = 10,
@@ -88,15 +89,17 @@ def run_training(
 ):
     """Run to num_steps with restart-on-failure.  Returns (state, history).
 
-    ``device`` is where a restored checkpoint goes (the card unless named;
-    the reference's ``state_shardings``)."""
+    A restored checkpoint goes where ``state_shardings`` (a tree of
+    ``NamedSharding``, ``train_step.state_shardings``) places it, the
+    mesh's first device, or else on ``device`` (the card unless named)."""
     restarts = 0
     history = []
     state = None
     while True:
         try:
             if state is None:
-                restored = ckpt.restore(device=device)
+                restored = ckpt.restore(device=device,
+                                        shardings=state_shardings)
                 if restored is not None:
                     state = restored
                     log.info("restored checkpoint at step %d",

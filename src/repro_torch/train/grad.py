@@ -5,9 +5,9 @@ Port of ``repro/train/grad.py``.  Gradients are trees in the reference's
 layout (nested dicts of fp32 tensors, layers stacked).  ``compress_grads``
 quantizes them to int8 with a persistent error-feedback buffer (the
 quantization error is re-injected next step, so long-run training is
-unbiased).  The reference's ``compressed_psum``, an int8 all-reduce over
-a mesh axis under ``shard_map``, comes with the sharding item of ROADMAP
-1.9.
+unbiased).  ``compressed_psum`` is the reference's int8 all-reduce over
+a mesh axis: each rank quantizes its part on its device, and the int8
+values and fp32 scales are what cross to the others.
 """
 
 from __future__ import annotations
@@ -60,6 +60,30 @@ def compress_grads(grads, err):
 
     pairs = tree_map(leaf, grads, err)
     return tree_map(lambda t: t[0], pairs), tree_map(lambda t: t[1], pairs)
+
+
+def compressed_psum(partials: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """All-reduce of int8-quantized per-rank partials over a mesh axis.
+
+    partials: (|axis|, ...), row i rank i's contribution (its local
+    gradient, say).  Rank i quantizes row i on its device of the mesh
+    (``Mesh.grid((axis,))``) with ``_quantize``; the int8 values and the
+    scales are gathered, and the result is ``sum_i scale_i * q_i`` (fp32),
+    the replicated value, computed once on rank 0's device.  Wire bytes:
+    1 an element and one fp32 scale a rank, against 4 for fp32."""
+    devices = mesh.grid((axis,))
+    d = len(devices)
+    if partials.shape[0] != d:
+        raise ValueError(f"{partials.shape[0]} partials for a {d}-rank axis "
+                         f"{axis!r}")
+    home = devices[0]
+    qs, scales = [], []
+    for i, dev in enumerate(devices):
+        q, scale = _quantize(partials[i].to(dev).float())
+        qs.append(q.to(home))
+        scales.append(scale.to(home))
+    return torch.tensordot(torch.stack(scales), torch.stack(qs).float(),
+                           dims=([0], [0]))
 
 
 # ---------------------------------------------------------------------------

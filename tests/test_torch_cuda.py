@@ -972,3 +972,79 @@ def test_moe_block_on_the_card_equals_its_plain_version(cuda_device, no_tf32,
     assert (dropped > 0) == (capacity_factor < 1)
     torch.testing.assert_close(got, want, atol=1e-5 * float(
         want.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 4), (2, 2)])
+def test_ssd_seq_parallel_on_logical_shards(cuda_device, no_tf32, rows, cols):
+    """ssd_seq_parallel on a mesh that lists the card 4 times, at
+    Mamba2-130M's prefill shape (B=4, S=1024, H=24, P=64, N=128) from a
+    random h0: K5 once a shard forward and K5-bwd once a shard backward
+    (h_last's gradient reaching every shard but the last through the
+    ladder); y, the final state and the six gradients against the same
+    mesh with the plain scan (within SSD_ATOL/RTOL, SSD_BWD_RTOL), and
+    against the unsharded K5 and K5-bwd."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    from repro_torch.models.ssm import ssd_chunked, ssd_seq_parallel
+    from repro_torch.sharding import ShardingRules
+
+    mesh = _card_mesh(cuda_device, rows, cols)
+    leaves = _ssd_inputs(29, 4, 1024, 24, 64, 128, with_h0=True)
+    r = np.random.default_rng(30)
+    gy = torch.as_tensor(r.standard_normal((4, 1024, 24, 64)),
+                         dtype=torch.float32, device=cuda_device)
+    ghl = torch.as_tensor(r.standard_normal((4, 24, 128, 64)),
+                          dtype=torch.float32, device=cuda_device)
+    runs = {}
+    for name in ("kernel", "plain", "unsharded"):
+        ins = [t.clone().requires_grad_() for t in leaves]
+        x, dt, A, Bm, Cm, h0 = ins
+        before = (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches)
+        if name == "unsharded":
+            y, hl = ssd_chunked(x, dt, A, Bm, Cm, 256, h0=h0)
+        else:
+            y, hl = ssd_seq_parallel(
+                x, dt, A, Bm, Cm, 256, mesh, ShardingRules(), h0=h0,
+                backend="cuda" if name == "kernel" else "torch")
+        ((y * gy).sum() + (hl * ghl).sum()).backward()
+        torch.cuda.synchronize()
+        shards = rows * cols if name == "kernel" else (name == "unsharded")
+        assert (ssd_scan_cuda.launches - before[0],
+                ssd_scan_bwd_cuda.launches - before[1]) == (shards, shards)
+        runs[name] = [y.detach(), hl.detach()] + [t.grad for t in ins]
+    for other in ("plain", "unsharded"):
+        for got, want in zip(runs["kernel"][:2], runs[other][:2]):
+            torch.testing.assert_close(got, want, atol=SSD_ATOL,
+                                       rtol=SSD_RTOL)
+        _assert_rel(runs["kernel"][2:], runs[other][2:])
+
+
+@pytest.mark.parametrize("capacity_factor", [0.5, 8.0])
+def test_expert_parallel_moe_on_the_card_equals_the_cpu(cuda_device, no_tf32,
+                                                        capacity_factor):
+    """moe_block under a sharding context on a 2 x 2 mesh of the card
+    (experts over the model axis, tokens over data) against the same mesh
+    of CPU entries, with and without a binding capacity."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import sharding_context
+
+    cfg = dataclasses.replace(smoke_config("kimi-k2-1t-a32b"),
+                              dtype="float32",
+                              capacity_factor=capacity_factor)
+    gen = torch.Generator().manual_seed(4)
+    p = moe.moe_params(gen, cfg)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        with sharding_context(make_host_mesh((2, 2), devices=[dev] * 4)):
+            out, aux = moe.moe_block(x.to(dev), {k: v.to(dev)
+                                                 for k, v in p.items()}, cfg)
+        assert out.device.type == dev.type
+        outs.append((out.cpu(), float(aux)))
+    (got, aux_got), (want, aux_want) = outs
+    torch.testing.assert_close(got, want, atol=1e-5 * float(
+        want.abs().max()), rtol=0)
+    assert abs(aux_got - aux_want) <= 1e-5 * abs(aux_want)

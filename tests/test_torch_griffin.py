@@ -140,11 +140,17 @@ def test_rec_mixer_paths_match_reference(path):
 
 
 def test_rnn_seq_parallel_raises():
+    """``rnn_seq_parallel`` no longer raises: with no sharding context the
+    single-device scan runs, as in the reference, bit-equal to the flag
+    off (the sharded path: tests/test_torch_seq_parallel.py)."""
     _, cfg = cfgs(ARCH)
     model = port_params(ARCH, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9b"):
-        api.forward(model, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    dataclasses.replace(cfg, rnn_seq_parallel=True))
+    toks = {"tokens": torch.as_tensor(tokens(6, s=8))}
+    with torch.no_grad():
+        want, _, _ = api.forward(model, toks, cfg)
+        got, _, _ = api.forward(model, toks, dataclasses.replace(
+            cfg, rnn_seq_parallel=True))
+    assert torch.equal(got, want)
 
 
 # --------------------------------------------------------------------------

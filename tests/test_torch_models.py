@@ -267,11 +267,17 @@ def test_decode_loop_greedy_tokens_equal_reference(ref_params):
 
 
 def test_seq_parallel_raises(ref_params):
+    """``ssm_seq_parallel`` no longer raises: with no sharding context the
+    single-device scan runs, as in the reference, bit-equal to the flag
+    off (the sharded path: tests/test_torch_seq_parallel.py)."""
     _, cfg = _cfgs()
     params = _port_params(ref_params, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        api.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    dataclasses.replace(cfg, ssm_seq_parallel=True))
+    toks = {"tokens": torch.as_tensor(_tokens(6, s=8))}
+    with torch.no_grad():
+        want, _, _ = api.forward(params, toks, cfg)
+        got, _, _ = api.forward(params, toks, dataclasses.replace(
+            cfg, ssm_seq_parallel=True))
+    assert torch.equal(got, want)
 
 
 def test_model_module_forward_and_explicit_cuda_backend(ref_params):

@@ -434,5 +434,9 @@ def test_launch_train_smoke_on_cpu():
 
 
 def test_launch_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        train_launch.main(["--smoke", "--device", "cpu", "--mesh", "host"])
+    """The production meshes (``--mesh pod|multipod``) raise, naming
+    ROADMAP 1.9d; ``--mesh host`` trains (tests/test_torch_launch_mesh.py
+    holds it against ``--mesh none``)."""
+    for mesh in ("pod", "multipod"):
+        with pytest.raises(NotImplementedError, match="ROADMAP 1.9d"):
+            train_launch.main(["--smoke", "--device", "cpu", "--mesh", mesh])
