@@ -214,6 +214,20 @@ non-zero before the result line is printed:
           (path train_mesh_host) bit-equal to --mesh none; K5 and K5-bwd
           timed at the shard shapes (4 x 256 and 2 x 512) beside their
           bounds
+  dryrun  the dry run's counting mode (launch/dryrun.py, launch/analysis.py)
+          against the card, after sharded: Mamba2-130M's fp32 train step
+          at 4 x 1024 and its bf16 prefill of 4 x 1024 counted on meta
+          tensors on a (1, 1) meta mesh, then run on the card (paths
+          dryrun_train, dryrun_prefill: K5 24 and K5-bwd 24 / 0) under
+          torch.profiler(with_flops=True): the counted matmul FLOPs equal
+          the profiler's aten matmul FLOPs within DRYRUN_MM_RTOL, the
+          counted K5 and K5-bwd work equals the work functions at the
+          shapes the card launched them at, the counted peak (arguments
+          and the largest live set) over max_memory_allocated lies in
+          DRYRUN_PEAK_BAND, the roofline bound over config.HW is no more
+          than the device-busy time of the profiled step;
+          config.HW["hbm_bytes"] equals the card's total_memory; the three
+          terms beside the measured times
   transformer at scale
           last, because after half a minute of this serving the card's
           kernel timestamps leave the profiler's window (Kineto counts
@@ -245,7 +259,7 @@ non-zero before the result line is printed:
           and the peak; its final state kept in the host's pinned
           memory) with a ninth step profiled
   families at scale
-          the run's last: (c) qwen2-1.5b through launch/train.main, 8
+          (c) qwen2-1.5b through launch/train.main, 8
           steps of 4 x 1024 tokens with a fault at step 6 (restored from
           the step-4 checkpoint) against the uninterrupted run bit for
           bit; (b) recurrentgemma-9b at its published config through
@@ -263,12 +277,20 @@ non-zero before the result line is printed:
           group in fp32, a 1 x 2048 forward and a prefill into an fp32
           cache under rnn_seq_parallel on 4 logical shards (path
           sp_rglru) against the unsharded model (HY_SP_ATOL32), with both
-          warm forward times; no kernel of ours launched; the kernels
-          line's launches_by_path are read after it
+          warm forward times; no kernel of ours launched
+  examples the run's last: examples/quickstart_torch.py and
+          examples/video_analytics_torch.py at their defaults on the card
+          (paths example_quickstart and example_video: K1, and K2 on the
+          large frame's fused plan and the service's requests), then both
+          at --frames 8 --hw 96 128 on the card and with --device cpu:
+          region sum, best rect and score, track boxes, the likelihood
+          maps (EXAMPLE_MAP_RTOL) and the large frame's plan equal; the
+          service's counts and every time are left out (thread timing);
+          the kernels line's launches_by_path are read after it
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
-service, mesh, lm, transformer, families, train, sharded, transformer at
-scale and families at scale phases
+service, mesh, lm, transformer, families, train, sharded, dryrun,
+transformer at scale, families at scale and examples phases
 runs with all seven launch counters set to 0 just before it and read
 just after; the kernels line carries each kernel's counts per path
 (``launches_by_path``).
@@ -505,6 +527,21 @@ K1_SWEEP_HEIGHTS = (48, 64, 80, 96, 112, 128, 160, 192, 240, 480)
 # K5 at the Mamba2-130M prefill: batch, steps, heads, P, N, and the chunk
 # of the plain loop.
 K5_SHAPE = (4, 1024, 24, 64, 128, 256)
+# The dryrun phase: the counted matmul FLOPs of a step against the
+# profiler's on the card (the same aten matmuls at the same shapes: equal
+# but for the profiler's own rounding), and the counted peak (arguments
+# plus the largest live set of the step's storages) over the measured
+# max_memory_allocated.  The caching allocator rounds each block up (to
+# 512 B, large ones to 2 MiB segments' splits) and holds cuBLAS's
+# workspace, which the count does not see; the count keeps a storage live
+# until torch frees it, as the allocator does.
+DRYRUN_MM_RTOL = 0.01
+DRYRUN_PEAK_BAND = (0.85, 1.15)
+# The examples phase: the video twin's default stream length, and the
+# likelihood maps' gate, card against CPU (the same integer counts, scored
+# in fp32 by other reduction orders).
+EXAMPLE_FRAMES = 40
+EXAMPLE_MAP_RTOL = 1e-6
 # The mesh phase: logical shards of one card, and the paper's §4.6 frame
 # (FRAME_46 x FRAME_46 at 128 bins, 32 GiB of H).
 MESH_SHARDS = 4
@@ -513,8 +550,12 @@ FRAME_46 = 8192
 # HistogramEngine.map_frames.
 STREAM_FRAMES = 64
 # Traces a launch check takes at most when the profiler drops a call's
-# kernel events.
-TRACE_ATTEMPTS = 3
+# kernel events, and the idle seconds before each retake: a session
+# after a pause has held its kernels where back-to-back ones held none
+# (a run lost every event of three back-to-back traces of one K1 shape
+# after the §4.6 frames' profiles).
+TRACE_ATTEMPTS = 5
+TRACE_PAUSE_S = 5.0
 # Device records a profiler session may drop at its start: with
 # KINETO_LOG_LEVEL=1, Kineto counted "Out-of-range = 2" in nearly every
 # session of chip_smoke's timing phase on one machine (PR 22), where a
@@ -655,19 +696,19 @@ def k1_inputs(torch, dev, n, h, w, bins, with_carry, seed=11):
 
 
 def k1_bytes(ids, bins, carry) -> int:
-    """Bytes K1's function moves: the ids and the carry read once, H
-    written once (a pre-pass's second read of the ids is the kernel's
-    cost, not the function's)."""
-    return 4 * ids.numel() * (bins + 1) + (
-        4 * carry.numel() if carry is not None else 0)
+    """Bytes K1's function moves (``wf_tis.wf_tis_work``)."""
+    from repro_torch.kernels.wf_tis import wf_tis_work
+
+    return wf_tis_work(*ids.shape, bins, carry=carry is not None)["bytes"]
 
 
 def k2_bytes(ids, bins, rows, carry) -> int:
-    """Bytes K2's function moves: the ids of rows [0, rows[-1]] and the
-    carry read once, the requested rows written once."""
+    """Bytes K2's function moves (``fused_rows.fused_rows_work``)."""
+    from repro_torch.kernels.fused_rows import fused_rows_work
+
     n, _, w = ids.shape
-    return 4 * n * w * (rows[-1] + 1 + bins * len(rows)) + (
-        4 * carry.numel() if carry is not None else 0)
+    return fused_rows_work(n, w, bins, rows,
+                           carry=carry is not None)["bytes"]
 
 
 def ssd_inputs(torch, dev, seed, s=K5_SHAPE[1]):
@@ -779,8 +820,8 @@ def traced_launches(torch, fn, per_call: int) -> list[dict]:
     records a session starts with); the last ``per_call`` kernel events
     are the last call's.  A trace that misses more than ``TRACE_DROPS``
     of them (the profiler can drop a session's events, even all of them)
-    is taken again, up to ``TRACE_ATTEMPTS`` traces; the last one is read
-    whatever it holds."""
+    is taken again after ``TRACE_PAUSE_S`` idle seconds, up to
+    ``TRACE_ATTEMPTS`` traces; the last one is read whatever it holds."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -789,6 +830,8 @@ def traced_launches(torch, fn, per_call: int) -> list[dict]:
     fn()
     torch.cuda.synchronize()
     for attempt in range(TRACE_ATTEMPTS):
+        if attempt:
+            time.sleep(TRACE_PAUSE_S)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -2016,6 +2059,247 @@ def check_restart_equal(torch, faulty, clean, f_steps, c_steps) -> None:
           "uninterrupted one (every op on the path is deterministic)")
 
 
+def dryrun_phase(torch, dev, counted, only) -> dict:
+    """The dryrun phase (see the module docstring): Mamba2-130M's fp32
+    train step and bf16 prefill counted on meta tensors by the dry run's
+    counting mode, then run on the card under torch.profiler; returns
+    the paths' launch counts."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import HW, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_stream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.train import init_state, make_optimizer, make_train_step
+
+    card = card_line()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"   HW['hbm_bytes'] {HW['hbm_bytes']} B, total_memory {total} B "
+        f"| card {card}")
+    check(HW["hbm_bytes"] == total,
+          f"config.HW['hbm_bytes'] {HW['hbm_bytes']} != the card's "
+          f"total_memory {total}")
+    mesh = make_host_mesh((1, 1), devices=["meta"])
+    base = get_config(LM_ARCH)
+    cells = (("train", dataclasses.replace(base, dtype="float32"),
+              ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")),
+             ("prefill", base,
+              ShapeConfig("chip_prefill", LM_PROMPT, LM_BATCH, "prefill")))
+    matmuls = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+    out = {}
+    for kind, cfg, shape in cells:
+        t0 = time.perf_counter()
+        cnt = dryrun._measure(cfg, shape, mesh, ShardingRules(), kind)
+        count_s = time.perf_counter() - t0
+        # The same step on the card, with the shapes K5 and K5-bwd launch
+        # at recorded; its peak counted from what the card held before
+        # its arguments were made.
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        stream = make_stream(cfg, shape.global_batch, shape.seq_len, 0)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.batch_at(0).items()}
+        if kind == "train":
+            opt = make_optimizer(cfg)
+            state = init_state(gen, cfg, opt)
+            step = make_train_step(cfg, opt)
+
+            def run():
+                return step(state, batch)
+        else:
+            model = api.init_params(gen, cfg)
+            cache = api.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                   device=dev)
+            batch = {"tokens": batch["tokens"]}
+
+            def run():
+                cache["len"].zero_()
+                return api.prefill(model, batch, cfg, cache)
+        run()                                   # warm
+        torch.cuda.synchronize()
+        launched = {"ssd_scan": [], "ssd_scan_bwd": []}
+        orig = {n: getattr(ssd_mod, f"{n}_cuda") for n in launched}
+
+        def recording(name):
+            """``name``'s wrapper, recording each call's shape; the
+            wrapper counts its launches on the name it is bound to, so
+            they are handed back to its own counter."""
+            def wrapped(x, dt, A, Bm, Cm, *args, **kw):
+                launched[name].append(
+                    tuple(x.shape) + (Bm.shape[-1],)
+                    + (kw.get("h0") is not None,
+                       kw.get("g_hlast") is not None))
+                res = orig[name](x, dt, A, Bm, Cm, *args, **kw)
+                orig[name].launches += wrapped.launches
+                wrapped.launches = 0
+                return res
+            wrapped.launches = 0
+            return wrapped
+
+        ssd_mod.ssd_scan_cuda = ops.ssd_scan_cuda = recording("ssd_scan")
+        ssd_mod.ssd_scan_bwd_cuda = recording("ssd_scan_bwd")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         with_flops=True) as prof:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                counts = counted(f"dryrun_{kind}", run)[2]
+                end.record()
+                torch.cuda.synchronize()
+        finally:
+            ssd_mod.ssd_scan_cuda = ops.ssd_scan_cuda = orig["ssd_scan"]
+            ssd_mod.ssd_scan_bwd_cuda = orig["ssd_scan_bwd"]
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        step_ms = start.elapsed_time(end)
+        mm_flops = sum(e.flops for e in prof.key_averages()
+                       if e.key in matmuls)
+        spans = [(0, e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_s = busy_us(spans) * 1e-6
+        del run
+        if kind == "train":
+            del state, step, opt
+        else:
+            del model, cache
+        torch.cuda.empty_cache()
+        check(counts == only(**{
+            "ssd_scan": len(launched["ssd_scan"]),
+            "ssd_scan_bwd": len(launched["ssd_scan_bwd"])})
+              and len(launched["ssd_scan"]) == cfg.num_layers
+              and len(launched["ssd_scan_bwd"]) == (
+                  cfg.num_layers if kind == "train" else 0),
+              f"the {kind} step launched {counts}")
+
+        # Gates: the counted matmul FLOPs against the profiler's, the
+        # counted K5 and K5-bwd work against the work functions at the
+        # launched shapes, the counted peak against the measured one,
+        # the roofline bound against the device's busy time.
+        want = {}
+        for name, fn in (("ssd_scan", ssd_mod.ssd_scan_work),
+                         ("ssd_scan_bwd", ssd_mod.ssd_scan_bwd_work)):
+            works = [fn(b, s, h, p, n, h0=h0) if name == "ssd_scan" else
+                     fn(b, s, h, p, n, h0=h0, g_hlast=ghl)
+                     for b, s, h, p, n, h0, ghl in launched[name]]
+            if works:
+                want[name] = {"calls": len(works),
+                              "bytes": sum(w["bytes"] for w in works),
+                              "flops": sum(w["flops"] for w in works)}
+        counted_mm = cnt["matmul_flops_global"]
+        mem = cnt["memory"]
+        counted_peak = mem["argument_size_in_bytes"] + mem[
+            "temp_size_in_bytes"]
+        terms = analysis.roofline_terms(cnt["flops"], cnt["bytes"], 0.0)
+        label = f"{LM_ARCH} {cfg.dtype} {kind} {shape.global_batch}x" \
+                f"{shape.seq_len}"
+        log(f"   {label}: counted on meta in {count_s:.1f} s: "
+            f"{cnt['flops'] / 1e12:.4f} TFLOP ({counted_mm / 1e12:.4f} in "
+            f"matmuls), {cnt['bytes'] / 1e9:.3f} GB moved, peak "
+            f"{counted_peak / 1e9:.3f} GB (arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB), kernels "
+            f"{cnt['kernels']} | card {card}")
+        log(f"   {label}: on the card {step_ms:.3f} ms (CUDA events), device "
+            f"busy {busy_s * 1e3:.3f} ms (profiled), profiler matmul "
+            f"{mm_flops / 1e12:.4f} TFLOP, peak {peak / 1e9:.3f} GB "
+            f"(max_memory_allocated less the {base_bytes / 1e9:.3f} GB held "
+            f"before) | card {card}")
+        log(f"   {label}: roofline over config.HW: compute "
+            f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+            f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+            f"{terms['collective_s'] * 1e3:.4f} ms, bound "
+            f"{terms['bound_s'] * 1e3:.4f} ms ({terms['dominant']}) against "
+            f"{busy_s * 1e3:.3f} ms busy, {step_ms:.3f} ms a step; counted "
+            f"/ measured: matmul FLOPs {counted_mm / mm_flops:.5f}, peak "
+            f"{counted_peak / peak:.4f} | card {card}")
+        check(abs(counted_mm / mm_flops - 1) <= DRYRUN_MM_RTOL,
+              f"{label}: counted matmul FLOPs {counted_mm} vs the "
+              f"profiler's {mm_flops}")
+        check(cnt["kernels"] == want,
+              f"{label}: counted kernel work {cnt['kernels']} vs the work "
+              f"functions at the launched shapes {want}")
+        lo, hi = DRYRUN_PEAK_BAND
+        check(lo <= counted_peak / peak <= hi,
+              f"{label}: counted peak {counted_peak} B vs measured {peak} B")
+        check(terms["bound_s"] <= busy_s,
+              f"{label}: roofline bound {terms['bound_s']} s above the "
+              f"measured device-busy {busy_s} s")
+        out[kind] = {"count_s": count_s, "terms": terms, "busy_s": busy_s,
+                     "step_ms": step_ms, "peak": peak,
+                     "counted_peak": counted_peak}
+    return out
+
+
+def examples_phase(torch, counted, only) -> None:
+    """The examples phase (see the module docstring): the two example
+    twins at their defaults on the card (paths example_quickstart and
+    example_video), then at a small size on the card and on the CPU,
+    their deterministic results equal."""
+    import importlib.util
+
+    import numpy as np
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    quick, video = load("quickstart_torch"), load("video_analytics_torch")
+    card = card_line()
+    k123 = ("wf_tis", "fused_rows", "delta_apply")
+    for path, mod, argv in (("example_quickstart", quick, []),
+                            ("example_video", video, [])):
+        res, secs, counts = counted(path, lambda: mod.main(argv))
+        log(f"   {path} at its defaults on the card: {secs:.2f} s, K1-K3 "
+            f"launches {({k: counts[k] for k in k123})} | card {card}")
+        check(counts["wf_tis"] > 0, f"{path} launched no K1: {counts}")
+        check(not any(counts[k] for k in counts if k not in k123),
+              f"{path} launched a kernel off its path: {counts}")
+        if mod is video:
+            log(f"   example_video: {res['pipeline_s']:.3f} s for the "
+                f"stream ({EXAMPLE_FRAMES / res['pipeline_s']:.1f} "
+                f"frames/s), large frame {res['large_s']:.3f} s "
+                f"({res['large_plan']}), {res['service']['requests']} "
+                f"requests in {res['serve_s']:.3f} s | card {card}")
+    small = ["--frames", "8", "--hw", "96", "128"]
+    got = {dev: (quick.main(["--device", dev]),
+                 video.main(small + ["--device", dev]))
+           for dev in ("cuda", "cpu")}
+    (q_card, v_card), (q_cpu, v_cpu) = got["cuda"], got["cpu"]
+    check(all(q_card[k] == q_cpu[k] for k in ("H_shape", "region_sum",
+                                               "best_rect"))
+          and math.isclose(q_card["score"], q_cpu["score"],
+                           rel_tol=EXAMPLE_MAP_RTOL),
+          f"quickstart card {q_card} != cpu {q_cpu}")
+    check(np.array_equal(v_card["boxes"], v_cpu["boxes"]),
+          "video_analytics: the card's track boxes differ from the CPU's")
+    for key in ("lmap", "large_lmap"):
+        check(v_card[key].shape == v_cpu[key].shape and np.allclose(
+            v_card[key], v_cpu[key], rtol=EXAMPLE_MAP_RTOL, atol=0),
+              f"video_analytics {key}: card and cpu differ")
+    check(v_card["large_plan"] == v_cpu["large_plan"],
+          f"large-frame plan {v_card['large_plan']} vs {v_cpu['large_plan']}")
+    log(f"   card vs cpu at 8x96x128: quickstart {q_card}; track boxes, "
+        f"likelihood maps {v_card['lmap'].shape} (largest difference "
+        f"{float(np.abs(v_card['lmap'] - v_cpu['lmap']).max()):.3g}) and "
+        f"the large frame's plan ({v_card['large_plan']}) equal; not "
+        "compared (thread timing): the service's engine runs, coalesced "
+        "requests, cache hits and latencies, and every time | card "
+        f"{card}")
+
+
 def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
     """The sharded phase (see the module docstring): Mamba2-130M's
     sequence-parallel prefill and training on logical shards of the card
@@ -2033,7 +2317,8 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
     from repro_torch.models import api
     from repro_torch.models.ssm import ssd_seq_parallel
     from repro_torch.kernels.ssd_scan import (
-        KERNEL_CHUNK, ssd_scan_bwd_cuda, ssd_scan_cuda, ssd_scan_plain,
+        ssd_scan_bwd_cuda, ssd_scan_bwd_work, ssd_scan_cuda, ssd_scan_plain,
+        ssd_scan_work,
     )
     from repro_torch.sharding import ShardingRules, sharding_context
     from repro_torch.train import (
@@ -2324,10 +2609,8 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
         shape = f"{bsz}x{seq}x{heads}x{pdim}, N={n}"
         ms = time_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm,
                                            chunk=K5_SHAPE[5]))
-        ops_f = 4 * bsz * heads * seq * n * pdim
-        bytes_f = 4 * (2 * x.numel() + dt.numel() + A.numel() + Bm.numel()
-                       + Cm.numel() + bsz * heads * n * pdim)
-        timed = [("ssd_scan", ms, bytes_f, ops_f)]
+        work_f = ssd_scan_work(bsz, seq, heads, pdim, n)
+        timed = [("ssd_scan", ms, work_f["bytes"], work_f["flops"])]
         if path != "sp_prefill":            # no backward on the prefill
             _, _, states = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=K5_SHAPE[5],
                                          return_states=True)
@@ -2339,12 +2622,10 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
             ms_b = time_ms(lambda: ssd_scan_bwd_cuda(
                 x, dt, A, Bm, Cm, gy, states=states, chunk=K5_SHAPE[5],
                 g_hlast=ghl))
-            kept = bsz * heads * -(-seq // KERNEL_CHUNK) * n * pdim
-            bytes_b = 4 * (2 * (x.numel() + dt.numel() + Bm.numel()
-                                + Cm.numel())
-                           + gy.numel() + kept + ghl.numel() + heads)
-            timed.append(("ssd_scan_bwd", ms_b, bytes_b,
-                          10 * bsz * heads * seq * n * pdim))
+            work_b = ssd_scan_bwd_work(bsz, seq, heads, pdim, n,
+                                       g_hlast=True)
+            timed.append(("ssd_scan_bwd", ms_b, work_b["bytes"],
+                          work_b["flops"]))
             del states, gy, ghl
         for name, t, nbytes, nops in timed:
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2411,24 +2692,27 @@ def run(torch) -> list[dict]:
     from repro_torch.data import video_frames
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.cw_tis import (
-        cw_tis_cuda, cw_tis_hscan_cuda, cw_tis_hscan_plain, cw_tis_plain,
-        cw_tis_vscan_cuda, cw_tis_vscan_plain,
+        cw_tis_cuda, cw_tis_hscan_cuda, cw_tis_hscan_plain,
+        cw_tis_hscan_work, cw_tis_plain, cw_tis_vscan_cuda,
+        cw_tis_vscan_plain, cw_tis_vscan_work,
     )
     from repro_torch.kernels.delta_apply import (
-        delta_apply_cuda, delta_apply_plain,
+        delta_apply_cuda, delta_apply_plain, delta_apply_work,
     )
     from repro_torch.kernels.fused_rows import (
         chunk_plan, chunk_shape, fused_rows_cuda, fused_rows_plain,
+        fused_rows_work,
     )
     from repro_torch.kernels.ref import region_histogram_ref
     from repro_torch.kernels.ssd_scan import (
         KERNEL_CHUNK, bwd_heads_per_cta, bwd_launches, ssd_scan_bwd_cuda,
-        ssd_scan_bwd_plain, ssd_scan_cuda, ssd_scan_plain,
+        ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_cuda,
+        ssd_scan_plain, ssd_scan_work,
     )
     from repro_torch.kernels import wf_tis as wf_tis_mod
     from repro_torch.kernels.wf_tis import (
         launch as wf_tis_launch, launch_shape, strip_rows_for, wf_tis_cuda,
-        wf_tis_plain,
+        wf_tis_plain, wf_tis_work,
     )
 
     dev = torch.device("cuda")
@@ -2756,7 +3040,7 @@ def run(torch) -> list[dict]:
         del got, want, rx, rdt, rB, rC, rh0
         # The operations the function needs, 4 N P flops a step, over the
         # rate of the unit K5 computes them on, and over fp32's.
-        k5_flops = 4 * sb * sh * ss * sn * sp
+        k5_flops = ssd_scan_work(sb, ss, sh, sp, sn)["flops"]
         k5_bounds = {"3xTF32": k5_flops / TF32X3_OPS_PER_S * 1e3,
                      "fp32": k5_flops / FP32_OPS_PER_S * 1e3}
         log(f"   K5 operation bound: {k5_flops / 1e9:.2f} GFLOP at "
@@ -4188,54 +4472,29 @@ def run(torch) -> list[dict]:
                + ", ".join(f"{k[:48]} {v:.2f}"
                            for k, v in k5b_kernel_us.items())
                if k5b_calls is not None else "not measured"))
-        px = n * h * w
-        h_run = int(fused_rows[-1]) + 1
-        # Each input read once, each output written once.  Operations: one
-        # add per element of a column walk, one per emitted element of a
-        # row scan (and one compare per one-hot element); K3 one add per
-        # element.
-        work = {
-            "wf_tis": (4 * px + 4 * px * nb, 2 * px * nb),
-            "fused_rows": (k2_bytes(idx, nb, fused_rows, None),
-                           n * nb * h_run * w + n * nb * fused_rows.size * w),
-            "delta_apply": (4 * (2 * k3_H.numel() + k3_d.numel()),
-                            k3_H.numel()),
-            "cw_tis_hscan": (4 * px + 4 * px * nb, 2 * px * nb),
-            "cw_tis_vscan": (2 * 4 * px * nb, px * nb),
-            # The timed launch (h0 = None) reads x, dt, A, B and C and
-            # writes y and h_last.  Operations: what the function needs,
-            # the recurrence's decay, update and read-out of the (N, P)
-            # state, 4 N P flops per (batch, head, step); the SSD form
-            # of a chunked kernel does more, and more the longer its
-            # chunk.
-            "ssd_scan": (4 * (sx.numel() + sdt.numel() + sA.numel()
-                              + sB.numel() + sC.numel()     # read
-                              + sx.numel() + sb * sh * sn * sp),  # written
-                         4 * sb * sh * ss * sn * sp),
-            # The timed call reads x, dt, B, C, gy and the states K5 kept
-            # and writes gx, gdt, gA, gB and gC.  Operations: what the
-            # function needs, five multiply-adds per state element a step
-            # (h, gC, lam, gB, gu), 10 N P flops per (batch, head, step).
-            "ssd_scan_bwd": (4 * (sx.numel() + sdt.numel() + sB.numel()
-                                  + sC.numel() + k5b_gy.numel()
-                                  + k5b_states0.numel()            # read
-                                  + sx.numel() + sdt.numel() + sh
-                                  + sB.numel() + sC.numel()),      # written
-                             10 * sb * sh * ss * sn * sp),
-        }
-        ssd_form = {q: 2 * sb * sh * ss * (q * (sn + sp) + 2 * sn * sp)
-                    for q in (KERNEL_CHUNK, sq)}
+        # Each input read once, each output written once, and the
+        # operations the function needs: the work functions beside each
+        # wrapper, which the dry run's counting mode reads too.  The timed
+        # K5 launch has h0 = None; the timed K5-bwd call no g_hlast.
+        work = {name: (wk["bytes"], wk["flops"]) for name, wk in {
+            "wf_tis": wf_tis_work(n, h, w, nb),
+            "fused_rows": fused_rows_work(n, w, nb, fused_rows),
+            "delta_apply": delta_apply_work(k3_H.numel(), k3_d.numel()),
+            "cw_tis_hscan": cw_tis_hscan_work(n, h, w, nb),
+            "cw_tis_vscan": cw_tis_vscan_work(n, nb, h, w),
+            "ssd_scan": ssd_scan_work(sb, ss, sh, sp, sn),
+            "ssd_scan_bwd": ssd_scan_bwd_work(sb, ss, sh, sp, sn),
+        }.items()}
+        ssd_form = {q: ssd_scan_work(sb, ss, sh, sp, sn, chunk=q)[
+            "form_flops"] for q in (KERNEL_CHUNK, sq)}
         log(f"   ssd_scan operations: the function needs "
             f"{work['ssd_scan'][1] / 1e9:.2f} GFLOP (4 N P a step); the SSD "
             f"form's full products, 2 Q (Q N + Q P + 2 N P) a chunk, are "
             + ", ".join(f"{f / 1e9:.2f} GFLOP at Q = {q}"
                         for q, f in ssd_form.items()))
-        # K5-bwd's chunk form, per 64-step chunk: per head C^T gy (the
-        # reverse pass), gy u^T, M^T gy, B G, u G^T and gy H0^T, 2 Q (4 N P
-        # + 2 Q P); per group of heads C B^T, W B and W^T C, 6 Q Q N.
+        # K5-bwd's chunk form (ssd_scan_bwd_work's form_flops).
         bwd_groups = -(-sh // bwd_heads_per_cta(sb, ss, sh, sp, sn))
-        bwd_form = 2 * sb * ss * (sh * (4 * sn * sp + 2 * KERNEL_CHUNK * sp)
-                                  + bwd_groups * 3 * KERNEL_CHUNK * sn)
+        bwd_form = ssd_scan_bwd_work(sb, ss, sh, sp, sn)["form_flops"]
         log(f"   ssd_scan_bwd operations: the function needs "
             f"{work['ssd_scan_bwd'][1] / 1e9:.2f} GFLOP (10 N P a step); the "
             f"chunk form's full products, 2 Q (4 N P + 2 Q P) a head and "
@@ -4572,6 +4831,12 @@ def run(torch) -> list[dict]:
         shard_times = sharded_phase(torch, dev, counted, tally, read_counts,
                                     only)
 
+    # With the other profiled phases, before the heavy serving after which
+    # Kineto drops the card's records.
+    with phase(f"dryrun: {LM_ARCH}'s train step and prefill counted on "
+               "meta tensors by launch/dryrun.py, then run on the card"):
+        dryrun_phase(torch, dev, counted, only)
+
     with phase("transformer at scale: llava-next-mistral-7b and "
                "llama4-scout through repro_torch.launch.serve"):
         clean = transformer_at_scale(torch, dev, counted, tally,
@@ -4583,6 +4848,10 @@ def run(torch) -> list[dict]:
         families_at_scale(torch, dev, counted, tally, read_counts, only,
                           clean)
         del clean
+
+    with phase("examples: examples/quickstart_torch.py and "
+               "examples/video_analytics_torch.py on the card and the CPU"):
+        examples_phase(torch, counted, only)
     # the kernels line carries the last phases' paths too, and K5's and
     # K5-bwd's times at the shard shapes
     for rec in records:

@@ -3,8 +3,9 @@
 Port of ``repro/config.py``: ``ModelConfig`` with every field and
 property, ``ShapeConfig``, ``SHAPES`` and ``cell_is_runnable``, unchanged.
 Every architecture is a ``ModelConfig`` in repro_torch/configs/<id>.py.
-The reference's ``HW`` table (TPU peak and bandwidth figures for its
-roofline) is left out: the port states no TPU number.
+``HW`` holds the H100 SXM figures the dry run's roofline reads
+(``launch/analysis.py``) in place of the reference's TPU table: the port
+states no TPU number.
 """
 
 from __future__ import annotations
@@ -180,3 +181,26 @@ def cell_is_runnable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]
             "path for 512k context (DESIGN.md §Arch-applicability)"
         )
     return True, ""
+
+
+# H100 SXM figures for the dry run's roofline (launch/analysis.py).  Each
+# is the card's or its host's data-sheet figure; none was measured here.
+HW = {
+    # Dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet, without
+    # sparsity): FLOP/s per card.
+    "peak_flops_bf16": 989e12,
+    # HBM3 bandwidth (H100 SXM data sheet): bytes/s per card.
+    "hbm_bw": 3.35e12,
+    # One 400 Gb/s InfiniBand port per card (DGX H100: eight ConnectX-7
+    # ports for eight cards): bytes/s.  A 16-wide mesh axis spans hosts of
+    # 8 cards, so its collectives cross hosts; like the reference's
+    # per-link ICI figure, this is the conservative one.
+    "link_bw": 50e9,
+    # NVLink 4 within a host, each way (900 GB/s both ways, H100 SXM data
+    # sheet).  Recorded only: no roofline term reads it.
+    "nvlink_bw": 450e9,
+    # Device memory as torch.cuda.get_device_properties(0).total_memory
+    # reads it on an "NVIDIA H100 80GB HBM3" (chip_smoke.py's dryrun phase
+    # checks it).
+    "hbm_bytes": 85_017_493_504,
+}

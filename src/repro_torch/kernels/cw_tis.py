@@ -38,6 +38,7 @@ from repro_torch.kernels.specs import (
     KernelGeometry,
     KernelSpec,
     Operand,
+    abstract_launch,
     cdiv,
 )
 from repro_torch.kernels.wf_tis import check_inputs, launch_shape
@@ -95,6 +96,22 @@ def _lib():
     return h_fn, v_fn
 
 
+def cw_tis_hscan_work(n: int, h: int, w: int, num_bins: int) -> dict:
+    """What the hscan's function must do: the ids read once, ``hh``
+    written once; a compare and an add per element of ``hh``."""
+    px = n * h * w
+    return {"bytes": 4 * px + 4 * px * num_bins, "flops": 2 * px * num_bins}
+
+
+def cw_tis_vscan_work(n: int, num_bins: int, h: int, w: int, *,
+                      carry: bool = False) -> dict:
+    """What the vscan's function must do: ``hh`` (and the carry) read
+    once, H written once; one add per element."""
+    el = n * num_bins * h * w
+    return {"bytes": 2 * 4 * el + (4 * n * num_bins * w if carry else 0),
+            "flops": el}
+
+
 def cw_tis_hscan_cuda(idx: torch.Tensor, num_bins: int, *,
                       bin_block: int | None = None) -> torch.Tensor:
     """The horizontal pass: (n, h, w) contiguous int32 ids ->
@@ -114,6 +131,7 @@ def cw_tis_hscan_cuda(idx: torch.Tensor, num_bins: int, *,
             "hscan launch")
     bb, threads, chunks = hscan_shape(w, num_bins, bin_block)
     if not idx.is_cuda:     # meta: the launch's checks ran, nothing launches
+        abstract_launch("cw_tis_hscan", cw_tis_hscan_work(n, h, w, num_bins))
         return hh
     h_fn, _ = _lib()
     with torch.cuda.device(idx.device):
@@ -145,7 +163,11 @@ def cw_tis_vscan_cuda(hh: torch.Tensor,
     if not (hh.is_cuda or hh.is_meta):
         return cw_tis_vscan_plain(hh, carry)
     out = torch.empty_like(hh)
-    if out.numel() == 0 or not hh.is_cuda:
+    if out.numel() == 0:
+        return out
+    if not hh.is_cuda:      # meta: the launch's checks ran, nothing launches
+        abstract_launch("cw_tis_vscan", cw_tis_vscan_work(
+            n, nb, h, w, carry=carry is not None))
         return out
     _, v_fn = _lib()
     with torch.cuda.device(hh.device):

@@ -18,7 +18,8 @@ in place and ``out=`` may be a row band of another H.  The TPU kernel's
 padding to (8, 128) tiles is gone; the ragged edge is masked.
 
 ``delta_apply_cuda`` launches the kernel for a CUDA tensor and runs
-``delta_apply_plain`` (the broadcast add) only for a CPU tensor.
+``delta_apply_plain`` (the broadcast add) only for a CPU tensor; a meta
+tensor gets the launch's checks and a meta result, no launch.
 ``delta_apply_cuda.launches`` counts kernel launches.  ``kernel_specs``
 states the launch for kernelcheck.
 """
@@ -34,6 +35,7 @@ from repro_torch.kernels.specs import (
     KernelGeometry,
     KernelSpec,
     Operand,
+    abstract_launch,
     cdiv,
 )
 
@@ -105,6 +107,12 @@ def _lib():
     return fn
 
 
+def delta_apply_work(h_numel: int, delta_numel: int) -> dict:
+    """What K3's function must do: the slab and the delta read once, the
+    slab written once, one add per slab element."""
+    return {"bytes": 4 * (2 * h_numel + delta_numel), "flops": h_numel}
+
+
 def delta_apply_cuda(H: torch.Tensor, delta: torch.Tensor, *,
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """``H + delta[..., None, :]``, out of place.
@@ -120,7 +128,7 @@ def delta_apply_cuda(H: torch.Tensor, delta: torch.Tensor, *,
       ``out``.  A CPU tensor runs ``delta_apply_plain``.
     """
     check_inputs(H, delta, out)
-    if not H.is_cuda:
+    if not (H.is_cuda or H.is_meta):
         res = delta_apply_plain(H, delta)
         if out is None:
             return res
@@ -133,6 +141,10 @@ def delta_apply_cuda(H: torch.Tensor, delta: torch.Tensor, *,
         return out
     h_plane = _plane_stride(H, "H")
     o_plane = _plane_stride(out, "out")
+    if not H.is_cuda:       # meta: the launch's checks ran, nothing launches
+        abstract_launch("delta_apply",
+                        delta_apply_work(H.numel(), delta.numel()))
+        return out
     fn = _lib()
     with torch.cuda.device(H.device):
         err = fn(H.data_ptr(), h_plane, delta.data_ptr(), out.data_ptr(),

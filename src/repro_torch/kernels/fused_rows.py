@@ -43,6 +43,7 @@ from repro_torch.kernels.specs import (
     KernelGeometry,
     KernelSpec,
     Operand,
+    abstract_launch,
     cdiv,
 )
 from repro_torch.kernels.wf_tis import check_inputs, wf_tis_plain
@@ -201,6 +202,17 @@ def launch(idx: torch.Tensor, num_bins: int, rows: np.ndarray,
     return out
 
 
+def fused_rows_work(n: int, w: int, num_bins: int, row_ids, *,
+                    carry: bool = False) -> dict:
+    """What K2's function must do: the ids of rows [0, row_ids[-1]] (and
+    the carry) read once, the requested rows written once; one add per
+    element of the scanned run's H and one per emitted element."""
+    h_run, k = int(row_ids[-1]) + 1, len(row_ids)
+    return {"bytes": 4 * n * w * (h_run + num_bins * k)
+            + (4 * n * num_bins * w if carry else 0),
+            "flops": n * num_bins * h_run * w + n * num_bins * k * w}
+
+
 def fused_rows_cuda(idx: torch.Tensor, num_bins: int, row_ids, *,
                     bin_block: int | None = None,
                     carry: torch.Tensor | None = None) -> torch.Tensor:
@@ -227,6 +239,8 @@ def fused_rows_cuda(idx: torch.Tensor, num_bins: int, row_ids, *,
     shape = chunk_shape(w, num_bins, n, rows.size, int(rows[-1]) + 1,
                         bin_block)
     if not idx.is_cuda:     # meta: the launch's checks ran, nothing launches
+        abstract_launch("fused_rows", fused_rows_work(
+            n, w, num_bins, rows, carry=carry is not None))
         return torch.empty((n, num_bins, rows.size, w), dtype=torch.float32,
                            device=idx.device)
     out = launch(idx, num_bins, rows, shape, carry)

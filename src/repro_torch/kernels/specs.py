@@ -56,6 +56,21 @@ SMEM_DEFAULT_BYTES = 48 * 1024
 #: 32-bit registers of one streaming multiprocessor.
 REGISTERS_PER_SM = 65_536
 
+#: Observers of abstract launches.  A kernel's wrapper given meta tensors
+#: runs its launch's checks, returns meta results and, instead of
+#: launching, calls ``abstract_launch`` with the kernel's name and its work
+#: (the ``*_work`` function beside the wrapper): how the dry run's counting
+#: mode (launch/analysis.py) counts a kernel as the kernel, not as aten ops.
+ABSTRACT_LAUNCH_OBSERVERS: list = []
+
+
+def abstract_launch(name: str, work: dict) -> None:
+    """Tell every observer that kernel ``name`` would have launched doing
+    ``work`` ({"bytes": ..., "flops": ...})."""
+    for observer in ABSTRACT_LAUNCH_OBSERVERS:
+        observer(name, work)
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -26,8 +26,11 @@ from rounding (csrc/ssd_scan.cu says how it is laid out).
 
 ``ssd_scan_cuda`` launches the kernel for a CUDA tensor and runs
 ``ssd_scan_plain`` (a restatement of ``ssd_chunked``'s chunk loop) only
-for a CPU tensor.  ``ssd_scan_cuda.launches`` counts calls that launched
-the kernel (two CUDA launches each: the state scan and the chunk scan).
+for a CPU tensor; a meta tensor gets the launch's checks and meta results
+of the kernel's shapes, no launch (the dry run's abstract evaluation,
+which counts ``ssd_scan_work``).  ``ssd_scan_cuda.launches`` counts calls
+that launched the kernel (two CUDA launches each: the state scan and the
+chunk scan).
 
 K5-bwd (``csrc/ssd_scan_bwd.cu``, no TPU counterpart: the reference
 differentiates its jnp chunk loop) computes the scan's gradients in K5's
@@ -37,7 +40,8 @@ chunk, which K5 writes and ``SSDScanFunction`` keeps: a reverse state pass
 chunk at once, gB and gC summed over a group of heads inside), both on
 3xTF32 ``mma.sync``.  ``ssd_scan_bwd_cuda`` launches it for a CUDA tensor
 (two CUDA launches a call, counted once in ``ssd_scan_bwd_cuda.launches``)
-and runs ``ssd_scan_bwd_plain`` for a CPU tensor.  ``ops.ssd_scan`` routes
+and runs ``ssd_scan_bwd_plain`` for a CPU tensor (a meta tensor as for
+K5, counting ``ssd_scan_bwd_work``).  ``ops.ssd_scan`` routes
 a grad-enabled CUDA scan through ``SSDScanFunction``; nothing on the card
 falls back to a plain version.
 """
@@ -49,7 +53,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.specs import SMEM_LIMIT_BYTES
+from repro_torch.kernels.specs import SMEM_LIMIT_BYTES, abstract_launch
 
 KERNEL_CHUNK = 64               # steps of one chunk inside the kernel
 _GRID_LIMIT = 65535             # CUDA's cap on grid dims y and z
@@ -221,6 +225,45 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, gy, *, chunk: int, h0=None,
     return gx, gdt, gA, gBm, gCm, None if h0 is None else lam_out
 
 
+def ssd_scan_work(b: int, s: int, h: int, p: int, n: int, *,
+                  h0: bool = False, chunk: int = KERNEL_CHUNK) -> dict:
+    """What one K5 call must do, the yardstick of its bound and of the dry
+    run.  ``bytes``: x, dt, A, B, C (and h0) read once, y and h_last
+    written once.  ``flops``: what the function needs, the recurrence's
+    decay, update and read-out of the (N, P) state, 4 N P a (batch, head,
+    step).  ``form_flops``: the SSD form's full products at chunk length
+    ``chunk``, 2 Q (Q N + Q P + 2 N P) a (batch, head) chunk of Q steps,
+    which a chunked kernel does instead, more the longer its chunk."""
+    state = b * h * n * p
+    read = (b * s * h * p + b * s * h + h + 2 * b * s * n
+            + (state if h0 else 0))
+    return {"bytes": 4 * (read + b * s * h * p + state),
+            "flops": 4 * b * h * s * n * p,
+            "form_flops": 2 * b * h * s * (chunk * (n + p) + 2 * n * p)}
+
+
+def ssd_scan_bwd_work(b: int, s: int, h: int, p: int, n: int, *,
+                      h0: bool = False, g_hlast: bool = False) -> dict:
+    """What one K5-bwd call must do.  ``bytes``: x, dt, B, C, gy, the
+    states K5 kept (and g_hlast) read once, gx, gdt, gA, gB and gC (and
+    gh0) written once.  ``flops``: five multiply-adds per state element
+    a step (h, gC, lam, gB, gu), 10 N P a (batch, head, step).
+    ``form_flops``: the chunk form's full products a 64-step chunk, per
+    head C^T gy (the reverse pass), gy u^T, M^T gy, B G, u G^T and
+    gy H0^T, 2 Q (4 N P + 2 Q P); per group of heads
+    (``bwd_heads_per_cta``) C B^T, W B and W^T C, 6 Q Q N."""
+    q, state = KERNEL_CHUNK, b * h * n * p
+    kept = b * h * -(-s // q) * n * p
+    inputs = b * s * h * p + b * s * h + 2 * b * s * n
+    read = inputs + b * s * h * p + kept + (state if g_hlast else 0)
+    written = inputs + h + (state if h0 else 0)
+    groups = -(-h // bwd_heads_per_cta(b, s, h, p, n))
+    return {"bytes": 4 * (read + written),
+            "flops": 10 * b * h * s * n * p,
+            "form_flops": 2 * b * s * (h * (4 * n * p + 2 * q * p)
+                                       + groups * 3 * q * n)}
+
+
 def scan_smem_bytes(n: int) -> int:
     """Dynamic shared memory of one chunk-scan CTA (csrc/ssd_scan.cu's
     ``scan_smem_floats``): C, B (then a head's entering state in its
@@ -316,15 +359,24 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, h0=None,
         ``SSDScanFunction`` keeps for the backward kernel.
 
     A CPU tensor runs ``ssd_scan_plain``; a CUDA tensor launches K5 or
-    raises.
+    raises; a meta tensor gets meta results of those shapes, and
+    ``ssd_scan_work`` goes to ``specs.abstract_launch``.
     """
     check_inputs(x, dt, A, Bm, Cm, chunk, h0)
     _check_kernel_inputs(x, dt, Bm, Cm, h0)
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         out = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
         return (*out, None) if return_states else out
     b, s, h, p = x.shape
     n = Bm.shape[-1]
+    if x.is_meta:           # the launch's checks ran, nothing launches
+        abstract_launch("ssd_scan", ssd_scan_work(b, s, h, p, n,
+                                                  h0=h0 is not None))
+        y, h_last, states = (torch.empty(shape, dtype=torch.float32,
+                                         device=x.device) for shape in (
+            (b, s, h, p), (b, h, n, p),
+            (b, h, -(-s // KERNEL_CHUNK), n, p)))
+        return (y, h_last, states) if return_states else (y, h_last)
     A = A.contiguous()
     # The kernel copies 16-byte pieces of x, B, C and h0: a view that does
     # not start (or step) on 16 bytes is copied first.
@@ -471,7 +523,9 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, *, states, chunk: int, h0=None,
       g_hlast: optional (B, H, N, P) float32 gradient in h_last.
 
     ``gh0`` is None when ``h0`` is.  A CPU tensor runs
-    ``ssd_scan_bwd_plain``; a CUDA tensor launches K5-bwd or raises.  The
+    ``ssd_scan_bwd_plain``; a CUDA tensor launches K5-bwd or raises; a
+    meta tensor gets meta gradients, and ``ssd_scan_bwd_work`` goes to
+    ``specs.abstract_launch``.  The
     kernels write gB and gC per head group (summed over its heads inside)
     and, where N or P spans more than one block of 128 rows or 64 columns,
     gx, gdt and ga per block; those parts are added here in a fixed order
@@ -479,12 +533,18 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, *, states, chunk: int, h0=None,
     """
     check_inputs(x, dt, A, Bm, Cm, chunk, h0)
     _check_kernel_inputs(x, dt, Bm, Cm, h0)
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, gy, chunk=chunk, h0=h0,
                                   g_hlast=g_hlast)
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     _check_bwd_inputs(x, gy, states, g_hlast, n)
+    if x.is_meta:           # the launch's checks ran, nothing launches
+        abstract_launch("ssd_scan_bwd", ssd_scan_bwd_work(
+            b, s, h, p, n, h0=h0 is not None, g_hlast=g_hlast is not None))
+        return tuple(None if t is None else torch.empty(
+            t.shape, dtype=torch.float32, device=x.device)
+            for t in (x, dt, A, Bm, Cm, h0))
     A = A.contiguous()
     # The kernels copy 16-byte pieces of x, B, C, gy and the states.
     x, Bm, Cm = (t if _aligned16(t) else t.clone() for t in (x, Bm, Cm))

@@ -41,6 +41,7 @@ from repro_torch.kernels.specs import (
     KernelGeometry,
     KernelSpec,
     Operand,
+    abstract_launch,
     cdiv,
 )
 
@@ -221,6 +222,18 @@ def launch(idx: torch.Tensor, num_bins: int, shape: LaunchShape,
     return out
 
 
+def wf_tis_work(n: int, h: int, w: int, num_bins: int, *,
+                carry: bool = False) -> dict:
+    """What K1's function must do: the ids (and the carry) read once and H
+    written once (a pre-pass's second read of the ids is the kernel's
+    cost, not the function's); two operations per element of H, the
+    one-hot compare and the scan's add."""
+    px = n * h * w
+    return {"bytes": 4 * px * (num_bins + 1)
+            + (4 * n * num_bins * w if carry else 0),
+            "flops": 2 * px * num_bins}
+
+
 def wf_tis_cuda(idx: torch.Tensor, num_bins: int, *,
                 bin_block: int | None = None,
                 carry: torch.Tensor | None = None) -> torch.Tensor:
@@ -246,6 +259,8 @@ def wf_tis_cuda(idx: torch.Tensor, num_bins: int, *,
                            device=idx.device)
     shape = launch_shape(w, num_bins, n, bin_block, h=h)
     if not idx.is_cuda:     # meta: the launch's checks ran, nothing launches
+        abstract_launch("wf_tis", wf_tis_work(n, h, w, num_bins,
+                                              carry=carry is not None))
         return torch.empty((n, num_bins, h, w), dtype=torch.float32,
                            device=idx.device)
     out = launch(idx, num_bins, shape, carry)

@@ -18,8 +18,11 @@ the state's shapes) and runs each step inside
 ``sharding_context(mesh, ShardingRules())``, where the sharded paths
 (``ssm_seq_parallel``, ``rnn_seq_parallel``, the MoE's experts) split
 their work over the mesh.  The state is held whole on the mesh's first
-device, and a restore puts it there.  ``--mesh pod|multipod`` raises:
-the production meshes come with ROADMAP 1.9d.
+device, and a restore puts it there.  ``--mesh pod|multipod`` builds
+``launch/mesh.make_production_mesh`` over the visible cards, (16, 16) or
+(2, 16, 16): with fewer than its 256 (512) cards it raises ValueError
+before anything is allocated.  ``launch/dryrun.py`` counts such a step
+on meta devices instead.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.data import make_stream
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.sharding.rules import ShardingRules, sharding_context
 from repro_torch.train import (
     CheckpointManager, FaultInjector, Watchdog, batch_shardings, init_state,
@@ -66,11 +69,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; the GPU when not given")
     args = ap.parse_args(argv)
-    if args.mesh in ("pod", "multipod"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes "
-            "(launch/mesh.make_production_mesh, 16x16 pods) come with "
-            "launch/dryrun.py, ROADMAP 1.9d, not ported yet")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -78,6 +76,9 @@ def main(argv=None):
     if args.mesh == "host":
         mesh = make_host_mesh(
             devices=None if args.device is None else [args.device])
+        dev = mesh.devices.flat[0]
+    elif args.mesh in ("pod", "multipod"):
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod")
         dev = mesh.devices.flat[0]
     else:
         dev = resolve_device(args.device)

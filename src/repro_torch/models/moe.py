@@ -30,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
-from repro_torch.sharding.rules import current_context, shard_grid
+from repro_torch.sharding.rules import (
+    current_context, note_collective, shard_grid,
+)
 
 
 def moe_params(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
@@ -173,6 +175,11 @@ def _expert_parallel(x: torch.Tensor, p: dict, cfg, mesh, rules):
                     "ws_gate": p["ws_gate"][:, cols].to(dev),
                     "ws_up": p["ws_up"][:, cols].to(dev),
                     "ws_down": p["ws_down"][cols].to(dev)})
+            # The ranks' partials summed: an all-reduce over the model
+            # axis of a multi-process run (and of x's gradient, which
+            # every rank's copy of the tokens receives, in the backward).
+            note_collective("all-reduce", part.numel() * part.element_size(),
+                            mirrored=True)
             acc = part.to(dev0) if acc is None else acc + part.to(dev0)
         if cfg.num_shared_experts and not shard_fs:
             acc = acc + _shared_expert(x_flat, {

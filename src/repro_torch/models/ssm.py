@@ -44,7 +44,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import segsum_decay as _segsum_decay  # noqa: F401
 from repro_torch.models import layers as L
 from repro_torch.models.cache import ssm_state
-from repro_torch.sharding.rules import current_context, shard_grid
+from repro_torch.sharding.rules import (
+    current_context, note_collective, shard_grid,
+)
 
 
 def _dims(cfg):
@@ -207,6 +209,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None, *,
     return y[:, :s], h_last
 
 
+def _note_permute(log_decay: torch.Tensor, state: torch.Tensor) -> None:
+    """A (log-decay, state) pair moved to another rank's device."""
+    note_collective("collective-permute",
+                    log_decay.numel() * log_decay.element_size()
+                    + state.numel() * state.element_size(), mirrored=True)
+
+
 def decay_ladder(log_decays: list, states: list) -> list:
     """The exclusive prefix over sequence shards of (log-decay, state)
     pairs, by a Hillis-Steele ladder: rank i receives the state that
@@ -220,8 +229,12 @@ def decay_ladder(log_decays: list, states: list) -> list:
     ``hs = exp(ld) * hs_in + hs; ld = ld + ld_in``.  log2(D) rounds, each
     combining rank i with rank i - step as the reference's ``ppermute``
     ladder does; a rank whose partner is rank 0's empty prefix keeps its
-    value, which the reference reaches by adding zeros."""
+    value, which the reference reaches by adding zeros.  Each move of a
+    (log-decay, state) pair to the next rank is a collective-permute of a
+    multi-process run (``note_collective``)."""
     d = len(states)
+    for i in range(1, d):               # rank i - 1's pair moves to rank i
+        _note_permute(log_decays[i - 1], states[i - 1])
     ld = [None] + [log_decays[i - 1].to(states[i].device)
                    for i in range(1, d)]
     hs = [None] + [states[i - 1].to(states[i].device) for i in range(1, d)]
@@ -231,6 +244,7 @@ def decay_ladder(log_decays: list, states: list) -> list:
         for i in range(step, d):
             if ld[i - step] is None:
                 continue
+            _note_permute(ld[i - step], hs[i - step])
             dev = hs[i].device
             decay = torch.exp(ld[i])
             decay = decay.reshape(decay.shape

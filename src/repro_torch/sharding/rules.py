@@ -24,6 +24,11 @@ sequence-parallel SSD and RG-LRU scans, the expert-parallel MoE) split
 their work over the mesh themselves, per shard on ``Mesh.grid``'s
 devices, and gather the result back.
 
+The sharded paths name the collectives a multi-process run would make
+where they move a shard's data to another shard's device
+(``note_collective``): the dry run's counting mode (launch/analysis.py)
+reads them, nothing else does.
+
 ``constrain`` returns its input.  The reference's constraint only
 annotates an activation for GSPMD, which never changes its values; one
 process computes every activation whole, so there is nothing to place,
@@ -89,6 +94,20 @@ _TLS = threading.local()
 class _Ctx:
     mesh: Mesh
     rules: ShardingRules
+
+
+#: Observers of the sharded paths' collectives (``note_collective``).
+COLLECTIVE_OBSERVERS: list = []
+
+
+def note_collective(kind: str, nbytes: int, *, mirrored: bool) -> None:
+    """A sharded path's collective: one device receives ``nbytes`` (the
+    result bytes of an ``all-to-all`` or a ``collective-permute``).
+    ``mirrored``: the backward of a training step makes the same transfer
+    again, reversed.  Each observer is called; with none, nothing
+    happens."""
+    for observer in COLLECTIVE_OBSERVERS:
+        observer(kind, nbytes, mirrored)
 
 
 def current_context() -> Optional[_Ctx]:

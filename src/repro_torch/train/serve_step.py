@@ -18,9 +18,12 @@ import torch
 from repro_torch.models import api
 
 
-def make_serve_fns(cfg):
+def make_serve_fns(cfg, *, backend: str = "auto"):
+    """``backend`` picks the prefill's SSD scan (``api.prefill``); decode
+    runs no kernel of ours."""
     def prefill_fn(params, batch, cache):
-        logits, cache = api.prefill(params, batch, cfg, cache)
+        logits, cache = api.prefill(params, batch, cfg, cache,
+                                    backend=backend)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     def decode_fn(params, tokens, cache):

@@ -55,14 +55,17 @@ def init_state(gen: torch.Generator, cfg, optimizer: Optimizer, *,
 
 
 def make_train_step(cfg, optimizer: Optimizer, *, clip_norm: float = 1.0,
-                    num_microbatches: int = 1, compress: bool = False):
+                    num_microbatches: int = 1, compress: bool = False,
+                    backend: str = "auto"):
     """Returns step_fn(state, batch) -> (new_state, metrics).  ``batch``
     holds "tokens" and "labels" (B, S) and the family's extras
     ("prefix_embeds", "src_embeds") as tensors or numpy arrays; each goes
-    to the parameters' device in its own dtype."""
+    to the parameters' device in its own dtype.  ``backend`` picks the SSD
+    scan's implementation (``api.loss_fn``): the dry run passes "cuda" on
+    meta tensors, so K5 and K5-bwd are counted as the kernels."""
 
     def loss_fn(model, batch):
-        return api.loss_fn(model, batch, cfg)
+        return api.loss_fn(model, batch, cfg, backend=backend)
 
     def step_fn(state, batch):
         params = state["params"]

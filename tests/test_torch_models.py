@@ -116,7 +116,15 @@ def test_shapes_and_cells_equal_reference():
     fields = {f.name for f in dataclasses.fields(config.ModelConfig)}
     assert fields == {f.name for f in dataclasses.fields(
         ref_config.ModelConfig)}
-    assert not hasattr(config, "HW")
+    # The port's HW table holds the H100 SXM's figures (the dry run's
+    # roofline), not the reference's TPU ones; its link figure, a card's
+    # 400 Gb/s port, is 50 GB/s as the reference's per-link ICI figure.
+    assert set(config.HW) == {"peak_flops_bf16", "hbm_bw", "link_bw",
+                              "nvlink_bw", "hbm_bytes"}
+    assert (config.HW["peak_flops_bf16"], config.HW["hbm_bw"]) == (989e12,
+                                                                   3.35e12)
+    for key in ("peak_flops_bf16", "hbm_bw", "hbm_bytes"):
+        assert config.HW[key] != ref_config.HW[key]
     for arch in REF_ARCH_IDS:
         ref = ref_get_config(arch)
         mine = config.ModelConfig(**dataclasses.asdict(ref))

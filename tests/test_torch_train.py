@@ -434,9 +434,10 @@ def test_launch_train_smoke_on_cpu():
 
 
 def test_launch_train_refuses_a_mesh():
-    """The production meshes (``--mesh pod|multipod``) raise, naming
-    ROADMAP 1.9d; ``--mesh host`` trains (tests/test_torch_launch_mesh.py
-    holds it against ``--mesh none``)."""
-    for mesh in ("pod", "multipod"):
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.9d"):
+    """The production meshes (``--mesh pod|multipod``,
+    ``launch/mesh.make_production_mesh``) raise ValueError naming the 256
+    (512) cards they need on a host with fewer; ``--mesh host`` trains
+    (tests/test_torch_launch_mesh.py holds it against ``--mesh none``)."""
+    for mesh, cards in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(ValueError, match=f"needs {cards} cards"):
             train_launch.main(["--smoke", "--device", "cpu", "--mesh", mesh])
