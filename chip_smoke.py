@@ -160,8 +160,9 @@ non-zero before the result line is printed:
           compute over fp32 master weights, AdamW), batch 4 x 1024
           tokens, 8 steps, a checkpoint every 4 steps into a temporary
           directory and a fault injected at step 6 (restored at step 4:
-          10 steps run): K5 and K5-bwd once a layer in every step (24
-          each); an uninterrupted run of the same 8 steps ends equal to
+          10 steps run): under the config's remat="full" K5 twice a layer
+          in every step (48: the backward reruns each layer) and K5-bwd
+          once (24); an uninterrupted run of the same 8 steps ends equal to
           the restarted one bit for bit; step 1 again out of the run
           (its state from the seed, the stream's batch 0): every
           parameter's gradient finite and non-zero somewhere (A_log and
@@ -208,7 +209,8 @@ non-zero before the result line is printed:
           sharded one; step 1's fp32 gradient of the train phase's state
           and batch on a 2 x 2 mesh against the unsharded one; 4 fp32
           steps through run_training(state_shardings=...) with a fault at
-          step 3 (path sp_train: K5 and K5-bwd 96 times each a step),
+          step 3 (path sp_train: K5 192 and K5-bwd 96 times a step, K5
+          again in the remat="full" rerun),
           step 1 against the unsharded fp32 step, beside the unsharded
           fp32 step's time; launch/train.py --mesh host for 2 steps
           (path train_mesh_host) bit-equal to --mesh none; K5 and K5-bwd
@@ -216,9 +218,11 @@ non-zero before the result line is printed:
           bounds
   dryrun  the dry run's counting mode (launch/dryrun.py, launch/analysis.py)
           against the card, after sharded: Mamba2-130M's fp32 train step
-          at 4 x 1024 and its bf16 prefill of 4 x 1024 counted on meta
-          tensors on a (1, 1) meta mesh, then run on the card (paths
-          dryrun_train, dryrun_prefill: K5 24 and K5-bwd 24 / 0) under
+          at 4 x 1024 under remat "none", "dots" and "full" and its bf16
+          prefill of 4 x 1024 counted on meta tensors on a (1, 1) meta
+          mesh, then run on the card (paths dryrun_train_none,
+          dryrun_train_dots, dryrun_train_full, dryrun_prefill: K5 24, 24,
+          48 and 24, K5-bwd 24, 24, 24 and 0) under
           torch.profiler(with_flops=True): the counted matmul FLOPs equal
           the profiler's aten matmul FLOPs within DRYRUN_MM_RTOL, the
           counted K5 and K5-bwd work equals the work functions at the
@@ -278,6 +282,17 @@ non-zero before the result line is printed:
           cache under rnn_seq_parallel on 4 logical shards (path
           sp_rglru) against the unsharded model (HY_SP_ATOL32), with both
           warm forward times; no kernel of ours launched
+  remat at scale
+          after every profiled phase: Mamba2-130M's fp32 train step at
+          REMAT_BATCH x REMAT_SEQ (32 x 1024), whose counted peak passes
+          the card's memory under remat="none" and stays under
+          REMAT_FULL_LIMIT under "full", run on the card under "full"
+          through make_train_step (path remat_train: K5 twice a layer a
+          step, K5-bwd once): the counted peak against the measured one
+          (DRYRUN_PEAK_BAND), the loss finite, warm step ms and tokens/s;
+          then K5 and K5-bwd at that step's shape (32 x 1024 x 24 x 64,
+          N=128) against their plain versions (K5_ATOL / K5_RTOL,
+          K5BWD_RTOL) and timed (the kernels line's "remat_shape")
   examples the run's last: examples/quickstart_torch.py and
           examples/video_analytics_torch.py at their defaults on the card
           (paths example_quickstart and example_video: K1, and K2 on the
@@ -290,7 +305,8 @@ non-zero before the result line is printed:
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
 service, mesh, lm, transformer, families, train, sharded, dryrun,
-transformer at scale, families at scale and examples phases
+transformer at scale, families at scale, remat at scale and examples
+phases
 runs with all seven launch counters set to 0 just before it and read
 just after; the kernels line carries each kernel's counts per path
 (``launches_by_path``).
@@ -537,6 +553,13 @@ K5_SHAPE = (4, 1024, 24, 64, 128, 256)
 # until torch frees it, as the allocator does.
 DRYRUN_MM_RTOL = 0.01
 DRYRUN_PEAK_BAND = (0.85, 1.15)
+# The remat at scale phase: Mamba2-130M's fp32 train step at a batch whose
+# counted peak passes the card's memory without remat (104.1 GB on meta
+# at 32 x 1024) and fits under "full" (37.8 GB), which must count under
+# REMAT_FULL_LIMIT bytes; REMAT_STEPS steps, the first a warm-up.
+REMAT_BATCH, REMAT_SEQ = 32, 1024
+REMAT_STEPS = 3
+REMAT_FULL_LIMIT = 60e9
 # The examples phase: the video twin's default stream length, and the
 # likelihood maps' gate, card against CPU (the same integer counts, scored
 # in fp32 by other reduction orders).
@@ -711,13 +734,14 @@ def k2_bytes(ids, bins, rows, carry) -> int:
                            carry=carry is not None)["bytes"]
 
 
-def ssd_inputs(torch, dev, seed, s=K5_SHAPE[1]):
-    """K5's inputs at K5_SHAPE with ``s`` steps, in the ranges the model
-    hands the scan: x, softplus step sizes dt, A = -exp(small), B and C
-    of the conv + silu's scale, and a random h0."""
+def ssd_inputs(torch, dev, seed, s=K5_SHAPE[1], sb=K5_SHAPE[0]):
+    """K5's inputs at K5_SHAPE with ``s`` steps and batch ``sb``, in the
+    ranges the model hands the scan: x, softplus step sizes dt,
+    A = -exp(small), B and C of the conv + silu's scale, and a random
+    h0."""
     import numpy as np
 
-    sb, _, sh, sp, sn, _ = K5_SHAPE
+    _, _, sh, sp, sn, _ = K5_SHAPE
     r = np.random.default_rng(seed)
     arrays = (r.standard_normal((sb, s, sh, sp)),
               np.log1p(np.exp(r.standard_normal((sb, s, sh)))),
@@ -727,6 +751,46 @@ def ssd_inputs(torch, dev, seed, s=K5_SHAPE[1]):
               r.standard_normal((sb, sh, sn, sp)))
     return [torch.as_tensor(a, dtype=torch.float32, device=dev)
             for a in arrays]
+
+
+def scan_errors(torch, label, got, want) -> float:
+    """K5's (y, h_last) against its plain version's: each one's max abs
+    and rel error logged and held to K5_ATOL / K5_RTOL.  The larger max
+    abs error."""
+    errs = []
+    for name, g, w_ in zip(("y", "h_last"), got, want):
+        abs_err = float((g - w_).abs().max())
+        rel_err = abs_err / float(w_.abs().max())
+        log(f"   {label}: {name} max abs err {abs_err:.3e}, max rel "
+            f"err {rel_err:.3e} (|{name}| up to "
+            f"{float(w_.abs().max()):.3f})")
+        check(torch.allclose(g, w_, atol=K5_ATOL, rtol=K5_RTOL),
+              f"K5 != plain ({label}, {name}) beyond atol {K5_ATOL} "
+              f"rtol {K5_RTOL}")
+        errs.append(abs_err)
+    return max(errs)
+
+
+def grad_errors(torch, label, got, want) -> float:
+    """Each gradient's max abs error and that over its largest magnitude,
+    against K5BWD_RTOL; every gradient finite.  The largest max abs
+    error."""
+    worst = 0.0
+    for name, g, w_ in zip(("gx", "gdt", "gA", "gBm", "gCm", "gh0"),
+                           got, want):
+        if w_ is None:
+            check(g is None, f"{label}: {name} given without h0")
+            continue
+        check(bool(torch.isfinite(g).all()), f"{label}: {name} not finite")
+        abs_err = float((g - w_).abs().max())
+        scale = float(w_.abs().max())
+        log(f"   {label}: {name} max abs err {abs_err:.3e}, over its "
+            f"largest |{name}| {scale:.3e}: {abs_err / scale:.3e}")
+        check(abs_err <= K5BWD_RTOL * scale,
+              f"K5-bwd != plain ({label}, {name}): {abs_err} > "
+              f"{K5BWD_RTOL} x {scale}")
+        worst = max(worst, abs_err)
+    return worst
 
 
 def device_kernels(torch, fn, calls: int = 10):
@@ -2000,6 +2064,16 @@ def flat(tree, prefix=""):
     return {prefix: tree}
 
 
+def k5_train_launches(cfg, shards: int = 1) -> dict:
+    """K5's and K5-bwd's launches in one train step of the ssm ``cfg``
+    (``shards``: a sequence-parallel step's shards): K5 once a shard a
+    layer, and once more under remat="full", whose backward reruns each
+    layer; K5-bwd once a shard a layer."""
+    fwd = 2 if cfg.remat == "full" else 1
+    return {"ssd_scan": fwd * cfg.num_layers * shards,
+            "ssd_scan_bwd": cfg.num_layers * shards}
+
+
 def train_main(torch, counted, read_counts, path, argv):
     """``repro_torch.launch.train.main(argv)`` in a temporary checkpoint
     directory, counted under ``path``.  Its step function is wrapped to
@@ -2061,9 +2135,9 @@ def check_restart_equal(torch, faulty, clean, f_steps, c_steps) -> None:
 
 def dryrun_phase(torch, dev, counted, only) -> dict:
     """The dryrun phase (see the module docstring): Mamba2-130M's fp32
-    train step and bf16 prefill counted on meta tensors by the dry run's
-    counting mode, then run on the card under torch.profiler; returns
-    the paths' launch counts."""
+    train step under each remat setting and its bf16 prefill counted on
+    meta tensors by the dry run's counting mode, then run on the card
+    under torch.profiler; returns each cell's figures by name."""
     import dataclasses
 
     from torch.autograd import DeviceType
@@ -2089,13 +2163,16 @@ def dryrun_phase(torch, dev, counted, only) -> dict:
           f"total_memory {total}")
     mesh = make_host_mesh((1, 1), devices=["meta"])
     base = get_config(LM_ARCH)
-    cells = (("train", dataclasses.replace(base, dtype="float32"),
-              ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")),
-             ("prefill", base,
-              ShapeConfig("chip_prefill", LM_PROMPT, LM_BATCH, "prefill")))
+    train_shape = ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cells = tuple(
+        (f"train_{remat}", "train",
+         dataclasses.replace(base, dtype="float32", remat=remat), train_shape)
+        for remat in ("none", "dots", "full")) + (
+        ("prefill", "prefill", base,
+         ShapeConfig("chip_prefill", LM_PROMPT, LM_BATCH, "prefill")),)
     matmuls = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
     out = {}
-    for kind, cfg, shape in cells:
+    for cell, kind, cfg, shape in cells:
         t0 = time.perf_counter()
         cnt = dryrun._measure(cfg, shape, mesh, ShardingRules(), kind)
         count_s = time.perf_counter() - t0
@@ -2155,7 +2232,7 @@ def dryrun_phase(torch, dev, counted, only) -> dict:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                counts = counted(f"dryrun_{kind}", run)[2]
+                counts = counted(f"dryrun_{cell}", run)[2]
                 end.record()
                 torch.cuda.synchronize()
         finally:
@@ -2163,24 +2240,30 @@ def dryrun_phase(torch, dev, counted, only) -> dict:
             ssd_mod.ssd_scan_bwd_cuda = orig["ssd_scan_bwd"]
         peak = torch.cuda.max_memory_allocated() - base_bytes
         step_ms = start.elapsed_time(end)
-        mm_flops = sum(e.flops for e in prof.key_averages()
-                       if e.key in matmuls)
+        # The matmuls that ran a kernel: under remat="dots" the selective
+        # checkpoint's dispatch mode records a second aten::mm around
+        # each one it keeps (the real one nested inside it) and one for
+        # each kept output the rerun takes from its cache, neither of
+        # which runs anything on the card.
+        mm_flops = sum(e.flops for e in prof.events()
+                       if e.name in matmuls and e.self_device_time_total > 0)
         spans = [(0, e.time_range.start, e.time_range.end)
                  for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy_s = busy_us(spans) * 1e-6
+        # The step again without the profiler: the host's share of it
+        # (the selective checkpoint's dispatch mode runs in Python).
+        warm_ms = time_ms(run, runs=3, launches=1)
         del run
         if kind == "train":
             del state, step, opt
         else:
             del model, cache
         torch.cuda.empty_cache()
-        check(counts == only(**{
-            "ssd_scan": len(launched["ssd_scan"]),
-            "ssd_scan_bwd": len(launched["ssd_scan_bwd"])})
-              and len(launched["ssd_scan"]) == cfg.num_layers
-              and len(launched["ssd_scan_bwd"]) == (
-                  cfg.num_layers if kind == "train" else 0),
-              f"the {kind} step launched {counts}")
+        want_k5 = (k5_train_launches(cfg) if kind == "train"
+                   else {"ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0})
+        check(counts == only(**{k: len(v) for k, v in launched.items()})
+              and counts == only(**want_k5),
+              f"the {cell} step launched {counts}, want {want_k5}")
 
         # Gates: the counted matmul FLOPs against the profiler's, the
         # counted K5 and K5-bwd work against the work functions at the
@@ -2202,7 +2285,8 @@ def dryrun_phase(torch, dev, counted, only) -> dict:
             "temp_size_in_bytes"]
         terms = analysis.roofline_terms(cnt["flops"], cnt["bytes"], 0.0)
         label = f"{LM_ARCH} {cfg.dtype} {kind} {shape.global_batch}x" \
-                f"{shape.seq_len}"
+                f"{shape.seq_len}" + (f" remat={cfg.remat}"
+                                      if kind == "train" else "")
         log(f"   {label}: counted on meta in {count_s:.1f} s: "
             f"{cnt['flops'] / 1e12:.4f} TFLOP ({counted_mm / 1e12:.4f} in "
             f"matmuls), {cnt['bytes'] / 1e9:.3f} GB moved, peak "
@@ -2234,9 +2318,146 @@ def dryrun_phase(torch, dev, counted, only) -> dict:
         check(terms["bound_s"] <= busy_s,
               f"{label}: roofline bound {terms['bound_s']} s above the "
               f"measured device-busy {busy_s} s")
-        out[kind] = {"count_s": count_s, "terms": terms, "busy_s": busy_s,
-                     "step_ms": step_ms, "peak": peak,
+        out[cell] = {"count_s": count_s, "terms": terms, "busy_s": busy_s,
+                     "step_ms": step_ms, "warm_ms": warm_ms, "peak": peak,
                      "counted_peak": counted_peak}
+    log("   " + ", ".join(
+        f"{n}: peak {c['peak'] / 1e9:.3f} GB (counted "
+        f"{c['counted_peak'] / 1e9:.3f}), profiled {c['step_ms']:.3f} ms "
+        f"(busy {c['busy_s'] * 1e3:.3f}), unprofiled {c['warm_ms']:.3f} ms "
+        "(CUDA events, median of 3)" for n, c in out.items())
+        + f" | card {card}")
+    return out
+
+
+def remat_at_scale(torch, dev, counted, only) -> dict:
+    """The remat at scale phase (see the module docstring): a train step
+    that fits the card only with activation checkpointing.  Returns its
+    figures."""
+    import dataclasses
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_stream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.train import init_state, make_optimizer, make_train_step
+
+    card = card_line()
+    total = torch.cuda.get_device_properties(0).total_memory
+    mesh = make_host_mesh((1, 1), devices=["meta"])
+    shape = ShapeConfig("remat_train", REMAT_SEQ, REMAT_BATCH, "train")
+    base = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    counted_peak = {}
+    for remat in ("none", "full"):
+        mem = dryrun._measure(dataclasses.replace(base, remat=remat), shape,
+                              mesh, ShardingRules(), "train")["memory"]
+        counted_peak[remat] = (mem["argument_size_in_bytes"]
+                               + mem["temp_size_in_bytes"])
+    label = f"{LM_ARCH} float32 train {REMAT_BATCH}x{REMAT_SEQ}"
+    log(f"   {label}: counted peak " + ", ".join(
+        f"{r} {b / 1e9:.3f} GB" for r, b in counted_peak.items())
+        + f" against the card's {total / 1e9:.3f} GB | card {card}")
+    check(counted_peak["none"] > total
+          and counted_peak["full"] < REMAT_FULL_LIMIT,
+          f"{label}: counted peaks {counted_peak}: want more than the "
+          f"card's {total} B without remat, under {REMAT_FULL_LIMIT} B "
+          "under full")
+
+    cfg = dataclasses.replace(base, remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer(cfg)
+    state = init_state(torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                       cfg, opt)
+    stream = make_stream(cfg, REMAT_BATCH, REMAT_SEQ, TRAIN_SEED)
+    step = make_train_step(cfg, opt)
+    per_step = k5_train_launches(cfg)
+    ms, losses = [], []
+    for i in range(REMAT_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.batch_at(i).items()}
+        (state, metrics), secs, counts = counted(
+            "remat_train", lambda: step(state, batch))
+        check(counts == only(**per_step),
+              f"{label} step {i} launched {counts}, want {per_step}")
+        ms.append(secs * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    step_ms = statistics.median(ms[1:])
+    log(f"   {label} remat=full on the card: {REMAT_STEPS} steps, losses "
+        f"{losses}, step ms {[round(t, 3) for t in ms]} (warm median "
+        f"{step_ms:.3f} ms, host clock, "
+        f"{REMAT_BATCH * REMAT_SEQ / step_ms * 1e3:.0f} tokens/s), peak "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated less the "
+        f"{base_bytes / 1e9:.3f} GB held before) against "
+        f"{counted_peak['full'] / 1e9:.3f} GB counted (counted / measured "
+        f"{counted_peak['full'] / peak:.4f}) | card {card}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: losses {losses}")
+    lo, hi = DRYRUN_PEAK_BAND
+    check(lo <= counted_peak["full"] / peak <= hi,
+          f"{label}: counted peak {counted_peak['full']} B vs measured "
+          f"{peak} B")
+    del state, step, opt, batch
+    torch.cuda.empty_cache()
+    return {"counted_peak": counted_peak, "peak": peak, "step_ms": step_ms,
+            "kernels": k5_at_step_shape(torch, dev, REMAT_BATCH, REMAT_SEQ)}
+
+
+def k5_at_step_shape(torch, dev, bsz, seq) -> dict:
+    """K5 and K5-bwd as the remat_train path calls them (batch ``bsz``,
+    ``seq`` steps, no h0 and no gradient of h_last), each held against
+    its plain version with the k5 and k5_bwd phases' tolerances and
+    timed.  By kernel: the shape, max abs error, ms a launch and bound."""
+    import numpy as np
+
+    from repro_torch.kernels.ssd_scan import (
+        KERNEL_CHUNK, ssd_scan_bwd_cuda, ssd_scan_bwd_plain,
+        ssd_scan_bwd_work, ssd_scan_cuda, ssd_scan_plain, ssd_scan_work,
+    )
+
+    chunk = K5_SHAPE[5]
+    x, dt, A, Bm, Cm, _ = ssd_inputs(torch, dev, 44, seq, bsz)
+    _, heads, pdim = x.shape[1:]
+    n = Bm.shape[-1]
+    shape = f"{bsz}x{seq}x{heads}x{pdim}, N={n}"
+    err = scan_errors(torch, f"K5 at {shape}",
+                      ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk),
+                      ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk))
+    ms = time_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk),
+                 runs=5, launches=3)
+    _, _, states = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                                 return_states=True)
+    gy = torch.as_tensor(np.random.default_rng(45).standard_normal(
+        tuple(x.shape)), dtype=torch.float32, device=dev)
+    err_b = grad_errors(
+        torch, f"K5-bwd at {shape}",
+        ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, states=states, chunk=chunk),
+        ssd_scan_bwd_plain(x, dt, A, Bm, Cm, gy, chunk=KERNEL_CHUNK))
+    ms_b = time_ms(lambda: ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy,
+                                             states=states, chunk=chunk),
+                   runs=5, launches=3)
+    out = {}
+    for name, e, t, work in (
+            ("ssd_scan", err, ms, ssd_scan_work(bsz, seq, heads, pdim, n)),
+            ("ssd_scan_bwd", err_b, ms_b,
+             ssd_scan_bwd_work(bsz, seq, heads, pdim, n))):
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = work["flops"] / TF32X3_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"   {name} at the remat_train shape {shape}: {t:.4f} ms a "
+            f"launch | bound {bound:.4f} ms by {by} at the 3xTF32 rate, "
+            f"{bound / t:.1%} of it | card {card_line()}")
+        out[name] = {"shape": shape, "path": "remat_train",
+                     "max_abs_err": e, "ms": t, "bound_ms": bound,
+                     "bound_by": by}
+    del x, dt, A, Bm, Cm, states, gy
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2458,9 +2679,9 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
 
     l32, g32, n32, counts = grads(cfg32, None)
     lsp, gsp, nsp, counts = grads(sp32, mesh_t)
-    check(counts == only(ssd_scan=nl * t_shards, ssd_scan_bwd=nl * t_shards),
-          f"the sharded gradient launched {counts}, want K5 and K5-bwd "
-          f"{nl} x {t_shards} times each")
+    sp_step = k5_train_launches(sp32, t_shards)
+    check(counts == only(**sp_step),
+          f"the sharded gradient launched {counts}, want {sp_step}")
     leaf_err = {k: float((gsp[k] - g32[k]).abs().max() / g32[k].abs().max())
                 for k in g32}
     worst = max(leaf_err, key=leaf_err.get)
@@ -2530,9 +2751,8 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
           and int(state["step"]) == SP_TRAIN_STEPS,
           f"{len(steps_log)} steps run, want {want_steps}")
     for i, (_, c, m) in enumerate(steps_log):
-        check(c == only(ssd_scan=nl * t_shards, ssd_scan_bwd=nl * t_shards),
-              f"sharded step {i} launched {c}, want K5 and K5-bwd "
-              f"{nl} x {t_shards} times each")
+        check(c == only(**sp_step),
+              f"sharded step {i} launched {c}, want {sp_step}")
         check(math.isfinite(m["loss"]), f"sharded step {i}: loss {m}")
     check(abs(steps_log[0][2]["loss"] - l32) <= TRAIN_LOSS32_RTOL * abs(l32)
           and abs(steps_log[0][2]["grad_norm"] - n32)
@@ -2554,15 +2774,15 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
     for i in range(SP_TRAIN_STEPS):
         b = stream.batch_at(i)
         (state, _), t, counts = counted(None, lambda: step32(state, b))
-        check(counts == only(ssd_scan=nl, ssd_scan_bwd=nl),
+        check(counts == only(**k5_train_launches(cfg32)),
               f"the unsharded fp32 step launched {counts}")
         un_ms.append(t * 1e3)
     del state
     log(f"   fp32 train step {TRAIN_BATCH}x{TRAIN_SEQ}, warm, host clock, "
         f"median of steps 2..{SP_TRAIN_STEPS}: unsharded "
-        f"{statistics.median(un_ms[1:]):.3f} ms ({nl} K5 + {nl} K5-bwd "
-        f"launches), sequence-parallel on {t_shards} logical shards "
-        f"{sp_ms:.3f} ms ({nl * t_shards} + {nl * t_shards}) | card "
+        f"{statistics.median(un_ms[1:]):.3f} ms "
+        f"({k5_train_launches(cfg32)} launches), sequence-parallel on "
+        f"{t_shards} logical shards {sp_ms:.3f} ms ({sp_step}) | card "
         f"{card_line()}")
     torch.cuda.empty_cache()
 
@@ -2576,8 +2796,8 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
             torch, counted, read_counts,
             "train_mesh_host" if mesh == "host" else None,
             argv + ["--mesh", mesh])
-        check(counts == only(ssd_scan=nl * MESH_HOST_STEPS,
-                             ssd_scan_bwd=nl * MESH_HOST_STEPS),
+        check(counts == only(**{k: v * MESH_HOST_STEPS for k, v in
+                                k5_train_launches(cfg).items()}),
               f"--mesh {mesh} launched {counts}")
         runs[mesh] = (flat(state), [m["loss"] for _, _, m in steps], secs)
     a, b = runs["none"][0], runs["host"][0]
@@ -3000,20 +3220,6 @@ def run(torch) -> list[dict]:
 
         sb, ss, sh, sp, sn, sq = K5_SHAPE
 
-        def scan_errors(label, got, want):
-            errs = []
-            for name, g, w_ in zip(("y", "h_last"), got, want):
-                abs_err = float((g - w_).abs().max())
-                rel_err = abs_err / float(w_.abs().max())
-                log(f"   {label}: {name} max abs err {abs_err:.3e}, max rel "
-                    f"err {rel_err:.3e} (|{name}| up to "
-                    f"{float(w_.abs().max()):.3f})")
-                check(torch.allclose(g, w_, atol=K5_ATOL, rtol=K5_RTOL),
-                      f"K5 != plain ({label}, {name}) beyond atol {K5_ATOL} "
-                      f"rtol {K5_RTOL}")
-                errs.append(abs_err)
-            return max(errs)
-
         k5_in = ssd_inputs(torch, dev, 9)
         sx, sdt, sA, sB, sC, sh0 = k5_in
         k5_err = 0.0
@@ -3023,7 +3229,7 @@ def run(torch) -> list[dict]:
             got = ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq, h0=h0)
             want = ssd_scan_plain(sx, sdt, sA, sB, sC, chunk=sq, h0=h0)
             k5_err = max(k5_err, scan_errors(
-                f"{sb}x{ss}x{sh}x{sp}, N={sn}, {label}", got, want))
+                torch, f"{sb}x{ss}x{sh}x{sp}, N={sn}, {label}", got, want))
         check(torch.equal(ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq)[0],
                           ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq,
                                         h0=torch.zeros_like(sh0))[0]),
@@ -3035,8 +3241,8 @@ def run(torch) -> list[dict]:
               "ssd_chunked on CUDA tensors did not launch K5")
         want = ssd_chunked(rx, rdt, rA, rB, rC, sq, h0=rh0, backend="torch")
         k5_err = max(k5_err, scan_errors(
-            "ssd_chunked, ragged S=1000 (padded to 1024), random h0", got,
-            want))
+            torch, "ssd_chunked, ragged S=1000 (padded to 1024), random h0",
+            got, want))
         del got, want, rx, rdt, rB, rC, rh0
         # The operations the function needs, 4 N P flops a step, over the
         # rate of the unit K5 computes them on, and over fp32's.
@@ -3051,27 +3257,6 @@ def run(torch) -> list[dict]:
 
     with phase("k5_bwd: the SSD scan's backward kernel vs its plain version"):
         from repro_torch.kernels import ops as k5_ops
-
-        def grad_errors(label, got, want):
-            """Each gradient's max abs error and that over its largest
-            magnitude, against K5BWD_RTOL; every gradient finite."""
-            worst = 0.0
-            for name, g, w_ in zip(("gx", "gdt", "gA", "gBm", "gCm", "gh0"),
-                                   got, want):
-                if w_ is None:
-                    check(g is None, f"{label}: {name} given without h0")
-                    continue
-                check(bool(torch.isfinite(g).all()),
-                      f"{label}: {name} not finite")
-                abs_err = float((g - w_).abs().max())
-                scale = float(w_.abs().max())
-                log(f"   {label}: {name} max abs err {abs_err:.3e}, over its "
-                    f"largest |{name}| {scale:.3e}: {abs_err / scale:.3e}")
-                check(abs_err <= K5BWD_RTOL * scale,
-                      f"K5-bwd != plain ({label}, {name}): {abs_err} > "
-                      f"{K5BWD_RTOL} x {scale}")
-                worst = max(worst, abs_err)
-            return worst
 
         # The gradients of y and h_last at the training shape (K5_SHAPE).
         r = np.random.default_rng(12)
@@ -3091,7 +3276,7 @@ def run(torch) -> list[dict]:
                                       chunk=KERNEL_CHUNK, h0=h0,
                                       g_hlast=g_hlast)
             k5b_err = max(k5b_err, grad_errors(
-                f"{sb}x{ss}x{sh}x{sp}, N={sn}, {label}", got, want))
+                torch, f"{sb}x{ss}x{sh}x{sp}, N={sn}, {label}", got, want))
             check(all(torch.equal(a, b) for a, b in zip(
                 got[:5], ssd_scan_bwd_cuda(sx, sdt, sA, sB, sC, k5b_gy,
                                            states=k5b_states, chunk=sq,
@@ -3104,7 +3289,7 @@ def run(torch) -> list[dict]:
         _, _, rst = ssd_scan_cuda(rx, rdt, rA, rB, rC, chunk=1000, h0=rh0,
                                   return_states=True)
         k5b_err = max(k5b_err, grad_errors(
-            "ragged S=1000, random h0 and g_hlast",
+            torch, "ragged S=1000, random h0 and g_hlast",
             ssd_scan_bwd_cuda(rx, rdt, rA, rB, rC, rgy, states=rst,
                               chunk=1000, h0=rh0, g_hlast=k5b_gh),
             ssd_scan_bwd_plain(rx, rdt, rA, rB, rC, rgy, chunk=200, h0=rh0,
@@ -3131,8 +3316,9 @@ def run(torch) -> list[dict]:
                   "the Function's backward did not launch K5-bwd once")
             grads.append([t.grad for t in ins])
         k5b_err = max(k5b_err, grad_errors(
-            "SSDScanFunction vs autograd of the plain scan, dt = 0.69, "
-            "A = -1, chunk 256", grads[0] + [None], grads[1] + [None]))
+            torch, "SSDScanFunction vs autograd of the plain scan, "
+            "dt = 0.69, A = -1, chunk 256", grads[0] + [None],
+            grads[1] + [None]))
         del grads, ins, y, fx, fB, fC, leaves
         torch.cuda.empty_cache()
 
@@ -4248,19 +4434,20 @@ def run(torch) -> list[dict]:
             f"history {f_hist}; peak device memory {train_peak / 1e9:.2f} GB")
         check(len(f_steps) == want_steps and int(faulty["step"]) == TRAIN_STEPS,
               f"{len(f_steps)} steps run, want {want_steps}")
+        per_step = k5_train_launches(cfg)
         for i, (_, c, _) in enumerate(f_steps):
-            check(c == only(ssd_scan=nl, ssd_scan_bwd=nl),
-                  f"step {i} of the run launched {c}, want K5 and K5-bwd "
-                  f"{nl} times each (once a layer)")
-        check(f_counts == only(ssd_scan=nl * want_steps,
-                               ssd_scan_bwd=nl * want_steps),
+            check(c == only(**per_step),
+                  f"step {i} of the run launched {c}, want {per_step} "
+                  f"(remat={cfg.remat!r}, {nl} layers)")
+        check(f_counts == only(**{k: v * want_steps
+                                  for k, v in per_step.items()}),
               f"the run launched {f_counts}")
         clean, c_hist, c_secs, c_counts, c_steps = train_run(
             "train_uninterrupted", [])
         log(f"   train.main uninterrupted: {c_secs:.1f} s, {len(c_steps)} "
             f"steps, launched {c_counts}, history {c_hist}")
-        check(c_counts == only(ssd_scan=nl * TRAIN_STEPS,
-                               ssd_scan_bwd=nl * TRAIN_STEPS),
+        check(c_counts == only(**{k: v * TRAIN_STEPS
+                                  for k, v in per_step.items()}),
               f"the uninterrupted run launched {c_counts}")
         check_restart_equal(torch, faulty, clean, f_steps, c_steps)
         del faulty
@@ -4368,9 +4555,11 @@ def run(torch) -> list[dict]:
         k5b_plain = time_ms(lambda: ssd_scan_bwd_plain(
             sx, sdt, sA, sB, sC, k5b_gy, chunk=KERNEL_CHUNK), runs=3,
             launches=2)
+        n_k5 = k5_train_launches(cfg)["ssd_scan"]
         log(f"   train step {train_step_ms:.3f} ms warm, "
             f"{TRAIN_BATCH * TRAIN_SEQ / train_step_ms * 1e3:.0f} tokens/s: "
-            f"its {nl} K5 launches {nl * k5_ms:.3f} ms, its {nl} K5-bwd "
+            f"its {n_k5} K5 launches {n_k5 * k5_ms:.3f} ms "
+            f"(remat={cfg.remat!r}), its {nl} K5-bwd "
             f"launches {nl} x {k5b_ms:.4f} = {nl * k5b_ms:.3f} ms "
             f"({nl * k5b_ms / train_step_ms:.1%} of the step); peak device "
             f"memory of the run {train_peak / 1e9:.2f} GB | card "
@@ -4544,12 +4733,14 @@ def run(torch) -> list[dict]:
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             })
             if name == "ssd_scan":
-                records[-1].update(launches_per_request=lm_launches,
-                                   launches_per_train_step=nl,
-                                   cuda_launches_per_call=k5_calls)
+                records[-1].update(
+                    launches_per_request=lm_launches,
+                    launches_per_train_step=k5_train_launches(cfg)[name],
+                    cuda_launches_per_call=k5_calls)
             if name == "ssd_scan_bwd":
-                records[-1].update(launches_per_train_step=nl,
-                                   cuda_launches_per_call=k5b_calls)
+                records[-1].update(
+                    launches_per_train_step=k5_train_launches(cfg)[name],
+                    cuda_launches_per_call=k5b_calls)
             if name == "wf_tis":
                 records[-1].update(cuda_launches_per_call=k1_calls,
                                    shapes=k1_by_shape)
@@ -4849,6 +5040,11 @@ def run(torch) -> list[dict]:
                           clean)
         del clean
 
+    # After every profiled phase: a 38 GB step.
+    with phase(f"remat at scale: {LM_ARCH}'s fp32 train step at "
+               f"{REMAT_BATCH}x{REMAT_SEQ} under remat=full"):
+        remat_times = remat_at_scale(torch, dev, counted, only)["kernels"]
+
     with phase("examples: examples/quickstart_torch.py and "
                "examples/video_analytics_torch.py on the card and the CPU"):
         examples_phase(torch, counted, only)
@@ -4862,6 +5058,11 @@ def run(torch) -> list[dict]:
             rec["shard_shapes"] = [
                 {**t, "launches_per_run": paths[t["path"]][rec["name"]]}
                 for t in shard_times[rec["name"]]]
+        if rec["name"] in remat_times:
+            t = remat_times[rec["name"]]
+            rec["remat_shape"] = {
+                **t, "launches_per_run": paths[t["path"]][rec["name"]]}
+            rec["max_abs_err"] = max(rec["max_abs_err"], t["max_abs_err"])
     return records
 
 

@@ -1,10 +1,10 @@
 """Architecture registry: one module per arch, exact configs.
 
 Port of ``repro/configs/__init__.py``.  ``ARCH_IDS`` lists every
-architecture of the reference, and ``get_config`` returns the full
-published config of each.  ``smoke_config(...)`` returns the reduced
-same-family config the CPU tests run, computed as the reference computes
-it.
+architecture of the reference, ``get_config`` returns the full published
+config of each and ``all_configs`` all of them, by id.
+``smoke_config(...)`` returns the reduced same-family config the CPU
+tests run, computed as the reference computes it.
 """
 
 from __future__ import annotations
@@ -38,6 +38,11 @@ def get_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    """Every architecture's full published config, by id."""
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def smoke_config(arch_id: str) -> ModelConfig:
@@ -79,5 +84,5 @@ def smoke_config(arch_id: str) -> ModelConfig:
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **r)
 
 
-__all__ = ["ARCH_IDS", "get_config", "smoke_config",
+__all__ = ["ARCH_IDS", "get_config", "all_configs", "smoke_config",
            "SHAPES", "ShapeConfig", "cell_is_runnable", "ModelConfig"]

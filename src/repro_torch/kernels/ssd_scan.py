@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -591,11 +592,37 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, *, states, chunk: int, h0=None,
 ssd_scan_bwd_cuda.launches = 0
 
 
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor,
+                h0: Optional[torch.Tensor], chunk: int,
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5 as a torch operator: (y, h_last, the state entering each 64-step
+    chunk), what ``SSDScanFunction``'s forward launches.
+
+    A launch made through the dispatcher is one that a
+    ``TorchDispatchMode`` sees: ``models.layers.remat``'s "dots" policy
+    keeps this operator's outputs, so the checkpointed layer's recompute
+    does not launch K5 again (the reference's ``checkpoint_dots`` keeps
+    ``ssd_chunked``'s einsums), and under "full" the recompute launches
+    it once more."""
+    return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                         return_states=True)
+
+
+@ssd_scan_op.register_fake
+def _(x, dt, A, Bm, Cm, h0, chunk):
+    # A meta tensor's kernel: the wrapper's meta branch (the launch's
+    # checks, the work handed to the dry run's counter).
+    return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                         return_states=True)
+
+
 class SSDScanFunction(torch.autograd.Function):
     """K5 with K5-bwd as its backward: what ``ops.ssd_scan`` runs on CUDA
     tensors when a gradient is wanted.
 
-    The forward launches K5 (``ssd_scan_cuda``) and keeps its inputs and
+    The forward launches K5 (``ssd_scan_op``) and keeps its inputs and
     the state entering each 64-step chunk (12.6 M floats, 50.3 MB, a layer
     at B=4, S=1024, H=24, P=64, N=128); the backward launches K5-bwd from
     them (``ssd_scan_bwd_cuda``).  An unused ``h_last`` (a training
@@ -607,8 +634,7 @@ class SSDScanFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
-        y, h_last, states = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
-                                          h0=h0, return_states=True)
+        y, h_last, states = ssd_scan_op(x, dt, A, Bm, Cm, h0, chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm, h0, states)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

@@ -27,7 +27,10 @@ launched):
   count over its fused module.
 * **peak live bytes**: every storage an op makes is live until torch frees
   it (autograd's saved tensors included); the step's arguments are not
-  counted here.
+  counted here.  A checkpointed layer (``models.layers.remat``) keeps
+  only what ``cfg.remat`` keeps, and its recompute in the backward is
+  counted like any other work: its FLOPs, bytes, kernels, live storage
+  and collectives.
 * **collectives**, per kind, from the sharding specs on the mesh, with
   the reference's ring costs (all-reduce 2R, the others 1R of the result
   bytes R a card; a reduce-scatter, the first of an all-reduce's two
@@ -46,7 +49,8 @@ launched):
     the expert-parallel MoE's all-reduce of the model ranks' partial
     outputs (the reference's ``psum``), and the sequence-parallel scans'
     collective-permute of a state per ladder step; a training step's
-    backward mirrors them.
+    backward mirrors them, and a checkpointed layer's recompute makes
+    them once more.
 
 A matmul's result is split over the batch shards when the batch divides
 over them; the FLOPs, bytes and live bytes are global counts, which the
@@ -279,7 +283,11 @@ class StepCounter(TorchDispatchMode):
         self.counts.bytes += work["bytes"]
 
     def _noted(self, kind: str, nbytes: int, mirrored: bool) -> None:
-        times = 2 if (mirrored and self.training) else 1
+        # A forward's transfer counts its backward's mirror too; the same
+        # transfer noted inside the backward is a checkpointed layer's
+        # recompute, which has no mirror of its own.
+        in_backward = torch._C._current_graph_task_id() != -1
+        times = 2 if (mirrored and self.training and not in_backward) else 1
         self._collective(kind, times * nbytes / self.chips,
                          times / self.chips)
 
@@ -384,17 +392,19 @@ class StepCounter(TorchDispatchMode):
         ins = _tensors(args) + _tensors(kwargs.values())
         outs = _tensors((out,))
         c = self.counts
-        if packet in flop_registry:
-            f = flop_registry[packet](*args, **kwargs, out_val=out)
-            c.flops += f
-            c.matmul_flops += f
-        elif torch.Tag.pointwise in func.tags:
-            c.flops += sum(t.numel() for t in outs)
-        elif torch.Tag.reduction in func.tags and ins:
-            c.flops += ins[0].numel()
-        if not (func.is_view or packet in _NO_DATA):
-            c.bytes += (sum(self._reach(t) for t in ins)
-                        + sum(tensor_bytes(t) for t in outs))
+        # A kernel of ours (K5's operator) counted its own work.
+        if func.namespace != "repro_torch":
+            if packet in flop_registry:
+                f = flop_registry[packet](*args, **kwargs, out_val=out)
+                c.flops += f
+                c.matmul_flops += f
+            elif torch.Tag.pointwise in func.tags:
+                c.flops += sum(t.numel() for t in outs)
+            elif torch.Tag.reduction in func.tags and ins:
+                c.flops += ins[0].numel()
+            if not (func.is_view or packet in _NO_DATA):
+                c.bytes += (sum(self._reach(t) for t in ins)
+                            + sum(tensor_bytes(t) for t in outs))
         for t in outs:
             self._allocated(t)
         self._carry(func, args, out)

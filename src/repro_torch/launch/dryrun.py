@@ -22,8 +22,13 @@ Per card:
   divided evenly over the cards the work is split across;
 * collectives are counted from the specs (``analysis``).
 
-The port keeps every activation (``remat`` changes nothing in it), so its
-memory figure is its own, not the reference's.  Eager counting sees every
+Each config runs under its own ``remat`` (``"full"`` unless it says
+otherwise, as in the reference; ``--override remat=none`` keeps every
+activation): a checkpointed layer keeps only its input (and, under
+``"dots"``, its matmuls' outputs), and the backward's rerun of the layer
+is counted like the rest of the step, its FLOPs, bytes, kernel calls
+(K5 twice a layer under ``"full"``) and collectives included.  The peak
+is the port's own eager one, not XLA's.  Eager counting sees every
 layer, so the reference's two reduced-depth compiles, which exist only
 because XLA counts a loop body once, have no counterpart
 (``scan_correction`` says so).  ``state["step"]`` stays a host scalar, as

@@ -9,8 +9,10 @@ backbone is a transformer encoder-decoder.  The reference's layout:
 
 The model is a ``transformer.TreeLM`` over that tree (each ``layers`` a
 list of per-layer dicts); ``forward`` casts it to ``cfg.dtype`` on every
-call and runs the layers in a plain loop.  No kernel of ours runs here:
-the reference computes these layers with XLA.
+call and runs the layers in a plain loop; the encoder's layers and the
+decoder's without a cache run under ``cfg.remat`` when they train
+(``layers.remat``).  No kernel of ours runs here: the reference computes
+these layers with XLA.
 
 Decode-time cross-attention K/V are computed once from the encoder
 memory at prefill and written into the cache (``cross_k``/``cross_v``,
@@ -101,13 +103,18 @@ def encode(p: dict, src_embeds: torch.Tensor, cfg) -> torch.Tensor:
     x = src_embeds.to(L.as_dtype(cfg.dtype))
     positions = torch.arange(s, device=x.device,
                              dtype=torch.int32)[None, :].expand(b, s)
-    for lp in p["encoder"]["layers"]:
-        hh = L.norm(x, lp["norm1"], cfg.norm_eps, cfg.use_layer_norm)
+
+    def body(h, lp):
+        hh = L.norm(h, lp["norm1"], cfg.norm_eps, cfg.use_layer_norm)
         hh, _ = L.attention_block(hh, lp["attn"], cfg, positions=positions,
                                   causal=False)
-        x = x + hh
-        hh = L.norm(x, lp["norm2"], cfg.norm_eps, cfg.use_layer_norm)
-        x = x + L.swiglu(hh, lp["mlp"])
+        h = h + hh
+        hh = L.norm(h, lp["norm2"], cfg.norm_eps, cfg.use_layer_norm)
+        return h + L.swiglu(hh, lp["mlp"])
+
+    body = L.remat(body, cfg)
+    for lp in p["encoder"]["layers"]:
+        x = body(x, lp)
     return L.norm(x, p["enc_norm"], cfg.norm_eps, cfg.use_layer_norm)
 
 
@@ -195,8 +202,13 @@ def forward(params: EncDecLM, tokens, cfg, *, src_embeds=None, memory=None,
 
     new_cache = None
     if cache is None:
+        def body(h, lp):
+            return _dec_block(h, lp, cfg, positions=positions,
+                              memory=memory)[0]
+
+        body = L.remat(body, cfg)
         for lp in p["decoder"]["layers"]:
-            x, _ = _dec_block(x, lp, cfg, positions=positions, memory=memory)
+            x = body(x, lp)
     else:
         ln = cache["len"]
         for i, lp in enumerate(p["decoder"]["layers"]):

@@ -13,7 +13,9 @@ is a short unstacked tail (38 = 12 x (rec, rec, attn) + (rec, rec)):
 The model is a ``transformer.TreeLM`` over that tree, with
 ``groups.layers`` a list of per-group dicts.  ``forward`` casts it to
 ``cfg.dtype`` on every call (the RG-LRU's ``lam``, ``g_a``, ``b_a``,
-``g_x`` and ``b_x`` stay fp32) and runs the layers in a plain loop.  No
+``g_x`` and ``b_x`` stay fp32) and runs the layers in a plain loop;
+without a cache each pattern group runs under ``cfg.remat`` when it
+trains (``layers.remat``), the tail unwrapped, as in the reference.  No
 kernel of ours runs here: the reference computes these layers with XLA.
 
 The RG-LRU prefill is a 1-D gated linear recurrence computed chunk-wise:
@@ -333,12 +335,21 @@ def forward(params: GriffinLM, tokens, cfg, *, prefix_embeds=None,
         positions = steps[None, :].expand(b, s)
 
     ln = None if cache is None else cache["len"]
-    for i, group in enumerate(p["groups"]["layers"]):
-        for j, kind in enumerate(pat):
-            cl = (None if cache is None else
-                  _layer_cache(cache["groups"][f"b{j}"], kind, ln, i))
-            x = _layer(x, group[f"b{j}"], cfg, kind, positions=positions,
-                       cache_layer=cl)
+    if cache is None:
+        def body(h, group):
+            for j, kind in enumerate(pat):
+                h = _layer(h, group[f"b{j}"], cfg, kind, positions=positions)
+            return h
+
+        body = L.remat(body, cfg)       # one checkpoint a pattern group
+        for group in p["groups"]["layers"]:
+            x = body(x, group)
+    else:
+        for i, group in enumerate(p["groups"]["layers"]):
+            for j, kind in enumerate(pat):
+                cl = _layer_cache(cache["groups"][f"b{j}"], kind, ln, i)
+                x = _layer(x, group[f"b{j}"], cfg, kind, positions=positions,
+                           cache_layer=cl)
     for j, kind in enumerate(tail):
         cl = (None if cache is None else
               _layer_cache(cache["tail"][f"b{j}"], kind, ln))

@@ -10,7 +10,8 @@ reference asks in fp32 (``preferred_element_type``) are taken on fp32
 copies of their operands, exact for bf16 inputs.
 
 The reference's ``scan_or_unroll`` is left out: the port runs layers in
-a Python loop.  So are ``_expand_kv_for_tp`` and the ``constrain`` calls:
+a Python loop (its ``jax.checkpoint`` of a layer's body is ``remat``).
+So are ``_expand_kv_for_tp`` and the ``constrain`` calls:
 under a sharding context they only annotate activations for GSPMD, and
 one process computes every activation whole (``sharding/rules.py``'s
 ``constrain`` is the identity).  Grouped-query
@@ -24,6 +25,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
+
+from repro_torch.sharding.rules import current_context, in_context
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -155,6 +162,66 @@ def unstack_layers(tree: dict) -> dict:
         return t
 
     return walk(tree)
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing: the reference's ``_remat``
+# ---------------------------------------------------------------------------
+_aten = torch.ops.aten
+# What "dots" keeps: the outputs of the ops that are a ``dot_general`` in
+# the reference's jaxpr (the port's einsums, projections and attention
+# lower to these four) and of our kernels' operators (K5, whose scan is
+# einsums in the reference's ``ssd_chunked``).
+_DOTS = frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm})
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    keep = op.overloadpacket in _DOTS or op.namespace == "repro_torch"
+    return (CheckpointPolicy.MUST_SAVE if keep
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_keep_dots)
+
+
+def remat(fn, cfg):
+    """``fn`` (a layer's body) under ``cfg.remat``, as the reference's
+    ``jax.checkpoint`` wraps it:
+
+    * "none": ``fn`` itself, every activation kept for the backward;
+    * "full": nothing inside ``fn`` is kept but its inputs; the backward
+      runs ``fn`` again (non-reentrant ``torch.utils.checkpoint``, which
+      stops that rerun once the tensors the backward needs exist again);
+    * "dots": the same, but the outputs of the matmuls and of K5 are kept
+      (``checkpoint_dots``), and only the rest is recomputed.
+
+    Only under ``torch.is_grad_enabled()``: serving, under ``no_grad``,
+    runs ``fn`` as it is.  No model draws a random number in its forward
+    (no dropout, no sampling: routing is a top-k), so the RNG state is not
+    saved for the rerun (``preserve_rng_state=False``), which also spares
+    every step a read of the card's generator state."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat={cfg.remat!r}: want none, dots or full")
+    context = _dots_contexts if cfg.remat == "dots" else noop_context_fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        ctx = current_context()
+
+        def body(*a):
+            # the rerun sees the forward's sharding context (a sharded
+            # path runs again sharded), wherever the backward runs
+            with in_context(ctx):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context)
+
+    return run
 
 
 def _f32(v: float) -> float:

@@ -6,9 +6,12 @@ Port of ``repro/models/ssm.py``.  The model is an
 reference's pytree names, so ``param_tree()`` gives back the nested dict
 the plain functions below take.  ``forward`` casts it to ``cfg.dtype``
 on every call, as the reference does (``layers.cast_params``: ``A_log``,
-``D`` and ``dt_bias`` stay fp32), and runs the layers in a plain loop:
-the reference's ``scan_layers`` and ``remat`` change how XLA compiles it,
-not what it computes.
+``D`` and ``dt_bias`` stay fp32), and runs the layers in a plain loop
+(the reference's ``scan_layers`` changes how XLA compiles it, not what it
+computes).  Without a cache each layer runs under ``cfg.remat`` when it
+trains (``layers.remat``): under "full" the backward runs the layer
+again, K5 included (two K5 launches a layer a step, one K5-bwd); under
+"dots" K5's outputs are kept like a matmul's and K5 runs once.
 
 The SSD chunked scan of each layer (``ssd_chunked``) goes through
 ``kernels.ops.ssd_scan``, which runs K5 (``kernels/ssd_scan.py``) for a
@@ -411,8 +414,12 @@ def forward(params: Mamba2LM, tokens, cfg, *, prefix_embeds=None,
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
 
     if cache is None:
+        def body(h, p_layer):
+            return _block(h, p_layer, cfg, backend=backend)[0]
+
+        body = L.remat(body, cfg)
         for p_layer in p["layers"]:
-            x, _ = _block(x, p_layer, cfg, backend=backend)
+            x = body(x, p_layer)
         new_cache = None
     else:
         hs, convs = [], []

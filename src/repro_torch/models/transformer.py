@@ -14,7 +14,8 @@ those names, with each segment's layers as a ``ModuleList``, so
 ``param_tree()`` gives the same dict with ``layers`` a list of per-layer
 dicts (``layers.stack_layers`` stacks it back).  ``forward`` casts it to
 ``cfg.dtype`` on every call, as the reference does (``router`` stays
-fp32), and runs the layers in a plain loop.  No kernel of ours runs here:
+fp32), and runs the layers in a plain loop, each layer's body under
+``cfg.remat`` when it trains (``layers.remat``).  No kernel of ours runs here:
 attention, RoPE, SwiGLU and the MoE dispatch are plain torch, as they are
 plain ``jnp`` in the reference.
 
@@ -183,17 +184,26 @@ def _block(x, p, cfg, kind, *, positions, cache_layer=None):
 
 
 def _run_segment(x, layers, cfg, kind, *, positions, seg_cache=None):
-    """Run a uniform segment's layers. Returns (x, new_seg_cache, aux)."""
+    """Run a uniform segment's layers. Returns (x, new_seg_cache, aux).
+
+    Without a cache each layer's body, ``(h, aux)`` in and out as the
+    reference carries them, runs under ``cfg.remat`` (``layers.remat``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if seg_cache is None:
+        def body(h, aux, p_layer):
+            h, _, a = _block(h, p_layer, cfg, kind, positions=positions)
+            return h, aux + a
+
+        body = L.remat(body, cfg)
+        for p_layer in layers:
+            x, aux = body(x, aux, p_layer)
+        return x, None, aux
     for i, p_layer in enumerate(layers):
-        layer_cache = None if seg_cache is None else {
-            "k": seg_cache["k"][i], "v": seg_cache["v"][i],
-            "len": seg_cache["len"]}
+        layer_cache = {"k": seg_cache["k"][i], "v": seg_cache["v"][i],
+                       "len": seg_cache["len"]}
         x, _, a = _block(x, p_layer, cfg, kind, positions=positions,
                          cache_layer=layer_cache)
         aux = aux + a
-    if seg_cache is None:
-        return x, None, aux
     # the layers wrote their k and v into the stacked tensors in place
     return x, {"k": seg_cache["k"], "v": seg_cache["v"],
                "len": seg_cache["len"] + positions.shape[-1]}, aux

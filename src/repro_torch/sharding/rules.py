@@ -114,10 +114,18 @@ def current_context() -> Optional[_Ctx]:
     return getattr(_TLS, "ctx", None)
 
 
-@contextlib.contextmanager
 def sharding_context(mesh: Mesh, rules: ShardingRules = ShardingRules()):
+    return in_context(_Ctx(mesh, rules))
+
+
+@contextlib.contextmanager
+def in_context(ctx: Optional[_Ctx]):
+    """Run under ``ctx``, a ``current_context()`` taken earlier (None: no
+    context), whatever this thread's is: how a checkpointed layer's
+    recompute, which runs in the backward (on autograd's own thread for a
+    CUDA tensor), sees the context its forward saw."""
     prev = current_context()
-    _TLS.ctx = _Ctx(mesh, rules)
+    _TLS.ctx = ctx
     try:
         yield
     finally:

@@ -335,10 +335,11 @@ def state_leaves(tree):
     return {"": np.asarray(tree, np.float32)}
 
 
-def check_loss_and_gradient(arch):
+def check_loss_and_gradient(arch, **kw):
     """loss_fn and its gradient of 2 x 24 tokens (and the family's
-    extras) in fp32, against jax.value_and_grad of the reference's."""
-    rcfg, cfg = cfgs(arch)
+    extras) in fp32, against jax.value_and_grad of the reference's; both
+    configs with ``kw`` (e.g. a ``remat`` setting)."""
+    rcfg, cfg = cfgs(arch, **kw)
     rp = ref_params(arch)
     rb, b = train_batch(cfg, 1)
     (want, ref_m), ref_g = jax.jit(jax.value_and_grad(
@@ -362,11 +363,12 @@ def check_loss_and_gradient(arch):
             assert not np.any(grads[key]), key
 
 
-def check_train_step(arch, optimizer):
+def check_train_step(arch, optimizer, **kw):
     """One train step (``optimizer``, lr LR after a 2-step warmup) from
     the reference's seed-0 train state, in fp32: metrics, parameters and
-    moments against the reference's step; every parameter moved."""
-    rcfg, cfg = cfgs(arch, optimizer=optimizer)
+    moments against the reference's step; every parameter moved.  Both
+    configs with ``kw`` (e.g. a ``remat`` setting)."""
+    rcfg, cfg = cfgs(arch, optimizer=optimizer, **kw)
     ref_opt = ref_make_optimizer(rcfg, peak_lr=LR, warmup=2, total_steps=40)
     opt = make_optimizer(cfg, peak_lr=LR, warmup=2, total_steps=40)
     ref_state = ref_init_state(jax.random.PRNGKey(0), rcfg, ref_opt)

@@ -588,6 +588,45 @@ def test_two_training_steps_on_the_card(cuda_device, no_tf32):
         torch.testing.assert_close(q, p, atol=1e-4, rtol=0)
 
 
+def test_mamba2_remat_on_the_card(cuda_device, no_tf32):
+    """Mamba2-130M's fp32 loss and gradient at its published widths on the
+    card, 2 x 256 tokens, under each ``remat``: "full" runs K5 twice a
+    layer (the backward reruns each layer) and K5-bwd once, "none" and
+    "dots" (K5's outputs kept like a matmul's) K5 once; the losses and
+    gradients are bit-equal, as K5 and K5-bwd are deterministic (no
+    atomics) and the rerun computes what the forward did."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_stream
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    from repro_torch.models import api
+    from repro_torch.train import grad as train_grad
+    from repro_torch.train import init_state, make_optimizer
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), dtype="float32")
+    state = init_state(torch.Generator(device=cuda_device).manual_seed(0),
+                       cfg, make_optimizer(cfg))
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             make_stream(cfg, 2, 256, 0).batch_at(0).items()}
+    nl, runs = cfg.num_layers, {}
+    for remat in ("none", "dots", "full"):
+        c = dataclasses.replace(cfg, remat=remat)
+        ssd_scan_cuda.launches = ssd_scan_bwd_cuda.launches = 0
+        loss, _, g = train_grad.accumulate_grads(
+            lambda m, b, c=c: api.loss_fn(m, b, c),
+            api.model_over(state["params"], c), batch, 1)
+        torch.cuda.synchronize()
+        assert (ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches) == (
+            nl * (2 if remat == "full" else 1), nl), remat
+        runs[remat] = (loss, _flat(g))
+    loss, grads = runs["none"]
+    for remat in ("dots", "full"):
+        assert torch.equal(runs[remat][0], loss), remat
+        for name, g in grads.items():
+            assert torch.equal(runs[remat][1][name], g), (remat, name)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

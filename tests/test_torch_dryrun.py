@@ -5,7 +5,9 @@ The reference's ``dryrun._measure`` runs once, in a subprocess with 8
 forced host devices, on a ``make_host_mesh((2, 4))`` with
 ``scan_layers=False`` and ``remat="none"``: the six families' smoke
 train cells and qwen2-1.5b's and mamba2-130m's prefill and decode, at 8
-rows of 128 tokens.  Beside XLA's counts it writes the FLOPs of every
+rows of 128 tokens; and the dense, ssm and hybrid train cells again
+under ``remat="dots"`` and ``"full"`` (``REMAT_CELLS``).  Beside XLA's
+counts it writes the FLOPs of every
 ``dot_general`` in the step's jaxpr (sub-jaxprs walked, a scan body
 times its length, a ``shard_map`` body times its shards).  The port
 counts the same cells on a (2, 4) mesh of meta devices.
@@ -23,7 +25,12 @@ What is held:
   by design (ROADMAP Queue 3);
 * total FLOPs, bytes and collective bytes a device within
   ``FACTORS[family]``, each with its reason; the serving cells'
-  all-reduce bytes within ``SERVE_ALLREDUCE_RTOL`` of GSPMD's.
+  all-reduce bytes within ``SERVE_ALLREDUCE_RTOL`` of GSPMD's;
+* under remat: the matmul FLOPs, recomputed ones included, equal to the
+  jaxpr's ``dot_general`` FLOPs less the same differences, K5 launched
+  once a layer under "dots" and twice under "full", and the counted
+  temporary bytes falling from "none" to "dots" to "full" against XLA's
+  (``TEMP_BANDS``).
 """
 
 from __future__ import annotations
@@ -95,10 +102,25 @@ FACTORS = {
 }
 SERVE_ALLREDUCE_RTOL = 0.02
 
+# (arch, kind, remat): the train cells counted again under checkpointing.
+REMAT_CELLS = tuple((arch, "train", remat)
+                    for arch in ("qwen2-1.5b", "mamba2-130m",
+                                 "recurrentgemma-9b")
+                    for remat in ("dots", "full"))
+# The port's counted temporary bytes a device over XLA's temp_size, by
+# remat setting, as (low, high); measured on these cells (qwen2-1.5b,
+# mamba2-130m with K5, recurrentgemma-9b): none 0.911 0.685 0.849, dots
+# 0.675 0.528 0.630, full 0.573 0.443 0.523.  The port's falls with each
+# setting (a checkpointed layer keeps its input, and under "dots" its
+# matmuls' outputs); XLA's CPU module at these sizes moves by at most 15%
+# (it schedules the whole step at once and reuses buffers).
+TEMP_BANDS = {"none": (0.6, 1.0), "dots": (0.45, 0.75),
+              "full": (0.35, 0.65)}
 
-def _cfg(arch):
+
+def _cfg(arch, remat="none"):
     return dataclasses.replace(smoke_config(arch), scan_layers=False,
-                               remat="none", dtype="float32")
+                               remat=remat, dtype="float32")
 
 
 def _matmul_difference(arch, kind) -> int:
@@ -206,14 +228,14 @@ def jaxpr_dots(cfg, shape, mesh, kind):
 cells, batch, seq = json.loads(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 mesh = make_host_mesh((2, 4))
 out = {}
-for arch, kind in cells:
+for arch, kind, remat in cells:
     cfg = dataclasses.replace(smoke_config(arch), scan_layers=False,
-                              remat="none", dtype="float32")
+                              remat=remat, dtype="float32")
     shape = ShapeConfig("smoke", seq, batch, kind)
     r = dryrun._measure(cfg, shape, mesh, ShardingRules(), kind)
     r["dot_flops"] = jaxpr_dots(cfg, shape, mesh, kind)
     r.pop("hlo_bytes", None)
-    out[arch + "/" + kind] = r
+    out["/".join((arch, kind, remat))] = r
 print("ORACLE " + json.dumps(out))
 """
 
@@ -221,12 +243,14 @@ print("ORACLE " + json.dumps(out))
 @pytest.fixture(scope="module")
 def reference():
     """The reference's dry run of every cell, once, in a subprocess with
-    8 forced host devices (about 50 s)."""
+    8 forced host devices (about 90 s), by "arch/kind/remat"."""
     env = dict(os.environ, PYTHONPATH="src",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    cells = [(arch, kind, "none") for arch, kind in CELLS] + list(
+        REMAT_CELLS)
     proc = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_ORACLE),
-         json.dumps(CELLS), str(BATCH), str(SEQ)],
+         json.dumps(cells), str(BATCH), str(SEQ)],
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = next(ln for ln in proc.stdout.splitlines()
@@ -241,15 +265,17 @@ def port():
     scan's (the other families run no kernel of ours: one route)."""
     mesh = make_host_mesh(MESH, devices=["meta"] * 8)
     out = {}
-    for arch, kind in CELLS:
+    for arch, kind, remat in [(a, k, "none") for a, k in CELLS] + list(
+            REMAT_CELLS):
+        cfg = _cfg(arch, remat)
         shape = ShapeConfig("smoke", SEQ, BATCH, kind)
-        routes = ("cuda", "torch") if _cfg(arch).family == "ssm" \
-            else ("cuda",)
-        out[f"{arch}/{kind}"] = {
-            backend: dryrun._measure(_cfg(arch), shape, mesh,
-                                     ShardingRules(), kind, backend=backend)
+        routes = ("cuda", "torch") if cfg.family == "ssm" else ("cuda",)
+        key = f"{arch}/{kind}/{remat}"
+        out[key] = {
+            backend: dryrun._measure(cfg, shape, mesh, ShardingRules(),
+                                     kind, backend=backend)
             for backend in routes}
-        out[f"{arch}/{kind}"].setdefault("torch", out[f"{arch}/{kind}"]["cuda"])
+        out[key].setdefault("torch", out[key]["cuda"])
     return out
 
 
@@ -262,8 +288,9 @@ def test_argument_bytes_equal_the_reference(reference, port, arch, kind):
     """Per-device argument bytes (state and batch; parameters, batch and
     cache when serving) from the specs equal XLA's
     argument_size_in_bytes."""
-    ref = reference[f"{arch}/{kind}"]["memory"]["argument_size_in_bytes"]
-    got = port[f"{arch}/{kind}"]["cuda"]["memory"]["argument_size_in_bytes"]
+    key = f"{arch}/{kind}/none"
+    ref = reference[key]["memory"]["argument_size_in_bytes"]
+    got = port[key]["cuda"]["memory"]["argument_size_in_bytes"]
     assert got == ref
 
 
@@ -272,11 +299,11 @@ def test_matmul_flops_equal_the_reference(reference, port, arch, kind):
     """With the plain scan, the port's global matmul FLOPs equal the
     reference jaxpr's dot_general FLOPs less the differences by design;
     the dry run's route counts the SSD scan as K5 and K5-bwd instead."""
-    ref = reference[f"{arch}/{kind}"]["dot_flops"]
-    plain = port[f"{arch}/{kind}"]["torch"]
+    ref = reference[f"{arch}/{kind}/none"]["dot_flops"]
+    plain = port[f"{arch}/{kind}/none"]["torch"]
     assert plain["matmul_flops_global"] == ref - _matmul_difference(
         arch, kind)
-    cuda = port[f"{arch}/{kind}"]["cuda"]
+    cuda = port[f"{arch}/{kind}/none"]["cuda"]
     if _cfg(arch).family == "ssm" and kind != "decode":
         assert set(cuda["kernels"]) == ({"ssd_scan", "ssd_scan_bwd"}
                                         if kind == "train" else {"ssd_scan"})
@@ -290,8 +317,8 @@ def test_totals_within_the_stated_factors(reference, port, arch, kind):
     """FLOPs, bytes and collective bytes a device, port over reference,
     within FACTORS (see the module docstring for each reason); the
     serving cells' all-reduces within SERVE_ALLREDUCE_RTOL."""
-    ref = reference[f"{arch}/{kind}"]
-    got = port[f"{arch}/{kind}"]["cuda"]
+    ref = reference[f"{arch}/{kind}/none"]
+    got = port[f"{arch}/{kind}/none"]["cuda"]
     bands = FACTORS[(_cfg(arch).family, kind)]
     ratios = (got["flops"] / ref["flops"], got["bytes"] / ref["bytes"],
               got["coll"]["total"] / ref["coll"]["total"])
@@ -302,6 +329,49 @@ def test_totals_within_the_stated_factors(reference, port, arch, kind):
         ar_ref = ref["coll"].get("all-reduce", 0)
         ar = got["coll"].get("all-reduce", 0)
         assert abs(ar / ar_ref - 1) <= SERVE_ALLREDUCE_RTOL, (ar, ar_ref)
+
+
+def _remat_ids(cells):
+    return [f"{a}-{r}" for a, _, r in cells]
+
+
+@pytest.mark.parametrize("arch,kind,remat", REMAT_CELLS,
+                         ids=_remat_ids(REMAT_CELLS))
+def test_remat_matmul_flops_equal_the_reference(reference, port, arch, kind,
+                                                remat):
+    """Under "dots" and "full" the matmul FLOPs with the plain scan, the
+    recomputed ones included, equal the jaxpr's dot_general FLOPs less
+    the same differences as without remat: torch's checkpoint reruns
+    what JAX's does.  On the dry run's route K5 runs once a layer under
+    "dots" (its outputs kept like a matmul's) and twice under "full", and
+    K5-bwd once."""
+    ref = reference[f"{arch}/{kind}/{remat}"]["dot_flops"]
+    got = port[f"{arch}/{kind}/{remat}"]
+    assert got["torch"]["matmul_flops_global"] == ref - _matmul_difference(
+        arch, kind)
+    cfg = _cfg(arch, remat)
+    if cfg.family == "ssm":
+        calls = {k: v["calls"] for k, v in got["cuda"]["kernels"].items()}
+        reruns = 2 if remat == "full" else 1
+        assert calls == {"ssd_scan": reruns * cfg.num_layers,
+                         "ssd_scan_bwd": cfg.num_layers}
+    else:
+        assert got["cuda"]["kernels"] == {}
+
+
+@pytest.mark.parametrize("arch", sorted({a for a, _, _ in REMAT_CELLS}))
+def test_remat_temp_bytes_against_xla(reference, port, arch):
+    """The counted temporary bytes a device fall from "none" to "dots" to
+    "full"; each over XLA's temp_size_in_bytes within TEMP_BANDS."""
+    temps = []
+    for remat in ("none", "dots", "full"):
+        got = port[f"{arch}/train/{remat}"]["cuda"]["memory"]
+        ref = reference[f"{arch}/train/{remat}"]["memory"]
+        lo, hi = TEMP_BANDS[remat]
+        ratio = got["temp_size_in_bytes"] / ref["temp_size_in_bytes"]
+        assert lo <= ratio <= hi, (remat, ratio)
+        temps.append(got["temp_size_in_bytes"])
+    assert temps[0] > temps[1] > temps[2], temps
 
 
 _FUNCTIONS = """

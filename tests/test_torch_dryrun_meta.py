@@ -8,7 +8,8 @@ kernels' meta branches.
   is 1.56 GB, llama3-8b's parameters 32 GB), and K5's and K5-bwd's
   counted work equals their work functions at the shapes the cell
   launches them at: the whole batch once a layer without sequence
-  parallelism, every (batch, sequence) shard of the mesh with it.
+  parallelism, every (batch, sequence) shard of the mesh with it, and K5
+  once more in the backward under the config's ``remat="full"``.
 * ``launch/train.py --mesh pod`` raises before anything is allocated;
   ``make_production_mesh`` has the reference's shapes and axes.
 * K5's and K5-bwd's meta branch (as K1-K4 have): meta results of the
@@ -130,7 +131,10 @@ def test_full_size_cell_counts_on_meta(full_cells, name):
                              16, 16)
     else:
         b, s, ranks, rows = shape.global_batch, shape.seq_len, 1, 1
+    # The config's remat="full" runs each layer's forward again in the
+    # backward, K5 included: twice the forward's calls.
     fwd = [ssd_scan_work(b, s, h, p, n)] * (ranks * rows)
+    fwd = fwd * {"full": 2, "dots": 1, "none": 1}[cfg.remat]
     bwd = [ssd_scan_bwd_work(b, s, h, p, n, g_hlast=i < ranks - 1)
            for _ in range(rows) for i in range(ranks)]
     want = {"ssd_scan": {"calls": layers * len(fwd),
