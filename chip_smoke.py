@@ -14,20 +14,29 @@ non-zero before the result line is printed:
           non-zero carry_in; K1_SHAPES, the shapes the paths launch it at
           (the clip, one frame, a 48-row dirty run with its carry, a
           273x3840x128 band with its carry) and 1080p, with their strips
-          and CTAs; and strips of one frame's R rows at heights R - 1, R,
-          R + 1 and 1
+          and CTAs; strips of one frame's R rows at heights R - 1, R,
+          R + 1 and 1; and past one CTA's 16,384 columns (WIDE_WIDTHS:
+          16,385, 32,768, 40,003; 1 x 200 rows at 7 bins with a carry):
+          column strips and row strips as the wrapper cuts them, then
+          pinned to one row strip and to strips of 64 rows at bin blocks
+          1, 2 and 4 where they fit, and uint8 frames through ops
   k2      the query-fused kernel against the plain H's rows (torch.equal):
           the clip's fused request, K2_SHAPES (the clip's 62 corner rows,
           one frame with the same rows, one frame with one rect's rows,
           the clip at the fuse bound of 120 rows) with each one's chunks
-          and pass-A CTAs (at least two an SM at one frame), and the early
-          cut (bands_computed < bands_total)
+          and pass-A CTAs (at least two an SM at one frame), the wide
+          cases of k1 at 5 rows (pass A in 9 to 20 slabs of 2048 columns)
+          at every bin block, and the early cut (bands_computed <
+          bands_total)
   k3      the delta_apply kernel against its plain version (torch.equal) at
           the clip's H with a random integer delta, on ragged shapes, and
           from a row band of one H into a row band of another
   k4      the CW-TiS kernels (hscan, then vscan) against the plain cw_tis
           and against K1 (torch.equal): the clip, 4x1080x1920x64, K1's
-          ragged shapes, a float frame and a non-zero carry_in
+          ragged shapes, a float frame and a non-zero carry_in; k1's wide
+          cases (the hscan in 2 or 3 slabs at every bin block, the vscan
+          from the carry) and TALL_SHAPE, 1 x 600,000 x 16 at 16 bins
+          (past 65,535 row groups)
   k5      the SSD scan kernel (3xTF32 tensor cores) against its plain
           version (TF32 off) at the Mamba2-130M prefill's shape, B=4,
           S=1024, H=24, P=64, N=128, chunk 256: y and h_last with h0 = 0
@@ -112,7 +121,10 @@ non-zero before the result line is printed:
           verdict printed; three requests are refused with
           PlanValidationError and every launch counter at 0 (a 64-frame
           microbatch under a 1 MiB budget from a planner forced to it, a
-          400x400 region on a uint16 engine, a 1x20000 frame); the gate's
+          400x400 region on a uint16 engine, a frame at 600,000 bins: more
+          bin blocks than K1's grid holds), and a 1x20000 frame (refused
+          before column strips) passes it and equals its torch plan; the
+          proofs cover the wide and tall shapes too; the gate's
           host µs warm, on a video frame's new plan, on a fused plan with
           new corner rows and on its first call, beside the one-frame
           fused request; python -m
@@ -173,7 +185,10 @@ non-zero before the result line is printed:
           beside the card line
   timing  each kernel's median time (CUDA events) beside its bound, K1
           also at K1_SHAPES and K2 at K2_SHAPES with their launches per
-          run; K1 and K2 at each shape and K5 profiled (torch.profiler:
+          run; K1, K2, the hscan and the vscan at WIDE_SHAPE with their
+          CUDA launches a call and the bound's share, and K1 and the
+          hscan there at other bin blocks; K1 and K2 at each shape and K5
+          profiled (torch.profiler:
           CUDA launches and device time a call); K1 in one strip against
           strips at K1_SWEEP_HEIGHTS, where launch_shape's strip threshold
           comes from; then host-clock request times (median of 5):
@@ -293,6 +308,16 @@ non-zero before the result line is printed:
           then K5 and K5-bwd at that step's shape (32 x 1024 x 24 x 64,
           N=128) against their plain versions (K5_ATOL / K5_RTOL,
           K5BWD_RTOL) and timed (the kernels line's "remat_shape")
+  wide    after every profiled phase: WIDE_SHAPE, four 480 x 32,768
+          panoramas (the paper's 480 x 640 video stitched side by side) at
+          32 bins, H 8.05 GB, through engine.run: dense (one K1 call, two
+          column strips; path wide_dense), fused at WIDE_FUSED_RECTS'
+          corner rows (one K2 call; wide_fused), one panorama banded under
+          512 MiB (K1 once a band, the carry across the column strips;
+          wide_bands) and method="cw_tis" (hscan and vscan once;
+          wide_cw): H's bottom row and last column against per-column
+          and per-row counts of the frames, 130 region histograms against
+          counted rectangles, frame 0 against backend="torch" on the card
   examples the run's last: examples/quickstart_torch.py and
           examples/video_analytics_torch.py at their defaults on the card
           (paths example_quickstart and example_video: K1, and K2 on the
@@ -305,8 +330,8 @@ non-zero before the result line is printed:
 
 Every request of the main, bands, video, cw_tis, stream, tracker,
 service, mesh, lm, transformer, families, train, sharded, dryrun,
-transformer at scale, families at scale, remat at scale and examples
-phases
+transformer at scale, families at scale, remat at scale, wide and
+examples phases
 runs with all seven launch counters set to 0 just before it and read
 just after; the kernels line carries each kernel's counts per path
 (``launches_by_path``).
@@ -540,6 +565,22 @@ K2_SHAPES = {
 # and in strips: the video's dirty runs, up to the 50% fallback, and a
 # whole frame.
 K1_SWEEP_HEIGHTS = (48, 64, 80, 96, 112, 128, 160, 192, 240, 480)
+# Widths past one CTA's 16,384 columns (K1's column strips, K4's hscan
+# slabs, K2's pass A in 2048-column slabs): one column more, two whole
+# strips, and a ragged width cut into three; the k1, k2 and k4 phases take
+# a 200-row frame of each at 7 bins (a ragged bin block) with a carry.
+WIDE_WIDTHS = (16385, 32768, 40003)
+WIDE_CASE = (1, 200, 7)
+# The wide phase's panoramas: four of the paper's 480-row frames stitched
+# to 32,768 columns, at 32 bins (H 8.05 GB; a frame holds 15.7 Mpx, below
+# the 2^24 of exact fp32 counts); the rows of its fused request; and K4's
+# hscan past 65,535 x 8 = 524,280 rows.
+WIDE_SHAPE = (4, 480, 32768, 32)
+WIDE_FUSED_RECTS = ((0, 0, 479, 32767), (0, 16380, 479, 16390),
+                    (100, 120, 219, 20279), (240, 8000, 359, 32000))
+WIDE_ROWS = (99, 219, 239, 359, 479)
+WIDE_BUDGET = 512 << 20
+TALL_SHAPE = (1, 600000, 16, 16)
 # K5 at the Mamba2-130M prefill: batch, steps, heads, P, N, and the chunk
 # of the plain loop.
 K5_SHAPE = (4, 1024, 24, 64, 128, 256)
@@ -2865,6 +2906,148 @@ def sharded_phase(torch, dev, counted, tally, read_counts, only) -> dict:
     return times
 
 
+def wide_phase(torch, dev, counted, only) -> None:
+    """The main path on panoramas wider than one CTA's 16,384 columns
+    (WIDE_SHAPE: the paper's 480 x 640 video stitched side by side):
+    engine.run dense (K1 in two column strips), fused (K2 at
+    WIDE_FUSED_RECTS' corner rows), banded under 512 MiB (K1 on each band
+    with the carry across the strips) and with method="cw_tis" (K4).  H's
+    bottom row and last column against per-column and per-row counts of
+    the frames, region histograms against counted rectangles, and frame 0
+    against backend="torch" on the same card."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.core.binning import bin_indices
+    from repro_torch.data import video_frames
+    from repro_torch.kernels.wf_tis import launch_shape
+
+    n, h, w, nb = WIDE_SHAPE
+    views = video_frames(h, 640, 16, seed=0)
+    frames = np.stack([np.concatenate(
+        [views[(p + k) % 16] for k in range(-(-w // 640))], axis=1)[:, :w]
+        for p in range(n)])
+    r26 = np.random.default_rng(26)
+    top = np.arange(130) * 3 + 1
+    left = r26.integers(0, w, 130)
+    rects = np.stack([top, left,
+                      np.minimum(top + r26.integers(0, 90, 130), h - 1),
+                      np.minimum(left + r26.integers(0, w, 130), w - 1)], 1)
+    few = np.array(WIDE_FUSED_RECTS)
+    rects[:len(few)] = few
+
+    # Direct counts of the frames, on the card.
+    ids = bin_indices(torch.as_tensor(frames, device=dev), nb).long()
+    ar_h = torch.arange(h, device=dev)[:, None]
+    ar_w = torch.arange(w, device=dev)[None, :]
+    bottom_want = torch.stack([torch.bincount(
+        (ar_w * nb + ids[f]).reshape(-1), minlength=w * nb).reshape(
+            w, nb).cumsum(0).T for f in range(n)]).float()     # (n, nb, w)
+    right_want = torch.stack([torch.bincount(
+        (ar_h * nb + ids[f]).reshape(-1), minlength=h * nb).reshape(
+            h, nb).cumsum(0).T for f in range(n)]).float()     # (n, nb, h)
+    regions_want = torch.stack([torch.stack([
+        torch.bincount(ids[f, a:c + 1, b:d + 1].reshape(-1), minlength=nb)
+        for a, b, c, d in rects.tolist()]) for f in range(n)]).float()
+    del ids
+    queries = [eng_mod.RegionQuery(rects)]
+
+    def held(label, H, regions, frames_held):
+        """H's bottom row and last column and the region histograms
+        against the counts of ``frames_held`` frames from frame 0."""
+        k = frames_held
+        check(torch.equal(H[..., -1, :].reshape(k, nb, w), bottom_want[:k]),
+              f"wide {label}: H's bottom row != per-column counts")
+        check(torch.equal(H[..., -1].reshape(k, nb, h), right_want[:k]),
+              f"wide {label}: H's last column != per-row counts")
+        check(torch.equal(regions.reshape(k, -1, nb),
+                          regions_want[:k, :regions.shape[-2]]),
+              f"wide {label}: region histograms != counted rectangles")
+
+    t_engine = eng_mod.HistogramEngine(num_bins=nb, backend="torch")
+    t_out = t_engine.run(frames[0], queries)
+    H_t = t_out.source.dense()
+    held("torch plan, frame 0", H_t, t_out.results[0], 1)
+
+    engine = eng_mod.HistogramEngine(num_bins=nb)
+    dense, dt, counts = counted("wide_dense", lambda: engine.run(
+        frames, queries))
+    check(dense.plan.representation == "dense"
+          and counts == only(wf_tis=1),
+          f"wide dense: {dense.plan.representation}, launched {counts}")
+    H = dense.source.dense()
+    held("dense", H, dense.results[0], n)
+    check(torch.equal(H[0], H_t.reshape(H[0].shape))
+          and torch.equal(dense.results[0][0], t_out.results[0]),
+          "wide dense: frame 0 != backend='torch'")
+    shp = launch_shape(w, nb, n, h=h)
+    log(f"   dense: {n}x{h}x{w}x{nb} (H {H.numel() * 4 / 1e9:.2f} GB) in "
+        f"one K1 call: {shp.col_strips(w)} column strips of "
+        f"{shp.strip_cols}, {shp.strips(h)} row strip(s), bin block "
+        f"{shp.bin_block}, {shp.ctas(n, nb, h, w)} CTAs; bottom "
+        f"row, last column and {len(rects)} regions equal "
+        f"the frames' counts, frame 0 equals backend='torch'; "
+        f"{dt * 1e3:.1f} ms end to end")
+
+    fused, dt, counts = counted("wide_fused", lambda: engine.run(
+        frames, [eng_mod.RegionQuery(few)]))
+    check(fused.plan.representation == "fused"
+          and tuple(fused.plan.spec.query_rows) == WIDE_ROWS
+          and counts == only(fused_rows=1),
+          f"wide fused: {fused.plan.representation} on rows "
+          f"{fused.plan.spec.query_rows}, launched {counts}")
+    bottom = fused.source.rows([h - 1])
+    check(torch.equal(bottom.reshape(n, nb, w), bottom_want),
+          "wide fused: the bottom row != per-column counts")
+    check(torch.equal(fused.results[0], regions_want[:, :len(few)]),
+          "wide fused: region histograms != counted rectangles")
+    t_fused = t_engine.run(frames[0], [eng_mod.RegionQuery(few)])
+    check(torch.equal(fused.results[0][0], t_fused.results[0]),
+          "wide fused: frame 0 != backend='torch'")
+    log(f"   fused: {len(WIDE_ROWS)} corner rows {WIDE_ROWS} of the "
+        f"{n} panoramas in one K2 call; the bottom row and {len(few)} "
+        f"regions equal the frames' counts, frame 0 equals "
+        f"backend='torch'; {dt * 1e3:.1f} ms end to end")
+
+    b_engine = eng_mod.HistogramEngine(num_bins=nb,
+                                       memory_budget_bytes=WIDE_BUDGET)
+    banded, dt, counts = counted("wide_bands", lambda: b_engine.run(
+        frames[0], queries))
+    bp = banded.plan.band_plan
+    check(banded.plan.representation == "banded" and bp.num_bands > 1
+          and counts == only(wf_tis=bp.num_bands),
+          f"wide banded: {banded.plan.representation}, launched {counts}")
+    Hb = banded.source.dense()
+    held("banded", Hb, banded.results[0], 1)
+    check(torch.equal(Hb.reshape(H[0].shape), H[0])
+          and torch.equal(banded.results[0], t_out.results[0]),
+          "wide banded: H or regions != the dense run's frame 0")
+    log(f"   banded: one {h}x{w}x{nb} panorama in {bp.num_bands} bands "
+        f"(spans {bp.spans}) under {WIDE_BUDGET >> 20} MiB, K1 once a "
+        "band with the carry "
+        "across its column strips; H equals the dense run's, regions the "
+        f"counts and backend='torch'; {dt * 1e3:.1f} ms end to end")
+    del Hb, banded
+
+    c_engine = eng_mod.HistogramEngine(num_bins=nb, method="cw_tis")
+    cw, dt, counts = counted("wide_cw", lambda: c_engine.run(
+        frames, queries))
+    check(cw.plan.representation == "dense"
+          and counts == only(cw_tis_hscan=1, cw_tis_vscan=1),
+          f"wide cw_tis: {cw.plan.representation}, launched {counts}")
+    check(torch.equal(cw.source.dense(), H)
+          and torch.equal(cw.results[0], dense.results[0]),
+          "wide cw_tis: H or regions != the dense (K1) run's")
+    c_t = eng_mod.HistogramEngine(num_bins=nb, method="cw_tis",
+                                  backend="torch").run(frames[0], queries)
+    check(torch.equal(cw.results[0][0], c_t.results[0]),
+          "wide cw_tis: frame 0 != backend='torch'")
+    log(f"   cw_tis: hscan and vscan once each; H equals the "
+        "dense K1 run's (so the counts), frame 0's regions equal "
+        f"backend='torch'; {dt * 1e3:.1f} ms end to end | card "
+        f"{card_line()}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2914,7 +3097,7 @@ def run(torch) -> list[dict]:
     from repro_torch.kernels.cw_tis import (
         cw_tis_cuda, cw_tis_hscan_cuda, cw_tis_hscan_plain,
         cw_tis_hscan_work, cw_tis_plain, cw_tis_vscan_cuda,
-        cw_tis_vscan_plain, cw_tis_vscan_work,
+        cw_tis_vscan_plain, cw_tis_vscan_work, hscan_shape,
     )
     from repro_torch.kernels.delta_apply import (
         delta_apply_cuda, delta_apply_plain, delta_apply_work,
@@ -2931,8 +3114,8 @@ def run(torch) -> list[dict]:
     )
     from repro_torch.kernels import wf_tis as wf_tis_mod
     from repro_torch.kernels.wf_tis import (
-        launch as wf_tis_launch, launch_shape, strip_rows_for, wf_tis_cuda,
-        wf_tis_plain, wf_tis_work,
+        column_split, launch as wf_tis_launch, launch_shape, strip_rows_for,
+        wf_tis_cuda, wf_tis_plain, wf_tis_work,
     )
 
     dev = torch.device("cuda")
@@ -3055,7 +3238,8 @@ def run(torch) -> list[dict]:
             log(f"   {label} {kn}x{kh}x{kw}x{bins}"
                 f"{' + carry' if cin is not None else ''}: equal; "
                 f"{shp.strips(kh)} strip(s) of {shp.strip_rows} rows, "
-                f"bin block {shp.bin_block}, {shp.ctas(kn, bins, kh)} CTAs")
+                f"bin block {shp.bin_block}, {shp.ctas(kn, bins, kh, kw)} "
+                "CTAs")
             torch.cuda.empty_cache()
         # Strip boundaries: one frame's strip height R, at heights R - 1,
         # R, R + 1 and 1, with and without a carry.
@@ -3071,8 +3255,49 @@ def run(torch) -> list[dict]:
                       f"K1 != plain at height {kh} in strips of {R} rows "
                       f"(carry {with_carry})")
             log(f"   1x{kh}x{w}x{nb} in strips of {R} rows: "
-                f"{shp.strips(kh)} strip(s), {shp.ctas(1, nb, kh)} CTAs; "
+                f"{shp.strips(kh)} strip(s), {shp.ctas(1, nb, kh, w)} CTAs; "
                 "equal with and without a carry")
+        # Past one CTA's 16,384 columns: column strips (the row-count
+        # pre-pass) with row strips (the corners from block totals) as the
+        # wrapper cuts them, then pinned to one row strip and to strips of
+        # 64 rows at every bin block whose counts fit, a carry across every
+        # strip boundary; and uint8 frames through ops on the card.
+        wide_in = {}
+        wn, wh, wnb = WIDE_CASE
+        for kw in WIDE_WIDTHS:
+            ids, cin = k1_inputs(torch, dev, wn, wh, kw, wnb, True, seed=kw)
+            wide_in[kw] = (ids, cin)
+            want = wf_tis_plain(ids, wnb, cin)
+            got = wf_tis_cuda(ids, wnb, carry=cin)
+            check(torch.equal(got, want),
+                  f"K1 != plain at {wn}x{wh}x{kw}x{wnb} + carry")
+            k1_err = max(k1_err, float((got - want).abs().max()))
+            shp = launch_shape(kw, wnb, wn, h=wh)
+            pinned = []
+            for bb in (1, 2, 4):
+                for R in (wh, 64):
+                    try:
+                        pin = launch_shape(kw, wnb, wn, bb, h=wh,
+                                           strip_rows=R)
+                    except ValueError:      # its counts pass shared memory
+                        continue
+                    check(torch.equal(wf_tis_launch(ids, wnb, pin, cin),
+                                      want),
+                          f"K1 != plain at {wn}x{wh}x{kw}x{wnb} + carry, "
+                          f"bin block {bb}, strips of {R} rows")
+                    pinned.append((bb, pin.strips(wh)))
+            x = torch.as_tensor(rng.integers(0, 256, (2, 33, kw), np.uint8),
+                                device=dev)
+            check(torch.equal(ops.integral_histogram(x, 16, backend="cuda"),
+                              ops.integral_histogram(x, 16, backend="torch")),
+                  f"K1 != plain on uint8 frames 2x33x{kw}")
+            log(f"   {wn}x{wh}x{kw}x{wnb} + carry: equal; "
+                f"{shp.col_strips(kw)} column strips of {shp.strip_cols}, "
+                f"{shp.strips(wh)} row strip(s) of {shp.strip_rows}, bin "
+                f"block {shp.bin_block}, {shp.ctas(wn, wnb, wh, kw)} CTAs of "
+                f"{shp.threads} threads; pinned (bin block, row strips) "
+                f"{pinned}: equal; uint8 2x33x{kw} at 16 bins: equal")
+            del got, want
 
     # The main path's fused request (built once, used by k2/main/timing).
     rects = np.array([[100, 120, 219, 279], [0, 0, 479, 639]])
@@ -3117,6 +3342,26 @@ def run(torch) -> list[dict]:
                 f"{shp.threads} threads ({ctas / 132:.2f} an SM)")
             if label == "frame":
                 check(ctas >= 2 * 132, f"pass A at one frame: {ctas} CTAs")
+        # Pass A past 16,384 columns: 2048-column slabs with the slab totals
+        # carried (never on the card before this slice's widths), every
+        # bin block, a carry.
+        wide_rows = np.array([0, 5, 31, 63, wh - 1])
+        for kw in WIDE_WIDTHS:
+            ids, cin = wide_in[kw]
+            want = fused_rows_plain(ids, wnb, wide_rows, cin)
+            for bb in (None, 1, 2, 4, 8):
+                got = fused_rows_cuda(ids, wnb, wide_rows, bin_block=bb,
+                                      carry=cin)
+                check(torch.equal(got, want),
+                      f"K2 != plain at {wn}x{wh}x{kw}x{wnb} + carry, bin "
+                      f"block {bb}")
+            k2_err = max(k2_err, float((got - want).abs().max()))
+            shp = chunk_shape(kw, wnb, wn, wide_rows.size, wh)
+            log(f"   {wn}x{wh}x{kw}x{wnb} + carry, rows "
+                f"{wide_rows.tolist()}: equal at bin blocks auto "
+                f"({shp.bin_block}), 1, 2, 4, 8; pass A walks "
+                f"{-(-kw // (4 * shp.threads))} slabs of {4 * shp.threads} "
+                "columns")
         stats = {}
         early = np.array([10, 100, 200])
         got = ops.fused_corner_rows(clip, nb, early, stats=stats)
@@ -3214,6 +3459,40 @@ def run(torch) -> list[dict]:
             ops.integral_histogram(xf, 16, method="cw_tis", backend="torch")),
             "K4 != plain on a float frame")
         log(f"   ragged {[c[0] for c in cases]}, carry_in, float frame: equal")
+        # Rows wider than one CTA, walked slab by slab, at every bin block;
+        # vscan from a carry; and a frame past 524,280 rows (row groups on
+        # grid x).
+        for kw in WIDE_WIDTHS:
+            ids, cin = wide_in[kw]
+            want = cw_tis_hscan_plain(ids, wnb)
+            for bb in (None, 1, 2, 4, 8):
+                hh_w = cw_tis_hscan_cuda(ids, wnb, bin_block=bb)
+                check(torch.equal(hh_w, want),
+                      f"K4 hscan != plain at {wn}x{wh}x{kw}x{wnb}, bin "
+                      f"block {bb}")
+            hscan_err = max(hscan_err, float((hh_w - want).abs().max()))
+            got = cw_tis_vscan_cuda(hh_w, cin)
+            want = cw_tis_vscan_plain(hh_w, cin)
+            check(torch.equal(got, want),
+                  f"K4 vscan != plain at {wn}x{wh}x{kw}x{wnb} + carry")
+            vscan_err = max(vscan_err, float((got - want).abs().max()))
+            check(torch.equal(got, wf_tis_cuda(ids, wnb, carry=cin)),
+                  f"K4 != K1 at {wn}x{wh}x{kw}x{wnb} + carry")
+            slabs = -(-kw // column_split(kw)[0])
+            log(f"   {wn}x{wh}x{kw}x{wnb} + carry: hscan ({slabs} slabs) at "
+                "bin blocks auto, 1, 2, 4, 8, vscan and K1 equal")
+        tn, th, tw, tnb = TALL_SHAPE
+        tall, _ = k1_inputs(torch, dev, tn, th, tw, tnb, False, seed=th)
+        got = cw_tis_hscan_cuda(tall, tnb)
+        check(torch.equal(got, cw_tis_hscan_plain(tall, tnb)),
+              f"K4 hscan != plain at {tn}x{th}x{tw}x{tnb}")
+        check(torch.equal(cw_tis_cuda(tall, tnb), wf_tis_cuda(tall, tnb)),
+              f"K4 != K1 at {tn}x{th}x{tw}x{tnb}")
+        log(f"   {tn}x{th}x{tw}x{tnb} ({th * tw / 1e6:.1f} Mpx, "
+            f"{-(-th // 8)} row groups on grid x): hscan equals its plain "
+            "version, K4 equals K1")
+        del got, tall, hh_w, want
+        torch.cuda.empty_cache()
 
     with phase("k5: ssd_scan kernel vs its plain version"):
         from repro_torch.models.ssm import ssd_chunked
@@ -4132,6 +4411,19 @@ def run(torch) -> list[dict]:
         kn, knb, kh, kw = k3_H.shape
         geoms += [("delta_apply", KernelGeometry(kn, kh, kw, knb)),
                   ("cw_tis", KernelGeometry(n, h, w, nb))]
+        # and past 16,384 columns (the k1/k2/k4 phases' wide cases and the
+        # wide phase's panoramas), and K4 past 524,280 rows
+        for kw in WIDE_WIDTHS:
+            geoms += [(m, KernelGeometry(wn, wh, kw, wnb))
+                      for m in ("wf_tis", "cw_tis")]
+            geoms.append(("fused_rows", KernelGeometry(
+                wn, wh, kw, wnb, rows=tuple(wide_rows.tolist()))))
+        geoms += [("wf_tis", KernelGeometry(*WIDE_SHAPE)),
+                  ("wf_tis", KernelGeometry(1, *WIDE_SHAPE[1:])),
+                  ("cw_tis", KernelGeometry(*WIDE_SHAPE)),
+                  ("fused_rows",
+                   KernelGeometry(*WIDE_SHAPE, rows=WIDE_ROWS)),
+                  ("cw_tis", KernelGeometry(*TALL_SHAPE))]
         t0 = time.perf_counter()
         verdicts = kernelcheck.check_kernels() + [
             kernelcheck.check_method(m, g) for m, g in geoms]
@@ -4176,9 +4468,34 @@ def run(torch) -> list[dict]:
                         np.zeros((512, 512), np.uint8),
                         [eng_mod.RegionQuery(np.array([[0, 0, 400, 400]]))]),
                 "query-validity")
-        refused("a 1x20000 frame",
-                lambda: eng_mod.HistogramEngine(num_bins=32).run(
-                    np.zeros((1, 20000), np.uint8)), "h-shape")
+        # The one input the launches still refuse: more bin blocks than
+        # K1's grid y holds (65,535; over 524,280 bins at a block of 8).
+        refused("a 1x1 frame at 600,000 bins (75,000 bin blocks)",
+                lambda: eng_mod.HistogramEngine(num_bins=600_000).run(
+                    np.zeros((1, 1), np.uint8)), "h-shape")
+        # A 1x20000 frame, refused by h-shape before this slice, now passes
+        # the gate deep and runs K1 in two column strips, equal to its
+        # torch plan.
+        wide_one = np.random.default_rng(20000).integers(
+            0, 256, (1, 20000), np.uint8)
+        wide_q = [eng_mod.RegionQuery(np.array([[0, 0, 0, 19999],
+                                                [0, 10230, 0, 10250]]))]
+        got, _, counts = counted(None, lambda: eng_mod.HistogramEngine(
+            num_bins=32).run(wide_one, wide_q))
+        verdict = gate_log[-1][2]
+        check(verdict.ok and got.plan.backend == "cuda"
+              and counts == only(wf_tis=1),
+              f"1x20000 frame: gate {verdict.ok}, {got.plan.backend}, "
+              f"launched {counts}")
+        want = eng_mod.HistogramEngine(num_bins=32, backend="torch").run(
+            wide_one, wide_q)
+        check(torch.equal(got.results[0], want.results[0])
+              and torch.equal(got.source.dense(), want.source.dense()),
+              "1x20000 frame: answers or H != its torch plan's")
+        line = next(c for c in verdict.checks if c.name == "h-shape")
+        log(f"   a 1x20000 frame passes the gate deep ({line.detail}), "
+            f"launches {counts}; H and region histograms equal its torch "
+            "plan's")
 
         # What the gate costs on the host: warm (the verdict cached by
         # plan), a video frame's plan (a new dirty fraction: only the
@@ -4595,7 +4912,8 @@ def run(torch) -> list[dict]:
             log(f"   wf_tis at the {label} shape {k1_by_shape[-1]['shape']}: "
                 f"{ms:.4f} ms ({kn / ms * 1e3:.0f} frames/s) | bound "
                 f"{bound:.4f} ms by bytes, {bound / ms:.1%} of it | "
-                f"{shp.strips(kh)} strip(s), {shp.ctas(kn, bins, kh)} CTAs | "
+                f"{shp.strips(kh)} strip(s), {shp.ctas(kn, bins, kh, kw)} "
+                "CTAs | "
                 f"{runs} launches in this run's paths | profiled: "
                 + (f"{per_call:g} CUDA launch(es) a call, device µs a call "
                    + ", ".join(f"{k[:48]} {v:.2f}"
@@ -4647,6 +4965,61 @@ def run(torch) -> list[dict]:
                    + ", ".join(f"{k[:48]} {v:.2f}"
                                for k, v in kernel_us.items())
                    if per_call is not None else "not measured"))
+        # The wide panoramas (WIDE_SHAPE): K1, K2 at the wide request's
+        # rows, K4's hscan and vscan, by CUDA events beside their byte
+        # bounds, and each one's CUDA launches a call from a trace; the
+        # wide phase's launches per run join them in the kernels line.
+        # Then K1 and the hscan at other bin blocks, for the record.
+        pn, ph, pw, pnb = WIDE_SHAPE
+        p_ids, _ = k1_inputs(torch, dev, pn, ph, pw, pnb, False, seed=26)
+        p_rows = np.array(WIDE_ROWS)
+        p_hh = cw_tis_hscan_cuda(p_ids, pnb)
+        p_shape = f"{pn}x{ph}x{pw}x{pnb}"
+        wide_by_kernel = {}
+        for name, fn, wk, paths_of in (
+                ("wf_tis", lambda: wf_tis_cuda(p_ids, pnb),
+                 wf_tis_work(pn, ph, pw, pnb), ("wide_dense", "wide_bands")),
+                ("fused_rows", lambda: fused_rows_cuda(p_ids, pnb, p_rows),
+                 fused_rows_work(pn, pw, pnb, p_rows), ("wide_fused",)),
+                ("cw_tis_hscan", lambda: cw_tis_hscan_cuda(p_ids, pnb),
+                 cw_tis_hscan_work(pn, ph, pw, pnb), ("wide_cw",)),
+                ("cw_tis_vscan", lambda: cw_tis_vscan_cuda(p_hh),
+                 cw_tis_vscan_work(pn, pnb, ph, pw), ("wide_cw",))):
+            ms = time_ms(fn, runs=7, launches=3)
+            per_call, kernel_us = device_kernels(torch, fn, calls=3)
+            bound = max(wk["bytes"] / HBM_BYTES_PER_S,
+                        wk["flops"] / FP32_OPS_PER_S) * 1e3
+            wide_by_kernel[name] = [{
+                "shape": p_shape + (f", {p_rows.size} rows"
+                                    if name == "fused_rows" else ""),
+                "path": "wide", "paths": list(paths_of), "ms": ms,
+                "bound_ms": bound, "share": bound / ms,
+                "cuda_launches_per_call": per_call,
+                "device_us": sum(kernel_us.values()) if kernel_us else None}]
+            log(f"   {name} at the wide shape "
+                f"{wide_by_kernel[name][0]['shape']}: {ms:.4f} ms | bound "
+                f"{bound:.4f} ms by bytes ({wk['bytes'] / 1e9:.3f} GB), "
+                f"{bound / ms:.1%} of it | profiled: "
+                + (f"{per_call:g} CUDA launch(es) a call, device µs a call "
+                   + ", ".join(f"{k[:48]} {v:.2f}"
+                               for k, v in kernel_us.items())
+                   if per_call is not None else "not measured")
+                + f" | card {card_line()}")
+        sweep = []
+        for label, call, blocks in (
+                ("K1", lambda bb: wf_tis_cuda(p_ids, pnb, bin_block=bb),
+                 (1, 2)),
+                ("hscan",
+                 lambda bb: cw_tis_hscan_cuda(p_ids, pnb, bin_block=bb),
+                 (8, 4, 2, 1))):
+            for bb in blocks:
+                ms = time_ms(lambda: call(bb), runs=5, launches=3)
+                sweep.append(f"{label} bin block {bb} {ms:.4f}")
+        log(f"   at {p_shape}, ms a call by bin block (the wrappers pick "
+            f"K1 {launch_shape(pw, pnb, pn, h=ph).bin_block}, hscan "
+            f"{hscan_shape(pw, pnb)[0]}): " + "; ".join(sweep))
+        del p_ids, p_hh
+        torch.cuda.empty_cache()
         k5_calls, k5_kernel_us = device_kernels(
             torch, lambda: ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq))
         log(f"   ssd_scan profiled: "
@@ -4747,6 +5120,8 @@ def run(torch) -> list[dict]:
             if name == "fused_rows":
                 records[-1].update(cuda_launches_per_call=k2_calls,
                                    shapes=k2_by_shape)
+            if name in wide_by_kernel:
+                records[-1]["wide_shapes"] = wide_by_kernel[name]
             lib = (f"library_ms {lib_ms:.4f} ({library_call[name]})"
                    if lib_ms is not None else "library_ms: none, no single "
                    "PyTorch call computes the same function")
@@ -4923,6 +5298,18 @@ def run(torch) -> list[dict]:
                    lambda: delta_apply_cuda(k3_H, k3_d)),
                   ("cw_tis", "clip", KernelGeometry(n, h, w, nb),
                    lambda: cw_tis_cuda(idx, nb))]
+        # Past 16,384 columns: K1's three launches (row counts, column
+        # counts with block totals, the scan), K2's slabs, K4's slabs.
+        for kw in WIDE_WIDTHS:
+            ids, cin = wide_in[kw]
+            calls += [
+                ("wf_tis", f"wide {kw}", KernelGeometry(*ids.shape, wnb),
+                 lambda ids=ids, cin=cin: wf_tis_cuda(ids, wnb, carry=cin)),
+                ("fused_rows", f"wide {kw}", KernelGeometry(
+                    *ids.shape, wnb, rows=tuple(wide_rows.tolist())),
+                 lambda ids=ids: fused_rows_cuda(ids, wnb, wide_rows)),
+                ("cw_tis", f"wide {kw}", KernelGeometry(*ids.shape, wnb),
+                 lambda ids=ids: cw_tis_cuda(ids, wnb))]
         static_read, launch_checks = set(), {}
         for method, label, geom, fn in calls:
             specs = ops.KERNEL_SPECS[method](geom)
@@ -5045,6 +5432,14 @@ def run(torch) -> list[dict]:
                f"{REMAT_BATCH}x{REMAT_SEQ} under remat=full"):
         remat_times = remat_at_scale(torch, dev, counted, only)["kernels"]
 
+    # After every profiled phase: four 8 GB H's.
+    with phase(f"wide: {WIDE_SHAPE[0]} panoramas of {WIDE_SHAPE[1]}x"
+               f"{WIDE_SHAPE[2]} at {WIDE_SHAPE[3]} bins through "
+               "engine.run"):
+        torch.cuda.empty_cache()
+        wide_phase(torch, dev, counted, only)
+        torch.cuda.empty_cache()
+
     with phase("examples: examples/quickstart_torch.py and "
                "examples/video_analytics_torch.py on the card and the CPU"):
         examples_phase(torch, counted, only)
@@ -5058,6 +5453,9 @@ def run(torch) -> list[dict]:
             rec["shard_shapes"] = [
                 {**t, "launches_per_run": paths[t["path"]][rec["name"]]}
                 for t in shard_times[rec["name"]]]
+        for t in rec.get("wide_shapes", []):
+            t["launches_per_run"] = sum(paths[pth][rec["name"]]
+                                        for pth in t["paths"])
         if rec["name"] in remat_times:
             t = remat_times[rec["name"]]
             rec["remat_shape"] = {

@@ -11,9 +11,9 @@ the planner's own metadata:
   * **h-shape**: the kernel the plan selects produces the (..., b, h, w)
     fp32 H the representation expects.  A ``torch`` plan runs its plain
     scans on meta tensors; a ``cuda`` plan runs each wrapper's own checks
-    and launch shape (raising as they would on the card, e.g. for a frame
-    wider than a CTA scans), allocates its outputs on meta and launches
-    nothing;
+    and launch shape (raising as they would on the card, e.g. for more
+    row strips than the grid holds), allocates its outputs on meta and
+    launches nothing;
   * **carry-chain**: every band height accepts and re-emits the
     (..., b, w) bottom-row carry (again on meta tensors);
   * **memory-budget**: the peak live H (microbatch x per-frame H for

@@ -12,7 +12,9 @@ kept apart on purpose.
 
 What bounds it on an H100: bytes.  ``hscan`` reads the int32 ids and
 writes ``hh`` (one CTA per frame, bin block and group of 8 rows; each row
-scanned across the width by the CTA with warp shuffles); ``vscan`` reads
+scanned across the width by the CTA with warp shuffles, a row wider than
+the CTA's 16,384 columns slab by slab with each bin's total carried
+between slabs); ``vscan`` reads
 ``hh`` and writes H (one thread per frame, bin and 4 columns, walking the
 rows with its running sum seeded from the carry-in).  The TPU kernels'
 carries between grid steps (``row_carry``, ``col_carry``) become these
@@ -41,7 +43,11 @@ from repro_torch.kernels.specs import (
     abstract_launch,
     cdiv,
 )
-from repro_torch.kernels.wf_tis import check_inputs, launch_shape
+from repro_torch.kernels.wf_tis import (
+    _GRID_X_LIMIT,
+    check_inputs,
+    column_split,
+)
 
 _MAX_VSCAN_BLOCKS = 132 * 16     # grid-stride cap: 16 CTAs per H100 SM
 _ROWS_PER_CTA = 8                # hscan rows per CTA (csrc kRowsPerCta)
@@ -70,11 +76,19 @@ def cw_tis_plain(idx: torch.Tensor, num_bins: int,
 def hscan_shape(w: int, num_bins: int,
                 bin_block: int | None = None) -> tuple[int, int, int]:
     """(bin_block, threads, chunks) of the hscan launch: K1's column split
-    (``4 * chunks`` columns a thread, at most 16,384 columns) and, unless
-    given, the largest bin block of 1, 2, 4, 8 that ``num_bins`` fills."""
-    _, threads, chunks, _ = launch_shape(w, num_bins, 1, 1)
+    (``4 * chunks`` columns a thread over a slab of ``column_split(w)[0]``
+    columns, the whole row up to 16,384) and, unless given, the largest
+    bin block of 1, 2, 4, 8 that ``num_bins`` fills, at most 2 at 16
+    columns a thread: there ptxas spills 568 B a thread at a block of 8
+    and 116 B at 4, none at 2, and at 4 x 480 x 32,768 x 32 the hscan took
+    15.3650, 8.4532, 7.1760 and 7.2870 ms at blocks 8, 4, 2, 1 (chip_smoke
+    timing, H100 80GB HBM3 at 700 W).  Any width and any height: a wider
+    row is walked in slabs, and the row groups lie on grid x."""
+    _, threads, chunks = column_split(w)
     if bin_block is None:
-        bin_block = next(bb for bb in (8, 4, 2, 1) if bb <= num_bins)
+        cap = 2 if chunks == 4 else 8
+        bin_block = next(bb for bb in (8, 4, 2, 1)
+                         if bb <= min(num_bins, cap))
     elif bin_block not in (1, 2, 4, 8):
         raise ValueError(f"bin_block must be one of (8, 4, 2, 1), "
                          f"got {bin_block}")
@@ -87,7 +101,7 @@ def _lib():
     lib = _build.library("cw_tis.cu")
     h_fn, v_fn = lib.cw_tis_hscan_launch, lib.cw_tis_vscan_launch
     if h_fn.argtypes is None:
-        h_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 \
+        h_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         h_fn.restype = ctypes.c_int
         v_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
@@ -125,18 +139,19 @@ def cw_tis_hscan_cuda(idx: torch.Tensor, num_bins: int, *,
                      device=idx.device)
     if hh.numel() == 0:
         return hh
-    if -(-h // _ROWS_PER_CTA) > 65535:
-        raise NotImplementedError(
-            f"height {h} exceeds the {65535 * _ROWS_PER_CTA} rows of one "
-            "hscan launch")
     bb, threads, chunks = hscan_shape(w, num_bins, bin_block)
+    if n * -(-num_bins // bb) * -(-h // _ROWS_PER_CTA) > _GRID_X_LIMIT:
+        raise NotImplementedError(
+            f"{n} frames of {h} rows at {num_bins} bins exceed the hscan "
+            f"grid's {_GRID_X_LIMIT} CTAs")
     if not idx.is_cuda:     # meta: the launch's checks ran, nothing launches
         abstract_launch("cw_tis_hscan", cw_tis_hscan_work(n, h, w, num_bins))
         return hh
     h_fn, _ = _lib()
     with torch.cuda.device(idx.device):
         err = h_fn(idx.data_ptr(), hh.data_ptr(), n, h, w, num_bins, bb,
-                   threads, chunks, torch.cuda.current_stream().cuda_stream)
+                   threads, chunks, column_split(w)[0],
+                   torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"cw_tis hscan launch failed: CUDA error {err}")
     cw_tis_hscan_cuda.launches += 1
@@ -200,44 +215,63 @@ def cw_tis_cuda(idx: torch.Tensor, num_bins: int, *,
 
 def resolve_geometry(geom: KernelGeometry) -> KernelGeometry:
     """``geom`` with K4's launches filled in as ``cw_tis_cuda`` picks them
-    (``hscan_shape``; vscan on at most ``_MAX_VSCAN_BLOCKS`` CTAs of
-    ``_VSCAN_THREADS``)."""
+    (``hscan_shape``, slabs of ``column_split``; vscan on at most
+    ``_MAX_VSCAN_BLOCKS`` CTAs of ``_VSCAN_THREADS``)."""
     if geom.threads is not None:
         return geom
     bb, threads, chunks = hscan_shape(geom.w, geom.num_bins, geom.bin_block)
     return dataclasses.replace(
         geom, bin_block=bb, threads=threads, chunks=chunks,
         strip_rows=_ROWS_PER_CTA, col_block=4, max_blocks=_MAX_VSCAN_BLOCKS,
-        stride_threads=_VSCAN_THREADS)
+        stride_threads=_VSCAN_THREADS, strip_cols=column_split(geom.w)[0])
 
 
 def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
     """K4's two launches at ``geom`` (csrc/cw_tis.cu): ``hscan_kernel``,
-    grid (n, ceil(nb / bin_block), ceil(h / 8)), each CTA scanning its rows
-    across the width, no value carried between rows; then
+    grid x folding (frame, bin block, group of 8 rows), each CTA scanning
+    its rows across the width slab by slab, each bin's total carried from
+    one slab to the next within a row and nothing between rows; then
     ``vscan_kernel``, a grid-stride loop over (plane, 4 columns) items,
-    each walking every row with its running sum and reading hscan's rows
-    (edges to the earlier launch)."""
+    each walking every row with its running sum and reading hscan's slabs
+    of the row (edges to the earlier launch)."""
     g = resolve_geometry(geom)
     n, h, w, nb = g.n, g.h, g.w, g.num_bins
-    bb, R = g.bin_block, g.strip_rows
-    cols = g.threads * 4 * g.chunks
+    bb, R, sc = g.bin_block, g.strip_rows, g.strip_cols
+    nbb, S = cdiv(nb, bb), cdiv(w, sc)
+
+    def cta(x):
+        x, f = divmod(x, n)
+        group, blk = divmod(x, nbb)
+        return f, blk, group
+
+    def h_row(p):
+        return cta(p["x"])[2] * R + p["row"]
+
+    def h_reads(p):
+        if p["slab"] == 0:
+            return []
+        return [(("before", p["x"]),
+                 {"x": p["x"], "row": p["row"], "slab": p["slab"] - 1})]
+
+    def h_writes(p):
+        f, blk, _ = cta(p["x"])
+        return [("before", p["x"]), ("hh", f, blk, h_row(p), p["slab"])]
+
     hscan = KernelSpec(
         name="cw_tis/hscan", kernel="hscan_kernel",
-        grid=(("f", n), ("bb", cdiv(nb, bb)), ("group", cdiv(h, R))),
-        loops=(("row", R),), threads=g.threads, geometry=g,
+        grid=(("x", n * nbb * cdiv(h, R)),),
+        loops=(("row", R), ("slab", S)), threads=g.threads, geometry=g,
         smem_static=4 * 2 * bb * 32,            # warp_tot[2 * BB * 32]
-        active=lambda p: p["group"] * R + p["row"] < h,
+        active=lambda p: h_row(p) < h,
         in_specs=(Operand(
-            "idx", (n, h, w), (1, 1, cols),
-            lambda p: (p["f"], p["group"] * R + p["row"], 0),
+            "idx", (n, h, w), (1, 1, sc),
+            lambda p: (cta(p["x"])[0], h_row(p), p["slab"]),
             (False, False, True)),),
         out_specs=(Operand(
-            "hh", (n, nb, h, w), (1, bb, 1, cols),
-            lambda p: (p["f"], p["bb"], p["group"] * R + p["row"], 0),
+            "hh", (n, nb, h, w), (1, bb, 1, sc),
+            lambda p: (cta(p["x"])[0], cta(p["x"])[1], h_row(p), p["slab"]),
             (False, True, False, True)),),
-        carry_writes=lambda p: [("hh", p["f"], p["bb"],
-                                 p["group"] * R + p["row"])])
+        carry_reads=h_reads, carry_writes=h_writes)
 
     T, ncol = g.stride_threads, cdiv(w, 4)
     items = n * nb * ncol
@@ -255,9 +289,12 @@ def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
         b = min(items, a + T)
         for plane in range(a // ncol, (b - 1) // ncol + 1):
             f, bin_ = divmod(plane, nb)
-            reads.append((("hh", f, bin_ // bb, r), {
-                "pass": hscan.name, "f": f, "bb": bin_ // bb,
-                "group": r // R, "row": r % R}))
+            c0 = max(a, plane * ncol) - plane * ncol
+            c1 = min(b, (plane + 1) * ncol) - plane * ncol
+            x = f + n * (bin_ // bb + nbb * (r // R))
+            reads += [(("hh", f, bin_ // bb, r, s), {
+                "pass": hscan.name, "x": x, "row": r % R, "slab": s})
+                for s in range(4 * c0 // sc, 4 * (c1 - 1) // sc + 1)]
         return reads
 
     vscan = KernelSpec(

@@ -53,9 +53,6 @@ _MAX_THREADS = 512  # pass A threads (csrc kMaxThreads): 2048 columns a slab
 _FILL_CTAS = 2 * wf_tis._SMS    # pass A CTAs a chunk cut aims for
 _MAX_CHUNK_ROWS = 255           # pass A counts a chunk's hits in one byte
 _SUM_THREADS = 64               # pass B threads a CTA (csrc kSumThreads)
-# K1 scans at most this many columns; K2 keeps the same limit so that a
-# fused and a dense plan take the same frames.
-_MAX_WIDTH = wf_tis._MAX_THREADS * 4 * wf_tis._MAX_CHUNKS
 
 
 def check_rows(row_ids, h: int) -> np.ndarray:
@@ -87,17 +84,13 @@ def chunk_shape(w: int, num_bins: int, n: int, num_rows: int, h_run: int,
     ``bin_block=None`` takes 8, or the smallest block that holds
     ``num_bins``: eight bins fit pass A's 64 registers a thread (two
     registers of byte counts a column) and read a chunk's ids a quarter as
-    often as two bins would; the width is taken slab by slab.  Chunks stay
+    often as two bins would; any width is taken slab by slab, 2048 columns
+    a slab with the slab totals carried.  Chunks stay
     whole segments between requested rows (``chunk_rows = h_run``) where
     those already give pass A two CTAs an SM; otherwise ``chunk_rows`` is
     cut so that the chunks do (``chunk_plan`` makes at least ``h_run //
     chunk_rows``).  Either way a chunk holds at most 255 rows, the most
     pass A counts in a byte."""
-    if w > _MAX_WIDTH:
-        raise NotImplementedError(
-            f"width {w} exceeds the {_MAX_WIDTH} columns one CTA scans; "
-            "wider frames need column strips with a row-carry pre-pass (not "
-            "ported yet)")
     if bin_block is None:
         bin_block = min(bb for bb in _BIN_BLOCKS
                         if bb >= min(num_bins, _BIN_BLOCKS[0]))

@@ -103,6 +103,8 @@ class KernelGeometry:
       * ``rows``: K2's requested rows.
       * ``col_block``: columns of the launch's column blocks (K1's count
         pre-pass, K2's slabs, 4 for the grid-stride kernels' items).
+      * ``strip_cols``: columns one CTA scans at a time (K1's column
+        strips, K4's hscan slabs; the width where one CTA spans it).
       * ``max_blocks``, ``stride_threads``: CTAs and threads of a
         grid-stride launch (K3, K4's vscan).
     """
@@ -119,6 +121,7 @@ class KernelGeometry:
     col_block: int | None = None
     max_blocks: int | None = None
     stride_threads: int | None = None
+    strip_cols: int | None = None
 
     def canonical(self, max_blocks: int = 3) -> "KernelGeometry":
         """The reduced geometry that enumeration runs on (a resolved one
@@ -129,8 +132,10 @@ class KernelGeometry:
         walks, K2's chunks; grid-stride CTAs of 4 threads, so that the
         stride loop turns), ragged last blocks kept ragged.  The launch's
         own block sizes stay: K1's CTA still spans ``threads * 4 *
-        chunks`` columns.  Enumeration then takes O(100) steps at any
-        frame size."""
+        chunks`` columns.  Column strips are the exception: a geometry
+        cut into them keeps two or three, each two column blocks wide,
+        so that an edge from one strip to the next stays in view.
+        Enumeration then takes O(100) steps at any frame size."""
         bb = self.bin_block or 1
         sr = self.strip_rows
         rows = self.rows
@@ -151,12 +156,16 @@ class KernelGeometry:
             sr = min(sr, max_blocks)
         else:
             h = min(self.h, max_blocks)
-        w = self.w
-        if self.col_block is not None:
+        w, sc = self.w, self.strip_cols
+        if sc is not None and sc < self.w:
+            new_sc = 2 * (self.col_block or 1)
+            w = _clamp_extent(self.w, sc, max_blocks, new_sc)
+            sc = new_sc
+        elif self.col_block is not None:
             w = _clamp_extent(self.w, self.col_block, max_blocks)
         return dataclasses.replace(
             self, n=2, h=h, w=w, num_bins=min(self.num_bins, max_blocks * bb),
-            strip_rows=sr, rows=rows,
+            strip_rows=sr, rows=rows, strip_cols=sc,
             max_blocks=(None if self.max_blocks is None
                         else min(self.max_blocks, max_blocks)),
             stride_threads=(None if self.stride_threads is None
@@ -166,6 +175,7 @@ class KernelGeometry:
         parts = [f"{k.replace('_', ' ')} {v}" for k, v in (
             ("bin_block", self.bin_block), ("threads", self.threads),
             ("chunks", self.chunks), ("strip_rows", self.strip_rows),
+            ("strip_cols", self.strip_cols),
             ("max_blocks", self.max_blocks)) if v is not None]
         if self.rows is not None:
             parts.append(f"{len(self.rows)} row(s)")

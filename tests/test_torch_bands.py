@@ -480,8 +480,10 @@ def test_k4_launch_shape_and_checks():
     assert hscan_shape(640, 32, bin_block=1)[0] == 1
     with pytest.raises(ValueError, match="bin_block"):
         hscan_shape(640, 32, bin_block=3)
-    with pytest.raises(NotImplementedError):
-        hscan_shape(20000, 8)
+    # Any width: 20,000 columns in two slabs of 10,240, 640 threads of 16
+    # columns, where a bin block above 2 spills registers.
+    assert hscan_shape(20000, 8) == (2, 640, 4)
+    assert hscan_shape(20000, 8, bin_block=8)[0] == 8
     with pytest.raises(ValueError, match="int32"):
         cw_tis_hscan_cuda(torch.zeros((1, 4, 4), dtype=torch.int64), 4)
     with pytest.raises(ValueError, match="float32"):

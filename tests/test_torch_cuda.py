@@ -35,9 +35,12 @@ from repro_torch.kernels.fused_rows import (
 )
 from repro_torch.kernels.fused_rows import launch as k2_launch
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.specs import SMEM_LIMIT_BYTES
 from repro_torch.kernels.wf_tis import (
+    column_split,
     launch,
     launch_shape,
+    scan_smem_bytes,
     wf_tis_cuda,
     wf_tis_plain,
 )
@@ -294,6 +297,65 @@ def test_cw_tis_kernels_equal_plain_and_k1(cuda_device, n, h, w, bins,
         before[0] + 2, before[1] + 1)
     assert torch.equal(H, cw_tis_plain(idx, bins, carry))
     assert torch.equal(H, wf_tis_cuda(idx, bins, carry=carry))
+
+
+#: (width, bin block) past one CTA's 16,384 columns, every bin block
+#: whose column counts fit a CTA's shared memory at that width.
+WIDE_K1 = [(w, bb) for w in (16385, 20001, 32768, 40003) for bb in (1, 2, 4)
+           if scan_smem_bytes(bb, *column_split(w)[1:]) <= SMEM_LIMIT_BYTES]
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+@pytest.mark.parametrize("strip_rows", [24, 7])
+@pytest.mark.parametrize("w,bin_block", WIDE_K1)
+def test_k1_column_strips_equal_plain(cuda_device, w, bin_block, strip_rows,
+                                      with_carry):
+    """K1 past 16,384 columns: column strips (the row-count pre-pass)
+    alone and with row strips of 7 rows (the corners from block totals),
+    every bin block that fits, a ragged bin block (7 bins), a carry across
+    every strip boundary."""
+    n, h, bins = 2, 24, 7
+    rng = np.random.default_rng(18)
+    idx = torch.as_tensor(rng.integers(-1, bins + 1, (n, h, w)),
+                          dtype=torch.int32, device=cuda_device)
+    carry = (torch.as_tensor(_carry(18, (n, h, w), bins), device=cuda_device)
+             if with_carry else None)
+    shape = launch_shape(w, bins, n, bin_block, h=h, strip_rows=strip_rows)
+    assert shape.col_strips(w) > 1
+    assert torch.equal(launch(idx, bins, shape, carry),
+                       wf_tis_plain(idx, bins, carry))
+
+
+@pytest.mark.parametrize("w", [16385, 32768, 40003])
+def test_wide_k2_and_k4_equal_plain(cuda_device, w):
+    """K2 walks 2048-column slabs past 16,384 columns at every bin block;
+    K4's hscan walks its rows in column strips' slabs, with each bin's
+    total carried; both with a carry, both equal K1."""
+    n, h, bins = 2, 40, 7
+    rng = np.random.default_rng(19)
+    idx = torch.as_tensor(rng.integers(-1, bins + 1, (n, h, w)),
+                          dtype=torch.int32, device=cuda_device)
+    carry = torch.as_tensor(_carry(19, (n, h, w), bins), device=cuda_device)
+    want = wf_tis_plain(idx, bins, carry)
+    assert torch.equal(wf_tis_cuda(idx, bins, carry=carry), want)
+    rows = np.array([0, 3, 17, 39])
+    for bb in (1, 2, 4, 8):
+        assert torch.equal(fused_rows_cuda(idx, bins, rows, bin_block=bb,
+                                           carry=carry),
+                           want[..., torch.as_tensor(rows,
+                                                     device=cuda_device), :])
+    assert torch.equal(cw_tis_hscan_cuda(idx, bins),
+                       cw_tis_hscan_plain(idx, bins))
+    assert torch.equal(cw_tis_cuda(idx, bins, carry=carry), want)
+
+
+def test_hscan_past_524280_rows_equals_plain(cuda_device):
+    """K4's hscan puts its row groups on grid x: 600,000 rows run."""
+    rng = np.random.default_rng(20)
+    idx = torch.as_tensor(rng.integers(-1, 17, (1, 600000, 16)),
+                          dtype=torch.int32, device=cuda_device)
+    assert torch.equal(cw_tis_hscan_cuda(idx, 16),
+                       cw_tis_hscan_plain(idx, 16))
 
 
 def test_incremental_stream_launches_k3_not_k2(cuda_device):

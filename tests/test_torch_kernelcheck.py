@@ -68,6 +68,10 @@ GEOMS = {
     "640x480": KernelGeometry(n=2, h=480, w=640, num_bins=32),
     "uneven": KernelGeometry(n=3, h=300, w=500, num_bins=20),
     "paper-8k": KernelGeometry(n=1, h=8192, w=8192, num_bins=128),
+    # past one CTA's 16,384 columns: the panorama (two column strips), and
+    # a ragged width cut both ways (three column strips, row strips)
+    "wide-32k": KernelGeometry(n=4, h=480, w=32768, num_bins=32),
+    "wide-ragged": KernelGeometry(n=1, h=97, w=40003, num_bins=5),
 }
 
 
@@ -159,6 +163,23 @@ def test_canonical_geometry_clamps_and_keeps_ragged_blocks():
     assert all(b - a <= 7 for a, b in zip((-1,) + c2.rows, c2.rows))
 
 
+def test_canonical_geometry_keeps_two_column_strips():
+    """A frame cut into column strips keeps two or three of them, two
+    column blocks wide, the last ragged: the strip-to-strip edges stay in
+    the proof.  K4's hscan keeps its slabs likewise."""
+    g = wf_tis.resolve_geometry(GEOMS["wide-32k"])
+    assert (g.strip_cols, g.strip_rows) == (16384, 480)
+    c = g.canonical()
+    assert (c.strip_cols, c.w) == (1024, 2048)
+    r = wf_tis.resolve_geometry(GEOMS["wide-ragged"]).canonical()
+    assert (r.strip_cols, r.w, -(-r.w // r.strip_cols)) == (1024, 3071, 3)
+    assert [s.name for s in ops.KERNEL_SPECS["wf_tis"](r)] == [
+        "wf_tis/rows", "wf_tis/count", "wf_tis/scan"]
+    k4 = cw_tis.resolve_geometry(GEOMS["wide-32k"]).canonical()
+    assert (k4.strip_cols, k4.w) == (8, 16)
+    assert dict(ops.KERNEL_SPECS["cw_tis"](k4)[0].loops)["slab"] == 2
+
+
 def test_every_cta_order_gives_the_same_steps():
     spec = ops.KERNEL_SPECS["cw_tis"](
         cw_tis.resolve_geometry(GEOMS["640x480"]).canonical())[1]
@@ -196,6 +217,28 @@ def test_edge_between_two_ctas_fails_carry_order():
     assert check.status == "fail"
     assert "CTAs run in parallel and in no order" in check.detail
     assert kc.check_carry_order(scan, (count,)).ok
+
+
+def test_column_strip_reading_its_neighbour_fails_carry_order():
+    """K1's column strip j taking its row carry from the walk of strip
+    j - 1 in the same launch (the TPU's row carry between column tiles,
+    ported as it was) fails: only the row-count pre-pass may feed it."""
+    specs = _canon("wf_tis", GEOMS["wide-ragged"])
+    *earlier, scan = specs
+    n = scan.geometry.n
+
+    def reads(p):
+        if p["x"] >= n:                     # column strip 1 and on
+            left = {"x": p["x"] - n, "y": p["y"], "z": p["z"],
+                    "row": p["row"]}
+            return [(("V", p["x"] - n, p["y"], p["z"]), left)]
+        return scan.carry_reads(p)
+
+    bad = dataclasses.replace(scan, carry_reads=reads)
+    check = kc.check_carry_order(bad, tuple(earlier))
+    assert check.status == "fail"
+    assert "CTAs run in parallel and in no order" in check.detail
+    assert kc.check_carry_order(scan, tuple(earlier)).ok
 
 
 def test_reordered_serial_loop_fails_carry_order():
@@ -338,11 +381,13 @@ def test_spec_matches_the_wrappers_launch(case, recorder):
     if method == "wf_tis":
         wf_tis.wf_tis_cuda(_on_card((n, h, w), torch.int32), nb)
         (args,) = recorder["wf_tis"]
-        assert args[4:12] == (n, h, w, nb, r.bin_block, r.threads, r.chunks,
-                              r.strip_rows)
+        assert args[6:15] == (n, h, w, nb, r.bin_block, r.threads, r.chunks,
+                              r.strip_rows, r.strip_cols)
         assert [s.kernel for s in specs] == (
+            ["row_count_kernel"] if r.strip_cols < w else []) + (
             ["count_kernel"] if r.strip_rows < h else []) + ["scan_kernel"]
-        assert specs[-1].cuda_grid == (n, -(-nb // r.bin_block),
+        assert specs[-1].cuda_grid == (n * -(-w // r.strip_cols),
+                                       -(-nb // r.bin_block),
                                        -(-h // r.strip_rows))
     elif method == "fused_rows":
         fused_rows.fused_rows_cuda(_on_card((n, h, w), torch.int32), nb,
@@ -363,9 +408,11 @@ def test_spec_matches_the_wrappers_launch(case, recorder):
         cw_tis.cw_tis_vscan_cuda(_on_card((n, nb, h, w)))
         (h_args,) = recorder["cw_tis/hscan"]
         (v_args,) = recorder["cw_tis/vscan"]
-        assert h_args[2:9] == (n, h, w, nb, r.bin_block, r.threads, r.chunks)
+        assert h_args[2:10] == (n, h, w, nb, r.bin_block, r.threads, r.chunks,
+                                r.strip_cols)
         assert v_args[3:7] == (n * nb, h, w, r.max_blocks)
-        assert specs[0].cuda_grid == (n, -(-nb // r.bin_block), -(-h // 8))
+        assert specs[0].cuda_grid == (n * -(-nb // r.bin_block) * -(-h // 8),
+                                      1, 1)
 
 
 def test_bin_block_none_resolves_by_the_busy_rule(recorder):
@@ -377,7 +424,7 @@ def test_bin_block_none_resolves_by_the_busy_rule(recorder):
         geom = KernelGeometry(n, 480, 640, 32)
         assert wf_tis.resolve_geometry(geom).bin_block == want
         wf_tis.wf_tis_cuda(_on_card((n, 480, 640), torch.int32), 32)
-        assert recorder["wf_tis"][-1][8] == want
+        assert recorder["wf_tis"][-1][10] == want    # after six pointers
 
 
 # ---------------------------------------------------------------------------

@@ -271,12 +271,21 @@ def _cuda(p):
 
 
 def test_wide_frame_cuda_plan_fails_h_shape_with_the_wrappers_message():
+    """Once refused (the wrappers raised past 16,384 columns), a 1 x 20000
+    frame now passes the gate on the card: its h-shape line holds through
+    K1's column strips and kernelcheck proves the launches it adds."""
     port = engine.HistogramEngine(32, device="cpu")
     p = engine.plan(port.spec_for((1, 20000)))
     assert port.validate(p, deep=True).ok        # the torch plan runs it
     v = port.validate(_cuda(p), deep=True)
-    assert "h-shape" in [c.name for c in v.failures]
-    assert "exceeds the 16384 columns one CTA scans" in v.failures[0].detail
+    assert v.ok, v.render()
+    line = next(c for c in v.checks if c.name == "h-shape")
+    assert line.status == "ok" and "via wf_tis/cuda" in line.detail
+    from repro_torch.analysis import kernelcheck
+
+    specs = kernelcheck.specs_for(kernelcheck.plan_method(p),
+                                  kernelcheck.plan_geometry(p))
+    assert [sp.name for sp in specs] == ["wf_tis/rows", "wf_tis/scan"]
     # ops is not gated: the torch path still takes the frame directly
     from repro_torch.kernels import ops
 

@@ -252,8 +252,8 @@ def test_chunk_shape_fills_the_card(n, h, rows, chunks, ctas):
     assert chunk_shape(640, 32, 1, 1, 1, bin_block=2).bin_block == 2
     with pytest.raises(ValueError, match="bin_block"):
         chunk_shape(640, 32, 1, 1, 1, bin_block=3)
-    with pytest.raises(NotImplementedError):
-        chunk_shape(20000, 8, 1, 1, 1)
+    # Any width: pass A walks 20,000 columns in 10 slabs of 2048.
+    assert chunk_shape(20000, 8, 1, 1, 1) == (8, 512, 1)
 
 
 def _chunk_scan(ids, bins, rows, chunk_rows, carry=None):
@@ -301,14 +301,17 @@ def test_chunk_decomposition_equals_reference(row_set, chunk_rows, with_carry,
 
 
 def test_launch_shape_fits_the_card():
-    # (bin_block, threads, 4-column chunks per thread); no height, no strips
-    assert launch_shape(640, 32, 16) == (1, 160, 1, 0)
-    bb, threads, chunks, _ = launch_shape(1920, 64, 4)
-    assert threads * 4 * chunks >= 1920 and threads <= 1024
-    bb, threads, chunks, _ = launch_shape(8192, 128, 1)
+    # (bin_block, threads, 4-column chunks per thread, rows and columns a
+    # CTA); no height, no row strips
+    assert launch_shape(640, 32, 16) == (1, 160, 1, 0, 640)
+    bb, threads, chunks, _, cols = launch_shape(1920, 64, 4)
+    assert threads * 4 * chunks >= 1920 and threads <= 1024 and cols == 1920
+    bb, threads, chunks, _, _ = launch_shape(8192, 128, 1)
     assert (threads, chunks) == (1024, 2)
-    with pytest.raises(NotImplementedError):
-        launch_shape(20000, 8, 1)
+    # Past 16,384 columns: two column strips of 10,240 (whole 512-column
+    # blocks), the last ragged, 640 threads of 16 columns a strip.
+    shape = launch_shape(20000, 8, 1)
+    assert shape == (1, 640, 4, 0, 10240) and shape.col_strips(20000) == 2
 
 
 @pytest.mark.parametrize("n,h,w,bins,strips", [
@@ -330,7 +333,7 @@ def test_launch_shape_cuts_strips_where_the_card_is_not_filled(
     CTAs run per SM."""
     shape = launch_shape(w, bins, n, h=h)
     assert shape.strips(h) == strips
-    ctas = shape.ctas(n, bins, h)
+    ctas = shape.ctas(n, bins, h, w)
     if strips == 1:
         assert shape.strip_rows == h
     else:
