@@ -32,11 +32,13 @@ non-zero before the result line is printed:
           the clip's H with a random integer delta, on ragged shapes, and
           from a row band of one H into a row band of another
   k4      the CW-TiS kernels (hscan, then vscan) against the plain cw_tis
-          and against K1 (torch.equal): the clip, 4x1080x1920x64, K1's
-          ragged shapes, a float frame and a non-zero carry_in; k1's wide
-          cases (the hscan in 2 or 3 slabs at every bin block, the vscan
-          from the carry) and TALL_SHAPE, 1 x 600,000 x 16 at 16 bins
-          (past 65,535 row groups)
+          and against K1 (torch.equal): the clip (the hscan at every bin
+          block), 4x1080x1920x64, K1's ragged shapes, a float frame and a
+          non-zero carry_in; k1's wide cases (the hscan's warps walking
+          129 to 313 chunks of 128 columns at every bin block, the vscan
+          from the carry), a ragged width from an unaligned base (the
+          scalar path) and TALL_SHAPE, 1 x 600,000 x 16 at 16 bins (one
+          warp a row and bin block, 150,000 CTAs)
   k5      the SSD scan kernel (3xTF32 tensor cores) against its plain
           version (TF32 off) at the Mamba2-130M prefill's shape, B=4,
           S=1024, H=24, P=64, N=128, chunk 256: y and h_last with h0 = 0
@@ -566,7 +568,7 @@ K2_SHAPES = {
 # whole frame.
 K1_SWEEP_HEIGHTS = (48, 64, 80, 96, 112, 128, 160, 192, 240, 480)
 # Widths past one CTA's 16,384 columns (K1's column strips, K4's hscan
-# slabs, K2's pass A in 2048-column slabs): one column more, two whole
+# chunks, K2's pass A in 2048-column slabs): one column more, two whole
 # strips, and a ragged width cut into three; the k1, k2 and k4 phases take
 # a 200-row frame of each at 7 bins (a ragged bin block) with a carry.
 WIDE_WIDTHS = (16385, 32768, 40003)
@@ -3095,9 +3097,9 @@ def run(torch) -> list[dict]:
     from repro_torch.data import video_frames
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.cw_tis import (
-        cw_tis_cuda, cw_tis_hscan_cuda, cw_tis_hscan_plain,
+        HSCAN_CHUNK, cw_tis_cuda, cw_tis_hscan_cuda, cw_tis_hscan_plain,
         cw_tis_hscan_work, cw_tis_plain, cw_tis_vscan_cuda,
-        cw_tis_vscan_plain, cw_tis_vscan_work, hscan_shape,
+        cw_tis_vscan_plain, cw_tis_vscan_work, hscan_ctas, hscan_shape,
     )
     from repro_torch.kernels.delta_apply import (
         delta_apply_cuda, delta_apply_plain, delta_apply_work,
@@ -3114,7 +3116,7 @@ def run(torch) -> list[dict]:
     )
     from repro_torch.kernels import wf_tis as wf_tis_mod
     from repro_torch.kernels.wf_tis import (
-        column_split, launch as wf_tis_launch, launch_shape, strip_rows_for,
+        launch as wf_tis_launch, launch_shape, strip_rows_for,
         wf_tis_cuda, wf_tis_plain, wf_tis_work,
     )
 
@@ -3422,7 +3424,12 @@ def run(torch) -> list[dict]:
         check(torch.equal(got, cw_tis_plain(idx, nb)),
               "K4 != plain cw_tis at the clip")
         check(torch.equal(got, k3_H), "K4 != K1 at the clip")
-        log(f"   {n}x{h}x{w}x{nb}: hscan, vscan, plain cw_tis and K1 equal")
+        for bb in (1, 2, 4, 8):
+            check(torch.equal(cw_tis_hscan_cuda(idx, nb, bin_block=bb),
+                              cw_tis_hscan_plain(idx, nb)),
+                  f"K4 hscan != plain at the clip, bin block {bb}")
+        log(f"   {n}x{h}x{w}x{nb}: hscan (bin blocks auto, 1, 2, 4, 8), "
+            "vscan, plain cw_tis and K1 equal")
         del got, want
         rng = np.random.default_rng(6)
         carry = torch.as_tensor(rng.integers(0, 5000, (n, nb, w)),
@@ -3459,9 +3466,10 @@ def run(torch) -> list[dict]:
             ops.integral_histogram(xf, 16, method="cw_tis", backend="torch")),
             "K4 != plain on a float frame")
         log(f"   ragged {[c[0] for c in cases]}, carry_in, float frame: equal")
-        # Rows wider than one CTA, walked slab by slab, at every bin block;
-        # vscan from a carry; and a frame past 524,280 rows (row groups on
-        # grid x).
+        # Rows wider than one CTA, walked chunk by chunk, at every bin
+        # block; vscan from a carry; a ragged width from an unaligned base
+        # (the scalar path); and a frame past 524,280 rows (one warp a row
+        # and bin block on grid x).
         for kw in WIDE_WIDTHS:
             ids, cin = wide_in[kw]
             want = cw_tis_hscan_plain(ids, wnb)
@@ -3478,9 +3486,20 @@ def run(torch) -> list[dict]:
             vscan_err = max(vscan_err, float((got - want).abs().max()))
             check(torch.equal(got, wf_tis_cuda(ids, wnb, carry=cin)),
                   f"K4 != K1 at {wn}x{wh}x{kw}x{wnb} + carry")
-            slabs = -(-kw // column_split(kw)[0])
-            log(f"   {wn}x{wh}x{kw}x{wnb} + carry: hscan ({slabs} slabs) at "
-                "bin blocks auto, 1, 2, 4, 8, vscan and K1 equal")
+            log(f"   {wn}x{wh}x{kw}x{wnb} + carry: hscan "
+                f"({-(-kw // HSCAN_CHUNK)} chunks a row) at bin blocks "
+                "auto, 1, 2, 4, 8, vscan and K1 equal")
+        odd = torch.as_tensor(rng.integers(-1, 12, 3 * 17 * 4099 + 1),
+                              dtype=torch.int32, device=dev)[1:].view(
+                                  3, 17, 4099)
+        for bb in (1, 2, 4, 8):
+            check(torch.equal(cw_tis_hscan_cuda(odd, 11, bin_block=bb),
+                              cw_tis_hscan_plain(odd, 11)),
+                  f"K4 hscan != plain at 3x17x4099x11 from storage offset "
+                  f"1, bin block {bb}")
+        log("   3x17x4099x11 from storage offset 1 (the scalar path): hscan "
+            "equals its plain version at bin blocks 1, 2, 4, 8")
+        del odd
         tn, th, tw, tnb = TALL_SHAPE
         tall, _ = k1_inputs(torch, dev, tn, th, tw, tnb, False, seed=th)
         got = cw_tis_hscan_cuda(tall, tnb)
@@ -3488,9 +3507,10 @@ def run(torch) -> list[dict]:
               f"K4 hscan != plain at {tn}x{th}x{tw}x{tnb}")
         check(torch.equal(cw_tis_cuda(tall, tnb), wf_tis_cuda(tall, tnb)),
               f"K4 != K1 at {tn}x{th}x{tw}x{tnb}")
+        tbb, twarps = hscan_shape(tnb)
         log(f"   {tn}x{th}x{tw}x{tnb} ({th * tw / 1e6:.1f} Mpx, "
-            f"{-(-th // 8)} row groups on grid x): hscan equals its plain "
-            "version, K4 equals K1")
+            f"{hscan_ctas(tn, th, tnb, tbb, twarps)} CTAs of {twarps} warps "
+            "on grid x): hscan equals its plain version, K4 equals K1")
         del got, tall, hh_w, want
         torch.cuda.empty_cache()
 
@@ -5017,8 +5037,8 @@ def run(torch) -> list[dict]:
                 sweep.append(f"{label} bin block {bb} {ms:.4f}")
         log(f"   at {p_shape}, ms a call by bin block (the wrappers pick "
             f"K1 {launch_shape(pw, pnb, pn, h=ph).bin_block}, hscan "
-            f"{hscan_shape(pw, pnb)[0]}): " + "; ".join(sweep))
-        del p_ids, p_hh
+            f"{hscan_shape(pnb)[0]}): " + "; ".join(sweep))
+        del p_hh
         torch.cuda.empty_cache()
         k5_calls, k5_kernel_us = device_kernels(
             torch, lambda: ssd_scan_cuda(sx, sdt, sA, sB, sC, chunk=sq))
@@ -5299,7 +5319,9 @@ def run(torch) -> list[dict]:
                   ("cw_tis", "clip", KernelGeometry(n, h, w, nb),
                    lambda: cw_tis_cuda(idx, nb))]
         # Past 16,384 columns: K1's three launches (row counts, column
-        # counts with block totals, the scan), K2's slabs, K4's slabs.
+        # counts with block totals, the scan), K2's slabs, K4's chunks; K4
+        # at WIDE_SHAPE and TALL_SHAPE too (its hscan's grid folds frames,
+        # rows and bin blocks into warps on grid x).
         for kw in WIDE_WIDTHS:
             ids, cin = wide_in[kw]
             calls += [
@@ -5310,6 +5332,12 @@ def run(torch) -> list[dict]:
                  lambda ids=ids: fused_rows_cuda(ids, wnb, wide_rows)),
                 ("cw_tis", f"wide {kw}", KernelGeometry(*ids.shape, wnb),
                  lambda ids=ids: cw_tis_cuda(ids, wnb))]
+        tn, th, tw, tnb = TALL_SHAPE
+        t_ids, _ = k1_inputs(torch, dev, tn, th, tw, tnb, False, seed=th)
+        calls += [("cw_tis", "wide", KernelGeometry(*WIDE_SHAPE),
+                   lambda: cw_tis_cuda(p_ids, pnb)),
+                  ("cw_tis", "tall", KernelGeometry(*TALL_SHAPE),
+                   lambda: cw_tis_cuda(t_ids, tnb))]
         static_read, launch_checks = set(), {}
         for method, label, geom, fn in calls:
             specs = ops.KERNEL_SPECS[method](geom)
@@ -5348,6 +5376,8 @@ def run(torch) -> list[dict]:
                     f"CTAs x {spec.threads} threads, shared {ev['smem']} B "
                     f"({spec.smem_detail()}), {ev['regs']} registers a "
                     f"thread: equal to its spec")
+        del p_ids, t_ids
+        torch.cuda.empty_cache()
         check(len(static_read) == 1,
               f"the trace's shared memory reads static bytes inconsistently")
         log(f"   the trace's \"shared memory\" is "

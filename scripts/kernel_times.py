@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""Time K1 (WF-TiS), K2 (fused rows), K5 (SSD scan) and K5-bwd (its
-gradients) of any tree of the repo on one GPU.
+"""Time K1 (WF-TiS), K2 (fused rows), K4 (CW-TiS: hscan and vscan), K5
+(SSD scan) and K5-bwd (its gradients) of any tree of the repo on one GPU.
 
     python3 scripts/kernel_times.py [--src DIR] [--label NAME] [--json PATH]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so that another tree, such as a parent commit unpacked with ``git
 archive``, is timed at the shapes ``chip_smoke.py`` times its own at:
-K1 at ``chip_smoke.K1_SHAPES``, K2 at ``chip_smoke.K2_SHAPES``, K5 and
-K5-bwd at ``chip_smoke.K5_SHAPE`` (K5-bwd as a training step calls it:
-h0 = None, no gradient of h_last), with chip_smoke's inputs, timer
-(``time_ms``), byte bounds and profiler count (``device_kernels``: K2's
-and K5-bwd's CUDA launches and device µs a call).  Only the wrappers
-``wf_tis_cuda``, ``fused_rows_cuda``, ``ssd_scan_cuda`` and
-``ssd_scan_bwd_cuda`` and their plain versions are called, which every
-tree of the port since K5-bwd has.  Run parent, change, change, parent on
-one machine to compare two trees.  Each result is held against its plain
-version (K1 and K2 bit for bit, K5 within chip_smoke's K5_ATOL /
-K5_RTOL, K5-bwd's gradients within K5BWD_RTOL of their largest
-magnitude).  Prints one JSON line as its last, and writes it to
-``--json`` when given.
+K1 at ``chip_smoke.K1_SHAPES``, K2 at ``chip_smoke.K2_SHAPES``, K4's
+hscan and vscan at the clip (16 x 480 x 640 x 32) and
+``chip_smoke.WIDE_SHAPE``, K5 and K5-bwd at ``chip_smoke.K5_SHAPE``
+(K5-bwd as a training step calls it: h0 = None, no gradient of h_last),
+with chip_smoke's inputs, timer (``time_ms``), byte bounds and profiler
+count (``device_kernels``: K2's, K4's and K5-bwd's CUDA launches and
+device µs a call).  Only the wrappers ``wf_tis_cuda``,
+``fused_rows_cuda``, ``cw_tis_hscan_cuda``, ``cw_tis_vscan_cuda``,
+``ssd_scan_cuda`` and ``ssd_scan_bwd_cuda`` and their plain versions are
+called, which every tree of the port since K5-bwd has.  Run parent,
+change, change, parent on one machine to compare two trees.  Each result
+is held against its plain version (K1, K2 and K4 bit for bit, K5 within
+chip_smoke's K5_ATOL / K5_RTOL, K5-bwd's gradients within K5BWD_RTOL of
+their largest magnitude).  Prints one JSON line as its last, and writes
+it to ``--json`` when given.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     wf = importlib.import_module("repro_torch.kernels.wf_tis")
     fr = importlib.import_module("repro_torch.kernels.fused_rows")
+    cw = importlib.import_module("repro_torch.kernels.cw_tis")
     ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
     dev = torch.device("cuda")
     result = {"label": args.label, "src": args.src,
@@ -95,6 +98,37 @@ def main() -> int:
               + ", ".join(f"{k[:48]} {v:.2f}" for k, v in kernel_us.items()),
               flush=True)
         del ids
+        torch.cuda.empty_cache()
+
+    result["k4"] = {}
+    for label, (n, h, w, bins) in (("clip", (16, 480, 640, 32)),
+                                   ("wide", smoke.WIDE_SHAPE)):
+        ids, _ = smoke.k1_inputs(torch, dev, n, h, w, bins, False)
+        hh = cw.cw_tis_hscan_cuda(ids, bins)
+        H = cw.cw_tis_vscan_cuda(hh)
+        if not (torch.equal(hh, cw.cw_tis_hscan_plain(ids, bins))
+                and torch.equal(H, cw.cw_tis_vscan_plain(hh))):
+            print(f"kernel_times: K4 != plain at {label}", file=sys.stderr)
+            return 1
+        del H
+        torch.cuda.empty_cache()
+        for name, call, wk in (
+                ("hscan", lambda: cw.cw_tis_hscan_cuda(ids, bins),
+                 cw.cw_tis_hscan_work(n, h, w, bins)),
+                ("vscan", lambda: cw.cw_tis_vscan_cuda(hh),
+                 cw.cw_tis_vscan_work(n, bins, h, w))):
+            ms = smoke.time_ms(call)
+            per_call, kernel_us = smoke.device_kernels(torch, call)
+            bound = wk["bytes"] / smoke.HBM_BYTES_PER_S * 1e3
+            result["k4"][f"{name} {label}"] = {
+                "ms": ms, "bound_ms": bound,
+                "cuda_launches_per_call": per_call, "device_us": kernel_us}
+            print(f"K4 {name} {label} {n}x{h}x{w}x{bins}: {ms:.4f} ms | "
+                  f"bound {bound:.4f} ms ({bound / ms:.1%}) | profiled: "
+                  f"{per_call} CUDA launch(es) a call, device µs a call "
+                  + ", ".join(f"{k[:48]} {v:.2f}"
+                              for k, v in kernel_us.items()), flush=True)
+        del ids, hh
         torch.cuda.empty_cache()
 
     x, dt, A, Bm, Cm, _ = smoke.ssd_inputs(torch, dev, 9)

@@ -13,10 +13,11 @@ beside its wrapper.
 Four checks per launch:
 
   * **carry-order**: every value a step consumes was last written by its
-    declared producer, either the same CTA at an earlier iteration of its
-    loops (in their declared order) or a point of an earlier launch.  An
-    edge whose producer is another CTA of the same launch fails: CTAs have
-    no order.  The steps are enumerated under four CTA orders (grid order,
+    declared producer, either the same CTA (or warp, where a spec's warps
+    each walk a unit) at an earlier iteration of its loops (in their
+    declared order) or a point of an earlier launch.  An edge whose
+    producer is another CTA (warp) of the same launch fails: they have no
+    order.  The steps are enumerated under four CTA orders (grid order,
     reversed, and both interleaved step by step across CTAs), and every
     order must give the same verdict, so a cell two CTAs share shows as a
     race.
@@ -123,11 +124,13 @@ def _points(dims) -> list[dict]:
 
 
 def iter_steps(spec: KernelSpec, schedule: str = SCHEDULES[0]):
-    """Active steps (grid point and loop point in one dict) under a CTA
-    ``schedule``: each CTA's whole walk in turn (grid order or reversed),
-    or every CTA's first iteration, then every CTA's second, and so on
-    (interleaved).  Inside a CTA the loops run in their declared order."""
-    ctas = _points(spec.grid)
+    """Active steps (grid point, warp and loop point in one dict) under a
+    CTA ``schedule``: each walker's whole walk in turn (grid order or
+    reversed), or every walker's first iteration, then every walker's
+    second, and so on (interleaved).  A walker is a CTA, or one of its
+    warps where the spec declares ``warps``; inside it the loops run in
+    their declared order."""
+    ctas = _points(spec.grid + spec.warps)
     if schedule.endswith("reversed"):
         ctas.reverse()
     loops = _points(spec.loops)
@@ -163,11 +166,12 @@ def _edge_problem(spec, point, cell, producer, last, earlier) -> str | None:
                     f"{src!r}, which does not run earlier on the stream")
         want = (src, _key(prev, producer))
     else:
-        if any(producer[d] != point[d] for d in spec.dim_names):
-            cta = _fmt({d: producer[d] for d in spec.dim_names})
-            return (f"step {_fmt(point)} reads {cell!r} from CTA {cta} of "
-                    "the same launch: CTAs run in parallel and in no "
-                    "order, so no CTA may consume another's write")
+        if any(producer[d] != point[d] for d in spec.unit_names):
+            cta = _fmt({d: producer[d] for d in spec.unit_names})
+            what = "warp" if spec.warps else "CTA"
+            return (f"step {_fmt(point)} reads {cell!r} from {what} {cta} "
+                    f"of the same launch: {what}s run in parallel and in no "
+                    f"order, so no {what} may consume another's write")
         mine = tuple(point[d] for d in spec.loop_names)
         theirs = tuple(producer[d] for d in spec.loop_names)
         if theirs >= mine:
@@ -231,8 +235,8 @@ def check_carry_order(spec: KernelSpec,
         spec.name, name, "ok",
         f"{edges // len(SCHEDULES)} carry edge(s) proven over "
         f"{steps // len(SCHEDULES)} steps under {len(SCHEDULES)} CTA "
-        f"orders (serial loops {loops}; edges within a CTA or from an "
-        "earlier launch)")
+        f"orders (serial loops {loops}; edges within a "
+        f"{'warp' if spec.warps else 'CTA'} or from an earlier launch)")
 
 
 # ---------------------------------------------------------------------------

@@ -9,18 +9,29 @@
 // where WF-TiS makes two; the passes stay separate here on purpose, since
 // fusing them is WF-TiS (K1).
 //
-// hscan: one CTA per (frame, block of BB bins, group of kRowsPerCta rows),
-//   all three folded into grid x (no 65535 cap on the rows).  Thread t
-//   owns 4*Q contiguous columns of a slab of every row of its group; the
-//   one-hot is formed from the bin id in registers, and each slab is
-//   scanned across with the CTA-wide scan of wf_tis_scan.cuh (warp
-//   shuffles, then the per-warp totals): one __syncthreads per slab for
-//   all BB bins.  A row no wider than threads * 4 * Q (16,384 columns) is
-//   one slab; a wider one is walked slab by slab (SLABS), each bin's
-//   total carried from slab to slab, as fused_rows.cu's pass A does.  The
-//   TPU kernel's row carry between column tiles is that scan and that
-//   carry.  Rows are independent, so groups of rows go to different CTAs.
-//   hh is written once, 16 bytes a thread where rows are aligned.
+// hscan: one warp per unit, a (frame, row, block of BB bins), walking the
+//   row left to right in chunks of kChunk = 128 columns.  Lane l holds
+//   columns 128 k + 4 l .. 128 k + 4 l + 3 of chunk k: warp-striped, so
+//   each int4 load of ids and each bin's float4 store covers 512
+//   contiguous bytes.  Per chunk a lane counts its hits of each bin in an
+//   8-bit field (4 bins a 32-bit word: a chunk holds at most 128 hits of a
+//   bin), scans the words across the warp with five __shfl_up_sync steps
+//   and adds each bin's running row total, which stays in a register and
+//   grows by the chunk's total, broadcast from lane 31: the TPU kernel's
+//   row_carry between column tiles.  The next chunk's ids are loaded
+//   before this chunk's stores (a register double buffer), and latency is
+//   hidden by many small resident warps, not by a deep pipeline.  No
+//   shared memory, no __syncthreads and nothing carried between warps or
+//   CTAs, so any width and any height run the same code; a masked tail
+//   chunk takes a ragged width, a scalar instantiation a width that is not
+//   a multiple of 4 or an unaligned pointer.  A CTA holds `warps` units;
+//   grid x runs over (frame, row, bin block) with the bin blocks of a row
+//   adjacent, so the warps that read the same ids meet in L1 and L2.  A
+//   bin block of 8 holds 32 floats of output a lane: no spill, and the
+//   ids are read nb / 8 times.  The TPU kernel's row scan on its matrix
+//   unit (_row_scan_mxu, a triangular product) is not carried over: the
+//   work is two operations per 4 bytes written, far below what would make
+//   tensor cores pay.
 //
 // vscan: one thread per (frame, bin, 4 contiguous columns), walking the
 //   rows top to bottom with a running sum seeded from the carry-in (zeros
@@ -32,104 +43,113 @@
 // Every value is an integer below 2^24, so the fp32 adds are exact in any
 // order: H equals the plain version, and K1, bit for bit.
 
-#include "wf_tis_scan.cuh"
+#include <cstdint>
 
 namespace {
 
-using wf_tis_scan::cta_exclusive_scan;
-using wf_tis_scan::load_ids;
-
-constexpr int kRowsPerCta = 8;    // hscan rows per CTA
+constexpr int kChunk = 128;       // hscan columns a warp takes at a time
+constexpr int kMaxWarps = 16;     // hscan warps (units) a CTA at most
 constexpr int kVThreads = 256;    // vscan threads per CTA
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int BB, int Q, bool SLABS>
-__global__ void __launch_bounds__(1024)
+// A lane's 4 ids from column c of its row; -1 (no bin) past the row.
+template <bool VEC>
+__device__ __forceinline__ int4 load_ids(const int* __restrict__ row, int c,
+                                         int w) {
+  int4 v = make_int4(-1, -1, -1, -1);
+  if (VEC) {
+    if (c < w) v = __ldg(reinterpret_cast<const int4*>(row + c));
+  } else {
+    if (c < w) v.x = __ldg(row + c);
+    if (c + 1 < w) v.y = __ldg(row + c + 1);
+    if (c + 2 < w) v.z = __ldg(row + c + 2);
+    if (c + 3 < w) v.w = __ldg(row + c + 3);
+  }
+  return v;
+}
+
+// One hit of bin b0 + d, for d in [0, BB): 1 in the 8-bit field d % 4 of
+// word d / 4.  Any other d (another block's bin, or -1) adds nothing.
+template <int BB>
+__device__ __forceinline__ void add_hit(unsigned (&cnt)[(BB + 3) / 4],
+                                        int d) {
+  const unsigned one = (unsigned)d < (unsigned)BB ? 1u << (8 * (d & 3)) : 0u;
+  if constexpr (BB > 4) {
+    cnt[0] += d < 4 ? one : 0u;
+    cnt[1] += d < 4 ? 0u : one;
+  } else {
+    cnt[0] += one;
+  }
+}
+
+template <int BB, bool VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 hscan_kernel(const int* __restrict__ idx,    // (n, h, w) bin ids
              float* __restrict__ hh,         // (n, nb, h, w)
-             int n, int h, int w, int nb, int slab_cols) {
-  __shared__ float warp_tot[2 * BB * 32];
-  const int threads = blockDim.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+             int n, int h, int w, int nb) {
+  constexpr int kWords = (BB + 3) / 4;
+  const int lane = threadIdx.x & 31;
   const int blocks = (nb + BB - 1) / BB;
-  int x = blockIdx.x;                        // (group, bin block, frame)
-  const int f = x % n;
-  x /= n;
-  const int b0 = (x % blocks) * BB;
-  const int r_begin = (x / blocks) * kRowsPerCta;
-  const int r_end = min(h, r_begin + kRowsPerCta);
-  const bool vec_in =
-      (w & 3) == 0 && (reinterpret_cast<uintptr_t>(idx) & 15) == 0;
-  const bool vec_out =
-      (w & 3) == 0 && (reinterpret_cast<uintptr_t>(hh) & 15) == 0;
-  const int* frame = idx + (size_t)f * h * w;
+  long long u = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (u >= (long long)n * h * blocks) return;   // the last CTA's spare warps
+  const int b0 = (int)(u % blocks) * BB;        // unit: (frame, row, block)
+  u /= blocks;
+  const long long fr = u;                       // f * h + r
+  const long long plane = (long long)h * w;     // one bin's plane of hh
+  const int* row = idx + fr * w;
+  float* out = hh + ((fr / h) * nb + b0) * plane + (fr % h) * w;
 
-  int calls = 0;                             // scans so far: the wt parity
-  for (int r = r_begin; r < r_end; ++r) {
-    float before[BB];                        // SLABS: the slabs to the left
+  float run[BB];                                // each bin's row total so far
 #pragma unroll
-    for (int j = 0; j < BB; ++j) before[j] = 0.f;
-    for (int c_lo = 0; c_lo < w; c_lo += slab_cols) {
-      const int c_hi = min(w, c_lo + slab_cols);
-      const int c_first = c_lo + tid * 4 * Q;
-      int4 ids[Q];
-      load_ids<Q>(frame + (size_t)r * w, c_first, c_hi, vec_in, ids);
-
-      float tot[BB];
+  for (int j = 0; j < BB; ++j) run[j] = 0.f;
+  int4 ids = load_ids<VEC>(row, 4 * lane, w);
+  for (int c_lo = 0; c_lo < w; c_lo += kChunk) {
+    const int c = c_lo + 4 * lane;
+    const int4 next = load_ids<VEC>(row, c + kChunk, w);
+    const int d[4] = {ids.x - b0, ids.y - b0, ids.z - b0, ids.w - b0};
+    unsigned cnt[kWords], incl[kWords];
 #pragma unroll
-      for (int j = 0; j < BB; ++j) {
-        const int b = b0 + j;
-        float t = 0.f;
+    for (int k = 0; k < kWords; ++k) cnt[k] = 0u;
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          t += (ids[q].x == b ? 1.f : 0.f) + (ids[q].y == b ? 1.f : 0.f) +
-               (ids[q].z == b ? 1.f : 0.f) + (ids[q].w == b ? 1.f : 0.f);
-        }
-        tot[j] = t;
-      }
-      float excl[BB];
-      float* wt = warp_tot + (calls++ & 1) * BB * 32;
-      cta_exclusive_scan<BB>(tot, excl, wt, lane, warp);
-
+    for (int e = 0; e < 4; ++e) add_hit<BB>(cnt, d[e]);
 #pragma unroll
-      for (int j = 0; j < BB; ++j) {
-        const int b = b0 + j;
-        if (b >= nb) continue;
-        float run = excl[j];
-        if constexpr (SLABS) run += before[j];
-        float* orow = hh + (((size_t)f * nb + b) * h + r) * w;
+    for (int k = 0; k < kWords; ++k) incl[k] = cnt[k];
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int c = c_first + 4 * q;
-          float4 o;
-          o.x = run + (ids[q].x == b ? 1.f : 0.f);
-          o.y = o.x + (ids[q].y == b ? 1.f : 0.f);
-          o.z = o.y + (ids[q].z == b ? 1.f : 0.f);
-          o.w = o.z + (ids[q].w == b ? 1.f : 0.f);
-          run = o.w;
-          if (vec_out) {
-            if (c < c_hi) *reinterpret_cast<float4*>(orow + c) = o;
-          } else {
-            if (c < c_hi) orow[c] = o.x;
-            if (c + 1 < c_hi) orow[c + 1] = o.y;
-            if (c + 2 < c_hi) orow[c + 2] = o.z;
-            if (c + 3 < c_hi) orow[c + 3] = o.w;
-          }
-        }
-      }
-
-      // Each bin's total over this slab (the per-warp totals in `wt`,
-      // which no thread rewrites before the next scan's barrier), for the
-      // slabs to the right.
-      if constexpr (SLABS) {
-        if (c_hi < w) {
+    for (int s = 1; s < 32; s <<= 1) {
 #pragma unroll
-          for (int j = 0; j < BB; ++j)
-            for (int k = 0; k < (threads >> 5); ++k) before[j] += wt[j * 32 + k];
-        }
+      for (int k = 0; k < kWords; ++k) {
+        const unsigned t = __shfl_up_sync(kFull, incl[k], s);
+        if (lane >= s) incl[k] += t;
       }
     }
+    unsigned total[kWords];
+#pragma unroll
+    for (int k = 0; k < kWords; ++k)
+      total[k] = __shfl_sync(kFull, incl[k], 31);
+
+#pragma unroll
+    for (int j = 0; j < BB; ++j) {
+      const int k = j >> 2, sh = 8 * (j & 3);
+      if (b0 + j < nb) {
+        float4 o;
+        o.x = run[j] + (float)(((incl[k] - cnt[k]) >> sh) & 0xffu) +
+              (d[0] == j ? 1.f : 0.f);
+        o.y = o.x + (d[1] == j ? 1.f : 0.f);
+        o.z = o.y + (d[2] == j ? 1.f : 0.f);
+        o.w = o.z + (d[3] == j ? 1.f : 0.f);
+        float* orow = out + j * plane;
+        if (VEC) {
+          if (c < w) *reinterpret_cast<float4*>(orow + c) = o;
+        } else {
+          if (c < w) orow[c] = o.x;
+          if (c + 1 < w) orow[c + 1] = o.y;
+          if (c + 2 < w) orow[c + 2] = o.z;
+          if (c + 3 < w) orow[c + 3] = o.w;
+        }
+      }
+      run[j] += (float)((total[k] >> sh) & 0xffu);
+    }
+    ids = next;
   }
 }
 
@@ -181,38 +201,25 @@ vscan_kernel(const float* __restrict__ hh,     // (planes, h, w)
   }
 }
 
-template <int BB, int Q, bool SLABS>
-cudaError_t launch_hscan_bbq(const int* idx, float* hh, int n, int h, int w,
-                             int nb, int threads, int slab_cols,
-                             cudaStream_t stream) {
-  const long long grid = (long long)n * ((nb + BB - 1) / BB) *
-                         ((h + kRowsPerCta - 1) / kRowsPerCta);
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  hscan_kernel<BB, Q, SLABS><<<(unsigned)grid, threads, 0, stream>>>(
-      idx, hh, n, h, w, nb, slab_cols);
-  return cudaGetLastError();
-}
-
-// Slabs narrower than the row are wider than 8,192 columns, so 4 columns
-// a chunk.
-template <int BB>
-cudaError_t launch_hscan_bb(const int* idx, float* hh, int n, int h, int w,
-                            int nb, int threads, int q, int slab_cols,
-                            cudaStream_t stream) {
-  if (slab_cols < w)
-    return q == 4 ? launch_hscan_bbq<BB, 4, true>(idx, hh, n, h, w, nb,
-                                                  threads, slab_cols, stream)
-                  : cudaErrorInvalidValue;
-  switch (q) {
-    case 1: return launch_hscan_bbq<BB, 1, false>(idx, hh, n, h, w, nb, threads, w, stream);
-    case 2: return launch_hscan_bbq<BB, 2, false>(idx, hh, n, h, w, nb, threads, w, stream);
-    case 4: return launch_hscan_bbq<BB, 4, false>(idx, hh, n, h, w, nb, threads, w, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int BB>
+cudaError_t launch_hscan_bb(const int* idx, float* hh, int n, int h, int w,
+                            int nb, int warps, cudaStream_t stream) {
+  const long long units = (long long)n * h * ((nb + BB - 1) / BB);
+  const long long grid = (units + warps - 1) / warps;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool vec = (w & 3) == 0 && aligned16(idx) && aligned16(hh);
+  if (vec) {
+    hscan_kernel<BB, true><<<(unsigned)grid, warps * 32, 0, stream>>>(
+        idx, hh, n, h, w, nb);
+  } else {
+    hscan_kernel<BB, false><<<(unsigned)grid, warps * 32, 0, stream>>>(
+        idx, hh, n, h, w, nb);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -220,19 +227,15 @@ bool aligned16(const void* p) {
 // Plain C interface for ctypes; each returns the cudaError_t of its launch.
 extern "C" int cw_tis_hscan_launch(const int* idx, float* hh, int n, int h,
                                    int w, int num_bins, int bin_block,
-                                   int threads, int q, int slab_cols,
-                                   void* stream) {
+                                   int warps, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || num_bins <= 0) return (int)cudaSuccess;
-  if (threads <= 0 || threads > 1024 || (threads & 31) != 0 ||
-      slab_cols <= 0 || (long long)threads * 4 * q < slab_cols ||
-      slab_cols > w)
-    return (int)cudaErrorInvalidValue;
+  if (warps <= 0 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bin_block) {
-    case 1: return (int)launch_hscan_bb<1>(idx, hh, n, h, w, num_bins, threads, q, slab_cols, s);
-    case 2: return (int)launch_hscan_bb<2>(idx, hh, n, h, w, num_bins, threads, q, slab_cols, s);
-    case 4: return (int)launch_hscan_bb<4>(idx, hh, n, h, w, num_bins, threads, q, slab_cols, s);
-    case 8: return (int)launch_hscan_bb<8>(idx, hh, n, h, w, num_bins, threads, q, slab_cols, s);
+    case 1: return (int)launch_hscan_bb<1>(idx, hh, n, h, w, num_bins, warps, s);
+    case 2: return (int)launch_hscan_bb<2>(idx, hh, n, h, w, num_bins, warps, s);
+    case 4: return (int)launch_hscan_bb<4>(idx, hh, n, h, w, num_bins, warps, s);
+    case 8: return (int)launch_hscan_bb<8>(idx, hh, n, h, w, num_bins, warps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

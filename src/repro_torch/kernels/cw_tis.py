@@ -11,14 +11,15 @@ column reads it and writes H.  Four passes over H-sized data where WF-TiS
 kept apart on purpose.
 
 What bounds it on an H100: bytes.  ``hscan`` reads the int32 ids and
-writes ``hh`` (one CTA per frame, bin block and group of 8 rows; each row
-scanned across the width by the CTA with warp shuffles, a row wider than
-the CTA's 16,384 columns slab by slab with each bin's total carried
-between slabs); ``vscan`` reads
-``hh`` and writes H (one thread per frame, bin and 4 columns, walking the
-rows with its running sum seeded from the carry-in).  The TPU kernels'
-carries between grid steps (``row_carry``, ``col_carry``) become these
-in-CTA and in-thread loop carries, because CTAs run in no order.
+writes ``hh``: one warp per (frame, row, block of up to 8 bins) walks the
+row in warp-striped chunks of 128 columns (4 a lane), scanning each chunk
+across the warp with shuffles and keeping each bin's row total in a
+register from chunk to chunk; a CTA holds a few such warps and nothing
+else (no shared memory, no barrier).  ``vscan`` reads ``hh`` and writes H
+(one thread per frame, bin and 4 columns, walking the rows with its
+running sum seeded from the carry-in).  The TPU kernels' carries between
+grid steps (``row_carry``, ``col_carry``) become these in-warp and
+in-thread loop carries, because CTAs run in no order.
 
 ``cw_tis_hscan_cuda`` / ``cw_tis_vscan_cuda`` launch one kernel each for
 a CUDA tensor and run their plain versions only for a CPU tensor (a meta
@@ -43,15 +44,14 @@ from repro_torch.kernels.specs import (
     abstract_launch,
     cdiv,
 )
-from repro_torch.kernels.wf_tis import (
-    _GRID_X_LIMIT,
-    check_inputs,
-    column_split,
-)
+from repro_torch.kernels.wf_tis import _GRID_X_LIMIT, check_inputs
 
 _MAX_VSCAN_BLOCKS = 132 * 16     # grid-stride cap: 16 CTAs per H100 SM
-_ROWS_PER_CTA = 8                # hscan rows per CTA (csrc kRowsPerCta)
 _VSCAN_THREADS = 256             # vscan threads a CTA (csrc kVThreads)
+HSCAN_CHUNK = 128                # hscan columns a warp takes at a time
+                                 # (csrc kChunk): 4 a lane
+HSCAN_WARPS = 8                  # hscan warps (units) a CTA, at most 16
+                                 # (csrc kMaxWarps)
 
 
 def cw_tis_hscan_plain(idx: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -73,26 +73,30 @@ def cw_tis_plain(idx: torch.Tensor, num_bins: int,
     return scans.apply_carry(scans.cw_tis_ids(idx, num_bins), carry)
 
 
-def hscan_shape(w: int, num_bins: int,
-                bin_block: int | None = None) -> tuple[int, int, int]:
-    """(bin_block, threads, chunks) of the hscan launch: K1's column split
-    (``4 * chunks`` columns a thread over a slab of ``column_split(w)[0]``
-    columns, the whole row up to 16,384) and, unless given, the largest
-    bin block of 1, 2, 4, 8 that ``num_bins`` fills, at most 2 at 16
-    columns a thread: there ptxas spills 568 B a thread at a block of 8
-    and 116 B at 4, none at 2, and at 4 x 480 x 32,768 x 32 the hscan took
-    15.3650, 8.4532, 7.1760 and 7.2870 ms at blocks 8, 4, 2, 1 (chip_smoke
-    timing, H100 80GB HBM3 at 700 W).  Any width and any height: a wider
-    row is walked in slabs, and the row groups lie on grid x."""
-    _, threads, chunks = column_split(w)
+def hscan_shape(num_bins: int,
+                bin_block: int | None = None) -> tuple[int, int]:
+    """(bin_block, warps) of the hscan launch at any width and height:
+    unless given, the largest bin block of 1, 2, 4, 8 that ``num_bins``
+    fills (a lane holds 4 x bin_block floats of output, 32 at 8, and
+    ptxas spills none at any block), and ``HSCAN_WARPS`` warps a CTA, one
+    unit each.  Swept by ``scripts/hscan_variants.py`` (H100 80GB HBM3 at
+    700 W): at 4 x 480 x 32,768 x 32 blocks 8, 4, 2, 1 took 3.0863,
+    3.0686, 3.1068, 3.1098 ms and at 16 x 480 x 640 x 32 0.2358, 0.2333,
+    0.2335, 0.2311 ms, within 1.4% of each other, so the block that reads
+    the ids fewest times is kept; 4 and 16 warps a CTA read within 1.5% of
+    8."""
     if bin_block is None:
-        cap = 2 if chunks == 4 else 8
-        bin_block = next(bb for bb in (8, 4, 2, 1)
-                         if bb <= min(num_bins, cap))
+        bin_block = next(bb for bb in (8, 4, 2, 1) if bb <= num_bins)
     elif bin_block not in (1, 2, 4, 8):
         raise ValueError(f"bin_block must be one of (8, 4, 2, 1), "
                          f"got {bin_block}")
-    return bin_block, threads, chunks
+    return bin_block, HSCAN_WARPS
+
+
+def hscan_ctas(n: int, h: int, num_bins: int, bin_block: int,
+               warps: int) -> int:
+    """CTAs of the hscan launch: one warp a (frame, row, bin block)."""
+    return cdiv(n * h * cdiv(num_bins, bin_block), warps)
 
 
 def _lib():
@@ -101,7 +105,7 @@ def _lib():
     lib = _build.library("cw_tis.cu")
     h_fn, v_fn = lib.cw_tis_hscan_launch, lib.cw_tis_vscan_launch
     if h_fn.argtypes is None:
-        h_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 \
+        h_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         h_fn.restype = ctypes.c_int
         v_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
@@ -139,8 +143,8 @@ def cw_tis_hscan_cuda(idx: torch.Tensor, num_bins: int, *,
                      device=idx.device)
     if hh.numel() == 0:
         return hh
-    bb, threads, chunks = hscan_shape(w, num_bins, bin_block)
-    if n * -(-num_bins // bb) * -(-h // _ROWS_PER_CTA) > _GRID_X_LIMIT:
+    bb, warps = hscan_shape(num_bins, bin_block)
+    if hscan_ctas(n, h, num_bins, bb, warps) > _GRID_X_LIMIT:
         raise NotImplementedError(
             f"{n} frames of {h} rows at {num_bins} bins exceed the hscan "
             f"grid's {_GRID_X_LIMIT} CTAs")
@@ -150,8 +154,7 @@ def cw_tis_hscan_cuda(idx: torch.Tensor, num_bins: int, *,
     h_fn, _ = _lib()
     with torch.cuda.device(idx.device):
         err = h_fn(idx.data_ptr(), hh.data_ptr(), n, h, w, num_bins, bb,
-                   threads, chunks, column_split(w)[0],
-                   torch.cuda.current_stream().cuda_stream)
+                   warps, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"cw_tis hscan launch failed: CUDA error {err}")
     cw_tis_hscan_cuda.launches += 1
@@ -215,62 +218,65 @@ def cw_tis_cuda(idx: torch.Tensor, num_bins: int, *,
 
 def resolve_geometry(geom: KernelGeometry) -> KernelGeometry:
     """``geom`` with K4's launches filled in as ``cw_tis_cuda`` picks them
-    (``hscan_shape``, slabs of ``column_split``; vscan on at most
-    ``_MAX_VSCAN_BLOCKS`` CTAs of ``_VSCAN_THREADS``)."""
+    (``hscan_shape``: ``HSCAN_WARPS`` warps a CTA, chunks of
+    ``HSCAN_CHUNK`` columns; vscan on at most ``_MAX_VSCAN_BLOCKS`` CTAs
+    of ``_VSCAN_THREADS``)."""
     if geom.threads is not None:
         return geom
-    bb, threads, chunks = hscan_shape(geom.w, geom.num_bins, geom.bin_block)
+    bb, warps = hscan_shape(geom.num_bins, geom.bin_block)
     return dataclasses.replace(
-        geom, bin_block=bb, threads=threads, chunks=chunks,
-        strip_rows=_ROWS_PER_CTA, col_block=4, max_blocks=_MAX_VSCAN_BLOCKS,
-        stride_threads=_VSCAN_THREADS, strip_cols=column_split(geom.w)[0])
+        geom, bin_block=bb, threads=32 * warps, col_block=HSCAN_CHUNK,
+        max_blocks=_MAX_VSCAN_BLOCKS, stride_threads=_VSCAN_THREADS)
 
 
 def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
     """K4's two launches at ``geom`` (csrc/cw_tis.cu): ``hscan_kernel``,
-    grid x folding (frame, bin block, group of 8 rows), each CTA scanning
-    its rows across the width slab by slab, each bin's total carried from
-    one slab to the next within a row and nothing between rows; then
-    ``vscan_kernel``, a grid-stride loop over (plane, 4 columns) items,
-    each walking every row with its running sum and reading hscan's slabs
-    of the row (edges to the earlier launch)."""
+    grid x over CTAs of ``threads / 32`` warps, each warp one unit
+    (frame, row, bin block; the bin blocks of a row adjacent), walking its
+    row chunk by chunk with each bin's row total carried from one chunk
+    to the next in the warp's registers, nothing between warps and no
+    shared memory; then ``vscan_kernel``, a grid-stride loop over (plane,
+    4 columns) items, each walking every row with its running sum and
+    reading the hscan's chunks of the row (edges to the earlier
+    launch)."""
     g = resolve_geometry(geom)
     n, h, w, nb = g.n, g.h, g.w, g.num_bins
-    bb, R, sc = g.bin_block, g.strip_rows, g.strip_cols
-    nbb, S = cdiv(nb, bb), cdiv(w, sc)
+    bb, C, W = g.bin_block, g.col_block, g.threads // 32
+    nbb = cdiv(nb, bb)
+    units = n * h * nbb
 
-    def cta(x):
-        x, f = divmod(x, n)
-        group, blk = divmod(x, nbb)
-        return f, blk, group
-
-    def h_row(p):
-        return cta(p["x"])[2] * R + p["row"]
+    def unit(p):                    # (frame, bin block, row) of a warp
+        rest, blk = divmod(p["x"] * W + p["warp"], nbb)
+        f, r = divmod(rest, h)
+        return f, blk, r
 
     def h_reads(p):
-        if p["slab"] == 0:
+        if p["chunk"] == 0:
             return []
-        return [(("before", p["x"]),
-                 {"x": p["x"], "row": p["row"], "slab": p["slab"] - 1})]
+        return [(("run", p["x"], p["warp"]),
+                 {"x": p["x"], "warp": p["warp"], "chunk": p["chunk"] - 1})]
 
     def h_writes(p):
-        f, blk, _ = cta(p["x"])
-        return [("before", p["x"]), ("hh", f, blk, h_row(p), p["slab"])]
+        f, blk, r = unit(p)
+        return [("run", p["x"], p["warp"]), ("hh", f, blk, r, p["chunk"])]
+
+    def h_in(p):
+        f, _, r = unit(p)
+        return f, r, p["chunk"]
+
+    def h_out(p):
+        f, blk, r = unit(p)
+        return f, blk, r, p["chunk"]
 
     hscan = KernelSpec(
         name="cw_tis/hscan", kernel="hscan_kernel",
-        grid=(("x", n * nbb * cdiv(h, R)),),
-        loops=(("row", R), ("slab", S)), threads=g.threads, geometry=g,
-        smem_static=4 * 2 * bb * 32,            # warp_tot[2 * BB * 32]
-        active=lambda p: h_row(p) < h,
-        in_specs=(Operand(
-            "idx", (n, h, w), (1, 1, sc),
-            lambda p: (cta(p["x"])[0], h_row(p), p["slab"]),
-            (False, False, True)),),
-        out_specs=(Operand(
-            "hh", (n, nb, h, w), (1, bb, 1, sc),
-            lambda p: (cta(p["x"])[0], cta(p["x"])[1], h_row(p), p["slab"]),
-            (False, True, False, True)),),
+        grid=(("x", cdiv(units, W)),), warps=(("warp", W),),
+        loops=(("chunk", cdiv(w, C)),), threads=g.threads, geometry=g,
+        active=lambda p: p["x"] * W + p["warp"] < units,
+        in_specs=(Operand("idx", (n, h, w), (1, 1, C), h_in,
+                          (False, False, True)),),
+        out_specs=(Operand("hh", (n, nb, h, w), (1, bb, 1, C), h_out,
+                           (False, True, False, True)),),
         carry_reads=h_reads, carry_writes=h_writes)
 
     T, ncol = g.stride_threads, cdiv(w, 4)
@@ -291,10 +297,10 @@ def kernel_specs(geom: KernelGeometry) -> tuple[KernelSpec, ...]:
             f, bin_ = divmod(plane, nb)
             c0 = max(a, plane * ncol) - plane * ncol
             c1 = min(b, (plane + 1) * ncol) - plane * ncol
-            x = f + n * (bin_ // bb + nbb * (r // R))
-            reads += [(("hh", f, bin_ // bb, r, s), {
-                "pass": hscan.name, "x": x, "row": r % R, "slab": s})
-                for s in range(4 * c0 // sc, 4 * (c1 - 1) // sc + 1)]
+            x, warp = divmod((f * h + r) * nbb + bin_ // bb, W)
+            reads += [(("hh", f, bin_ // bb, r, k), {
+                "pass": hscan.name, "x": x, "warp": warp, "chunk": k})
+                for k in range(4 * c0 // C, 4 * (c1 - 1) // C + 1)]
         return reads
 
     vscan = KernelSpec(

@@ -7,6 +7,9 @@ CTAs of a launch run in parallel and in no order, so this model separates
 what runs in parallel from what runs in order:
 
   * ``grid``: the CUDA grid, dimensions x, y, z.  Unordered.
+  * ``warps``: where a CTA's warps each take a unit of their own with no
+    barrier between them (K4's hscan), the warps of one CTA.  Unordered,
+    like the grid; not part of the CUDA grid.
   * ``loops``: the serial loops inside one CTA, outer first: K1's row walk
     down its strip, K2's walk over column slabs and the rows of its chunk,
     the grid-stride loops of K3 and K4's vscan.
@@ -17,13 +20,14 @@ what runs in parallel from what runs in order:
     count pre-pass, then its strips; K2's pass A, then pass B; K4's hscan,
     then vscan.  A later launch may read what an earlier one wrote.
 
-A step is one CTA (a grid point) at one iteration of its loops.  Operands
-are in element units over the logical, unpadded shapes: nothing is padded
-to tiles.  A block is what one step touches; a dimension is ``guarded``
-when the kernel masks the ragged last block (``c < w`` and the like).  An
-index map returns the block a step touches, or ``None`` where the step
-does not touch the operand.  ``active`` is the kernel's own loop bound
-(``r < r_end``, ``t < total``): inactive steps do nothing.
+A step is one CTA (a grid point; with ``warps``, one warp of it) at one
+iteration of its loops.  Operands are in element units over the logical,
+unpadded shapes: nothing is padded to tiles.  A block is what one step
+touches; a dimension is ``guarded`` when the kernel masks the ragged last
+block (``c < w`` and the like).  An index map returns the block a step
+touches, or ``None`` where the step does not touch the operand.
+``active`` is the kernel's own loop bound (``r < r_end``, ``t < total``):
+inactive steps do nothing.
 
 Grid-stride kernels (K3, K4's vscan, K2's pass B) give each thread one
 work item at a time; their operands are declared over the flat item space
@@ -96,15 +100,16 @@ class KernelGeometry:
     ``launch_shape``, K2's ``chunk_shape``, K4's ``hscan_shape``):
 
       * ``bin_block``, ``threads``, ``chunks``: bins and threads a CTA,
-        4-column chunks a thread (K1, K4's hscan; K2's pass A takes
+        4-column chunks a thread (K1; K2's pass A and K4's hscan take
         ``bin_block`` and ``threads``).
-      * ``strip_rows``: rows one CTA walks (K1's strips, K4's hscan row
-        groups, K3's rows a work item, K2's longest chunk).
+      * ``strip_rows``: rows one CTA walks (K1's strips, K3's rows a work
+        item, K2's longest chunk).
       * ``rows``: K2's requested rows.
       * ``col_block``: columns of the launch's column blocks (K1's count
-        pre-pass, K2's slabs, 4 for the grid-stride kernels' items).
+        pre-pass, K2's slabs, K4's hscan chunks, 4 for the grid-stride
+        kernels' items).
       * ``strip_cols``: columns one CTA scans at a time (K1's column
-        strips, K4's hscan slabs; the width where one CTA spans it).
+        strips; the width where one CTA spans it).
       * ``max_blocks``, ``stride_threads``: CTAs and threads of a
         grid-stride launch (K3, K4's vscan).
     """
@@ -215,8 +220,9 @@ class KernelSpec:
 
     ``kernel`` is the CUDA function's name as a profiler trace shows it;
     ``grid`` its grid dimensions x, y, z as ``(name, size)`` pairs;
-    ``loops`` the serial loops of one CTA, outer first.  ``geometry`` is
-    the resolved geometry the spec was built at."""
+    ``warps`` a CTA's independent warps, if each walks a unit of its own;
+    ``loops`` the serial loops of one CTA (or warp), outer first.
+    ``geometry`` is the resolved geometry the spec was built at."""
 
     name: str
     kernel: str
@@ -226,6 +232,7 @@ class KernelSpec:
     in_specs: tuple[Operand, ...]
     out_specs: tuple[Operand, ...]
     geometry: KernelGeometry
+    warps: tuple[tuple[str, int], ...] = ()
     smem_static: int = 0
     smem_dynamic: int = 0
     smem_opt_in: bool = False
@@ -238,13 +245,20 @@ class KernelSpec:
         return tuple(name for name, _ in self.grid)
 
     @functools.cached_property
+    def unit_names(self) -> tuple[str, ...]:
+        """The indices of one walker, which runs in no order with the
+        others: grid dimensions, then warps."""
+        return self.dim_names + tuple(name for name, _ in self.warps)
+
+    @functools.cached_property
     def loop_names(self) -> tuple[str, ...]:
         return tuple(name for name, _ in self.loops)
 
     @functools.cached_property
     def step_names(self) -> tuple[str, ...]:
-        """The names of a step's indices: grid dimensions, then loops."""
-        return self.dim_names + self.loop_names
+        """The names of a step's indices: grid dimensions, warps, then
+        loops."""
+        return self.unit_names + self.loop_names
 
     @property
     def cuda_grid(self) -> tuple[int, int, int]:

@@ -106,8 +106,7 @@ def column_split(w: int) -> tuple[int, int, int]:
     frame of at most 16,384 columns is one strip; a wider one is cut into
     the fewest strips of at most 16,384, of near-equal width rounded up to
     whole 512-column blocks (the count pre-pass's, whose totals give a
-    strip's corner), the last ragged.  K4's hscan walks its rows in the
-    same slabs."""
+    strip's corner), the last ragged."""
     strips = cdiv(w, _MAX_COLS)
     if strips <= 1:
         cols = max(w, 1)

@@ -475,15 +475,14 @@ def test_k4_semantics_match_pallas_interpret_on_padded_ids():
 
 
 def test_k4_launch_shape_and_checks():
-    assert hscan_shape(640, 32) == (8, 160, 1)
-    assert hscan_shape(4099, 3) == (2, 544, 2)
-    assert hscan_shape(640, 32, bin_block=1)[0] == 1
+    # One warp a (frame, row, bin block), 8 warps a CTA, at any width.
+    assert hscan_shape(32) == (8, 8)
+    assert hscan_shape(3) == (2, 8)
+    assert hscan_shape(32, bin_block=1)[0] == 1
     with pytest.raises(ValueError, match="bin_block"):
-        hscan_shape(640, 32, bin_block=3)
-    # Any width: 20,000 columns in two slabs of 10,240, 640 threads of 16
-    # columns, where a bin block above 2 spills registers.
-    assert hscan_shape(20000, 8) == (2, 640, 4)
-    assert hscan_shape(20000, 8, bin_block=8)[0] == 8
+        hscan_shape(32, bin_block=3)
+    assert hscan_shape(8) == (8, 8)
+    assert hscan_shape(8, bin_block=2)[0] == 2
     with pytest.raises(ValueError, match="int32"):
         cw_tis_hscan_cuda(torch.zeros((1, 4, 4), dtype=torch.int64), 4)
     with pytest.raises(ValueError, match="float32"):

@@ -329,8 +329,8 @@ def test_k1_column_strips_equal_plain(cuda_device, w, bin_block, strip_rows,
 @pytest.mark.parametrize("w", [16385, 32768, 40003])
 def test_wide_k2_and_k4_equal_plain(cuda_device, w):
     """K2 walks 2048-column slabs past 16,384 columns at every bin block;
-    K4's hscan walks its rows in column strips' slabs, with each bin's
-    total carried; both with a carry, both equal K1."""
+    K4's hscan walks each row in 128-column chunks, with each bin's total
+    carried; both with a carry, both equal K1."""
     n, h, bins = 2, 40, 7
     rng = np.random.default_rng(19)
     idx = torch.as_tensor(rng.integers(-1, bins + 1, (n, h, w)),
@@ -350,12 +350,37 @@ def test_wide_k2_and_k4_equal_plain(cuda_device, w):
 
 
 def test_hscan_past_524280_rows_equals_plain(cuda_device):
-    """K4's hscan puts its row groups on grid x: 600,000 rows run."""
+    """K4's hscan puts one warp a (row, bin block) on grid x: 600,000 rows
+    of 16 columns run (4 lanes of each warp hold columns)."""
     rng = np.random.default_rng(20)
     idx = torch.as_tensor(rng.integers(-1, 17, (1, 600000, 16)),
                           dtype=torch.int32, device=cuda_device)
     assert torch.equal(cw_tis_hscan_cuda(idx, 16),
                        cw_tis_hscan_plain(idx, 16))
+
+
+@pytest.mark.parametrize("bin_block", [1, 2, 4, 8])
+@pytest.mark.parametrize("w", [1, 129, 132, 4096, 40003])
+def test_hscan_every_width_and_bin_block_equals_plain(cuda_device, w,
+                                                      bin_block):
+    """K4's hscan at every bin block (11 bins: a ragged last block) on one
+    lane's columns (1), a masked tail chunk (129, 132), whole chunks
+    (4096) and a wide ragged row (40,003); widths that are not a multiple
+    of 4 and a base at storage offset 1 take the scalar path.  Ids of -1
+    and 11 match no bin; a row of one bin fills each chunk's field with
+    128 hits."""
+    n, h, bins = 2, 9, 11
+    rng = np.random.default_rng(21)
+    flat = torch.as_tensor(rng.integers(-1, bins + 1, n * h * w + 1),
+                           dtype=torch.int32, device=cuda_device)
+    flat[:w + 1] = 3
+    for idx in (flat[:-1].view(n, h, w), flat[1:].view(n, h, w)):
+        assert idx.is_contiguous()
+        before = cw_tis_hscan_cuda.launches
+        got = cw_tis_hscan_cuda(idx, bins, bin_block=bin_block)
+        assert cw_tis_hscan_cuda.launches == before + 1
+        assert torch.equal(got, cw_tis_hscan_plain(idx, bins))
+    assert flat[1:].view(n, h, w).storage_offset() == 1
 
 
 def test_incremental_stream_launches_k3_not_k2(cuda_device):

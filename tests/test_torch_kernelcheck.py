@@ -166,7 +166,8 @@ def test_canonical_geometry_clamps_and_keeps_ragged_blocks():
 def test_canonical_geometry_keeps_two_column_strips():
     """A frame cut into column strips keeps two or three of them, two
     column blocks wide, the last ragged: the strip-to-strip edges stay in
-    the proof.  K4's hscan keeps its slabs likewise."""
+    the proof.  K4's hscan, which walks a whole row in 128-column chunks,
+    keeps three chunks, so its chunk-to-chunk carry stays in view."""
     g = wf_tis.resolve_geometry(GEOMS["wide-32k"])
     assert (g.strip_cols, g.strip_rows) == (16384, 480)
     c = g.canonical()
@@ -176,8 +177,70 @@ def test_canonical_geometry_keeps_two_column_strips():
     assert [s.name for s in ops.KERNEL_SPECS["wf_tis"](r)] == [
         "wf_tis/rows", "wf_tis/count", "wf_tis/scan"]
     k4 = cw_tis.resolve_geometry(GEOMS["wide-32k"]).canonical()
-    assert (k4.strip_cols, k4.w) == (8, 16)
-    assert dict(ops.KERNEL_SPECS["cw_tis"](k4)[0].loops)["slab"] == 2
+    assert (k4.strip_cols, k4.col_block, k4.w) == (None, 128, 384)
+    assert dict(ops.KERNEL_SPECS["cw_tis"](k4)[0].loops)["chunk"] == 3
+
+
+#: K4's hscan at the clip, chip_smoke's WIDE_SHAPE and TALL_SHAPE, and a
+#: ragged width (a masked tail chunk, ragged bin blocks).
+HSCAN_GEOMS = {
+    "clip": KernelGeometry(16, 480, 640, 32),
+    "wide": KernelGeometry(*CS.WIDE_SHAPE),
+    "tall": KernelGeometry(*CS.TALL_SHAPE),
+    "ragged": KernelGeometry(2, 3, 4099, 3),
+}
+
+
+@pytest.mark.parametrize("geom", HSCAN_GEOMS.values(), ids=HSCAN_GEOMS)
+def test_hscan_spec_proves_under_every_cta_order(geom):
+    """One warp a (frame, row, bin block), 8 warps a CTA, a row walked in
+    128-column chunks with its bins' totals carried from chunk to chunk:
+    the four checks hold under each of the four CTA orders, with every
+    chunk after the first reading its own warp's carry."""
+    hscan, vscan = ops.KERNEL_SPECS["cw_tis"](geom)
+    g = hscan.geometry
+    bb, warps = cw_tis.hscan_shape(geom.num_bins)
+    units = geom.n * geom.h * -(-geom.num_bins // bb)
+    assert (g.bin_block, g.threads, g.col_block) == (bb, 32 * warps, 128)
+    assert hscan.cuda_grid == (-(-units // warps), 1, 1)
+    assert hscan.warps == (("warp", warps),)
+    assert hscan.loops == (("chunk", -(-geom.w // 128)),)
+    assert hscan.smem_bytes() == 0
+    canon = ops.KERNEL_SPECS["cw_tis"](g.canonical())
+    for schedule in kc.SCHEDULES:
+        steps = list(kc.iter_steps(canon[0], schedule))
+        assert steps and all(canon[0].active(p) for p in steps)
+    verdict = kc.check_method("cw_tis", geom)
+    assert verdict.ok, verdict.render()
+    carry = verdict.checks[0]
+    chunks = dict(canon[0].loops)["chunk"]
+    cu = g.canonical()
+    c_units = cu.n * cu.h * -(-cu.num_bins // bb)
+    assert f"{c_units * (chunks - 1)} carry edge(s)" in carry.detail
+    assert "4 CTA orders" in carry.detail and "within a warp" in carry.detail
+
+
+def test_hscan_chunk_reading_another_warps_carry_fails_carry_order():
+    """A warp whose chunk takes its row total from the warp beside it (two
+    bin blocks of a row sharing one running total) fails: warps of a CTA,
+    like CTAs, run in no order."""
+    hscan, vscan = _canon("cw_tis")
+    W = dict(hscan.warps)["warp"]
+
+    def reads(p):
+        if p["chunk"] > 0 and p["warp"] > 0:
+            return [(("run", p["x"], p["warp"] - 1),
+                     {"x": p["x"], "warp": p["warp"] - 1,
+                      "chunk": p["chunk"] - 1})]
+        return hscan.carry_reads(p)
+
+    assert W > 1
+    bad = dataclasses.replace(hscan, carry_reads=reads)
+    check = kc.check_carry_order(bad)
+    assert check.status == "fail"
+    assert "warps run in parallel and in no order" in check.detail
+    assert kc.check_carry_order(hscan).ok
+    assert kc.check_carry_order(vscan, (hscan,)).ok
 
 
 def test_every_cta_order_gives_the_same_steps():
@@ -408,11 +471,12 @@ def test_spec_matches_the_wrappers_launch(case, recorder):
         cw_tis.cw_tis_vscan_cuda(_on_card((n, nb, h, w)))
         (h_args,) = recorder["cw_tis/hscan"]
         (v_args,) = recorder["cw_tis/vscan"]
-        assert h_args[2:10] == (n, h, w, nb, r.bin_block, r.threads, r.chunks,
-                                r.strip_cols)
+        warps = r.threads // 32
+        assert h_args[2:8] == (n, h, w, nb, r.bin_block, warps)
         assert v_args[3:7] == (n * nb, h, w, r.max_blocks)
-        assert specs[0].cuda_grid == (n * -(-nb // r.bin_block) * -(-h // 8),
-                                      1, 1)
+        assert specs[0].cuda_grid == (
+            -(-(n * h * -(-nb // r.bin_block)) // warps), 1, 1)
+        assert specs[0].warps == (("warp", warps),)
 
 
 def test_bin_block_none_resolves_by_the_busy_rule(recorder):

@@ -1,7 +1,7 @@
 """Frames wider than one CTA's 16,384 columns, held against the reference.
 
 K1 cuts such a frame into column strips with a row-count pre-pass, K4's
-hscan walks its rows slab by slab, and K2's pass A takes any width in
+hscan walks each row in 128-column chunks, and K2's pass A takes any width in
 2048-column slabs; none of them runs here, so these tests hold
 
   * the port's plain versions (what a CPU tensor runs) bit-equal to the
@@ -202,7 +202,8 @@ def test_column_strip_decomposition_equals_reference(
                                1 << 24])
 def test_every_launch_choice_takes_any_width(w):
     """Column strips of at most 16,384 columns, whole 512-column blocks
-    but the last; K2 and K4's hscan take the width as it is."""
+    but the last; K2 and K4's hscan take the width as it is (the hscan's
+    launch does not depend on it)."""
     cols, threads, chunks = column_split(w)
     strips = -(-w // cols)
     assert cols <= 16384 and threads * 4 * chunks >= cols and threads <= 1024
@@ -211,7 +212,7 @@ def test_every_launch_choice_takes_any_width(w):
         assert cols % 512 == 0 and chunks == 4
     shape = launch_shape(w, 32, 4, h=480)
     assert shape.strip_cols == cols and shape.col_strips(w) == strips
-    assert hscan_shape(w, 32)[1:] == (threads, chunks)
+    assert hscan_shape(32) == (8, 8)
     assert chunk_shape(w, 32, 4, 2, 480).threads == 512
 
 
