@@ -553,6 +553,12 @@ def _plan_checks(plan, deep: bool) -> tuple[tuple[PlanCheck, ...],
     return head, tail
 
 
+def plans_checked() -> int:
+    """How many plans' checks were worked out, not taken from the cache,
+    so far: the engine's trace tells a computed gate from a cached one."""
+    return _plan_checks.cache_info().misses
+
+
 def clear_caches() -> None:
     """Forget every cached verdict, meta evaluation and kernel proof (a
     first, uncached call; a test that patches ``ops.KERNEL_SPECS``)."""

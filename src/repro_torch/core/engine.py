@@ -34,6 +34,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core import autotune
 from repro_torch.core import delta as delta_mod
 from repro_torch.core.bands import (
@@ -703,7 +704,13 @@ class HistogramEngine:
         return verdict
 
     def _validate_or_raise(self, p: ExecutionPlan, queries=()) -> None:
-        verdict = self.validate(p, queries, deep=True)
+        from repro_torch.analysis import plancheck
+
+        checked = plancheck.plans_checked() if trace.enabled() else None
+        with trace.leaf("repro_torch.gate"):
+            verdict = self.validate(p, queries, deep=True)
+        if checked is not None:
+            trace.count(gate_computed=int(plancheck.plans_checked() > checked))
         if not verdict.ok:
             raise PlanValidationError(
                 "plan rejected by static validation:\n" + verdict.render())
@@ -890,42 +897,58 @@ class HistogramEngine:
         'fused'
         >>> [float(v) for v in out.results[0].ravel()]
         [16.0, 16.0, 16.0, 16.0]
+
+        Under ``torch.profiler`` each step is a span of
+        ``repro_torch.trace`` (``repro_torch.run`` over ``plan``, ``gate``,
+        ``compute`` and one ``query`` a query), with the request's counters
+        on the root.
         """
-        queries = list(queries)
-        spec = self.spec_for(np.shape(frames),
-                             getattr(frames, "dtype", "uint8"))
-        rows = _declared_rows(queries, spec.height, spec.width)
-        if rows is not None:
-            spec = dataclasses.replace(spec, query_rows=rows)
+        with trace.request():
+            return self._run(frames, list(queries), prev)
 
-        prev_source = report = None
-        if prev is not None:
-            prev_frame, prev_source = prev
-            if isinstance(prev_source, EngineResult):
-                prev_source = prev_source.source
-            report = self._delta_report(frames, prev_frame, prev_source,
-                                        spec)
-            if report is not None:
-                spec = dataclasses.replace(
-                    spec, dirty_fraction=report.dirty_fraction)
+    def _run(self, frames, queries: list, prev) -> EngineResult:
+        with trace.span("repro_torch.plan"):
+            spec = self.spec_for(np.shape(frames),
+                                 getattr(frames, "dtype", "uint8"))
+            rows = _declared_rows(queries, spec.height, spec.width)
+            if rows is not None:
+                spec = dataclasses.replace(spec, query_rows=rows)
 
-        p = plan(spec)
-        if p.incremental and not self._updatable(prev_source, p):
-            # The cached representation cannot take the update (policy
-            # mismatch, single-shot stream, ...): re-plan for a full
-            # recompute rather than fail.
-            spec = dataclasses.replace(spec, dirty_fraction=None)
+            prev_source = report = None
+            if prev is not None:
+                prev_frame, prev_source = prev
+                if isinstance(prev_source, EngineResult):
+                    prev_source = prev_source.source
+                report = self._delta_report(frames, prev_frame, prev_source,
+                                            spec)
+                if report is not None:
+                    spec = dataclasses.replace(
+                        spec, dirty_fraction=report.dirty_fraction)
+
             p = plan(spec)
+            if p.incremental and not self._updatable(prev_source, p):
+                # The cached representation cannot take the update (policy
+                # mismatch, single-shot stream, ...): re-plan for a full
+                # recompute rather than fail.
+                spec = dataclasses.replace(spec, dirty_fraction=None)
+                p = plan(spec)
+        trace.count(representation=p.representation,
+                    corner_rows=0 if rows is None else len(rows))
         self.last_plan = p
         self._validate_or_raise(p, queries)
-        if p.incremental:
-            source = self._update(prev_source, frames, report, p)
-        else:
-            source = self.compute(frames, p)
-        target = source
-        if len(queries) > 1 and isinstance(source, BandedH):
-            target = prefetch_rows(source, queries) or source
-        results = [q.apply(target) for q in queries]
+        with trace.span("repro_torch.compute"):
+            if p.incremental:
+                source = self._update(prev_source, frames, report, p)
+            else:
+                source = self.compute(frames, p)
+            target = source
+            if len(queries) > 1 and isinstance(source, BandedH):
+                # The one rows() pass every query then reads.
+                target = prefetch_rows(source, queries) or source
+        results = []
+        for q in queries:
+            with trace.span("repro_torch.query", kind=type(q).__name__):
+                results.append(q.apply(target))
         return EngineResult(plan=p, source=source, results=results)
 
     # -- streaming ----------------------------------------------------------

@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import scans
 from repro_torch.core.binning import bin_indices
 from repro_torch.device import as_tensor
@@ -132,7 +133,8 @@ def integral_histogram(
     row of everything above the slice.  ``memory_budget_bytes`` caps the
     H of one launch: the planner bands the frame when its H breaks it.
     """
-    x = as_tensor(image, device)
+    with trace.span("repro_torch.stage"):
+        x = as_tensor(image, device)
     if x.ndim not in (2, 3):
         raise ValueError(f"expected (h, w) or (n, h, w), got {tuple(x.shape)}")
     backend = resolve_backend(backend, method, x.device)
@@ -157,21 +159,26 @@ def integral_histogram(
                 value_range=value_range, device=x.device)
 
     if backend == "torch":
-        if method == "wf_tis":
-            return scans.wf_tis(x, num_bins, value_range, tile=tile,
-                                carry_in=carry)
-        kw = {} if method in ("cw_b", "cw_sts") else {"tile": tile}
-        H = scans.METHODS[method](x, num_bins, value_range, **kw)
-        return scans.apply_carry(H, carry)
+        # The plain scans bin inside: one span for both.
+        with trace.span("repro_torch.scan", kernel="torch"):
+            if method == "wf_tis":
+                return scans.wf_tis(x, num_bins, value_range, tile=tile,
+                                    carry_in=carry)
+            kw = {} if method in ("cw_b", "cw_sts") else {"tile": tile}
+            H = scans.METHODS[method](x, num_bins, value_range, **kw)
+            return scans.apply_carry(H, carry)
 
     squeeze = x.ndim == 2
-    idx = bin_indices(x, num_bins, value_range).contiguous()
+    with trace.span("repro_torch.bin"):
+        idx = bin_indices(x, num_bins, value_range).contiguous()
     if squeeze:
         idx = idx[None]
         carry = None if carry is None else carry[None]
-    kernel = cw_tis_cuda if method == "cw_tis" else wf_tis_cuda
-    out = kernel(idx, num_bins, bin_block=bin_block,
-                 carry=None if carry is None else carry.contiguous())
+    kernel, name = ((cw_tis_cuda, "K4") if method == "cw_tis"
+                    else (wf_tis_cuda, "K1"))
+    with trace.span("repro_torch.scan", kernel=name):
+        out = kernel(idx, num_bins, bin_block=bin_block,
+                     carry=None if carry is None else carry.contiguous())
     return out[0] if squeeze else out
 
 
@@ -206,7 +213,8 @@ def fused_corner_rows(
     Returns (..., num_bins, K, w) fp32, equal bit for bit to dense H at
     those rows.
     """
-    x = as_tensor(image, device)
+    with trace.span("repro_torch.stage"):
+        x = as_tensor(image, device)
     if x.ndim not in (2, 3):
         raise ValueError(f"expected (h, w) or (n, h, w), got {tuple(x.shape)}")
     squeeze = x.ndim == 2
@@ -230,10 +238,12 @@ def fused_corner_rows(
     frames = frames[:, :h_cut]
 
     if backend == "cuda" and method == "wf_tis":
-        idx = bin_indices(frames, num_bins, value_range).contiguous()
-        R = fused_rows_cuda(
-            idx, num_bins, rows, bin_block=bin_block,
-            carry=None if carry is None else carry.contiguous())
+        with trace.span("repro_torch.bin"):
+            idx = bin_indices(frames, num_bins, value_range).contiguous()
+        with trace.span("repro_torch.scan", kernel="K2"):
+            R = fused_rows_cuda(
+                idx, num_bins, rows, bin_block=bin_block,
+                carry=None if carry is None else carry.contiguous())
     else:
         # Stream tile-high bands through the scan (K4 for cw_tis on the
         # card), carry threaded between them; keep only the requested rows

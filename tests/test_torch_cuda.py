@@ -424,6 +424,39 @@ def test_cw_tis_engine_launches_k4_not_k1(cuda_device):
     assert torch.equal(got.source.dense(), want.source.dense())
 
 
+def test_traced_requests_count_their_launches(cuda_device):
+    """Under the profiler each request's root counts its kernels'
+    launches, and its scan span sits in the same trace as the kernel."""
+    from repro_torch import trace
+
+    frames = np.random.default_rng(16).integers(0, 256, (2, 64, 80),
+                                                np.uint8)
+    rect = [RegionQuery(np.array([[3, 4, 40, 60]]))]
+    trace.clear()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            HistogramEngine(num_bins=8).run(frames)
+            HistogramEngine(num_bins=8).run(frames, rect)
+            HistogramEngine(num_bins=8, method="cw_tis").run(frames)
+            torch.cuda.synchronize()
+        recs = trace.records()
+    finally:
+        trace.clear()
+    roots = [r for r in recs if r.parent < 0]
+    zero = dict.fromkeys(trace.LAUNCH_COUNTERS, 0)
+    assert [r.attrs["launches"] for r in roots] == [
+        dict(zero, K1=1), dict(zero, K2=1),
+        dict(zero, K4_hscan=1, K4_vscan=1)]
+    assert [r.attrs["kernel"] for r in recs
+            if r.name == "repro_torch.scan"] == ["K1", "K2", "K4"]
+    assert [r.name for r in recs if r.parent == 3].count(
+        "repro_torch.bin") == 1
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert {"repro_torch.run", "repro_torch.bin", "repro_torch.scan"} <= names
+
+
 # K5 against its plain version: 3xTF32 tensor-core products (about fp32)
 # in another order and 64-step chunks inside the kernel against the plain
 # chunk loop (cuBLAS fp32, TF32 off).
