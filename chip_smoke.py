@@ -31,6 +31,15 @@ non-zero before the result line is printed:
   k3      the delta_apply kernel against its plain version (torch.equal) at
           the clip's H with a random integer delta, on ragged shapes, and
           from a row band of one H into a row band of another
+  map     the dense likelihood map's kernel (kernels/window_map.py, no TPU
+          counterpart) against its plain version (torch.equal): the
+          vga32-likemap cell's request, 32 frames of 480x640 at 32 bins, a
+          stride-1 24x24 map against a 24x24 patch of frame 0, with one
+          target and with a target a frame; one 480x640 frame at 32 bins,
+          a stride-2 24x24 map (the walk kernel, as the video and service
+          paths call it); ragged windows, strides and bin counts
+          (MAP_CASES) on 3x97x132 frames (the rows kernel at stride 1) and
+          3x97x131 (the walk kernel)
   k4      the CW-TiS kernels (hscan, then vscan) against the plain cw_tis
           and against K1 (torch.equal): the clip (the hscan at every bin
           block), 4x1080x1920x64, K1's ragged shapes, a float frame and a
@@ -73,8 +82,9 @@ non-zero before the result line is printed:
           engine.run(frame, [LikelihoodQuery], prev=...): from frame 1 the
           plan is incremental, K1 launches once per dirty run, K3 once when
           clean rows lie below (never when the block touches the bottom),
-          K2 never; H equals a fresh K1 launch, maps equal backend="torch";
-          a frame with half its rows rewritten falls back (K3 never)
+          K2 never, the map kernel once a frame; H equals a fresh K1
+          launch, the map equals the plain map of that H (torch.equal); a
+          frame with half its rows rewritten falls back (K3 never)
   cw_tis  HistogramEngine(method="cw_tis") on the dense request (hscan and
           vscan once each, K1 never) and on the fused one (4 tile-high
           bands through K4, K2 never); answers equal the WF-TiS engine's
@@ -364,6 +374,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32X3_OPS_PER_S = 495e12 / 3
 MAP_RTOL, MAP_ATOL = 1e-6, 1e-7
+#: The map kernel's ragged cases: (window, stride, bins) on 3x97xW frames,
+#: W = 132 (whole 16-byte chunks: the rows kernel at stride 1 and up to 32
+#: bins) and 131 (the walk kernel).
+MAP_CASES = (((23, 17), 2, 128), ((1, 1), 1, 16), ((24, 24), 16, 32),
+             ((6, 9), 3, 8), ((24, 24), 1, 32), ((7, 5), 1, 8))
 # K5 against its plain version (TF32 off): the kernel's 3xTF32 products
 # keep about fp32 accuracy, the sums run in another order, and the kernel
 # takes 64-step chunks where the plain loop takes 256;
@@ -2523,13 +2538,17 @@ def examples_phase(torch, counted, only) -> None:
     quick, video = load("quickstart_torch"), load("video_analytics_torch")
     card = card_line()
     k123 = ("wf_tis", "fused_rows", "delta_apply")
-    for path, mod, argv in (("example_quickstart", quick, []),
-                            ("example_video", video, [])):
+    # dense maps: quickstart's two-window search, the video's batched map
+    for path, mod, argv, maps in (("example_quickstart", quick, [], 2),
+                                  ("example_video", video, [], 1)):
         res, secs, counts = counted(path, lambda: mod.main(argv))
         log(f"   {path} at its defaults on the card: {secs:.2f} s, K1-K3 "
-            f"launches {({k: counts[k] for k in k123})} | card {card}")
+            f"launches {({k: counts[k] for k in k123})}, map kernel "
+            f"{counts['window_map']} | card {card}")
         check(counts["wf_tis"] > 0, f"{path} launched no K1: {counts}")
-        check(not any(counts[k] for k in counts if k not in k123),
+        check(counts["window_map"] == maps
+              and not any(counts[k] for k in counts
+                          if k not in k123 + ("window_map",)),
               f"{path} launched a kernel off its path: {counts}")
         if mod is video:
             log(f"   example_video: {res['pipeline_s']:.3f} s for the "
@@ -3115,6 +3134,10 @@ def run(torch) -> list[dict]:
         ssd_scan_plain, ssd_scan_work,
     )
     from repro_torch.kernels import wf_tis as wf_tis_mod
+    from repro_torch.kernels import window_map as window_map_mod
+    from repro_torch.kernels.window_map import (
+        window_map_cuda, window_map_plain, window_map_work,
+    )
     from repro_torch.kernels.wf_tis import (
         launch as wf_tis_launch, launch_shape, strip_rows_for,
         wf_tis_cuda, wf_tis_plain, wf_tis_work,
@@ -3125,7 +3148,8 @@ def run(torch) -> list[dict]:
                 "delta_apply": delta_apply_cuda,
                 "cw_tis_hscan": cw_tis_hscan_cuda,
                 "cw_tis_vscan": cw_tis_vscan_cuda,
-                "ssd_scan": ssd_scan_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda}
+                "ssd_scan": ssd_scan_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda,
+                "window_map": window_map_cuda}
     paths: dict[str, dict[str, int]] = {}      # path -> kernel -> launches
 
     def read_counts():
@@ -3411,6 +3435,59 @@ def run(torch) -> list[dict]:
         log("   ragged (1,1,1,1) (2,3,17,131) (1,5,9,4099) (3,32,40,641), "
             "row band into a row band: equal")
         del dst, res
+
+    with phase("map: the likelihood-map kernel vs its plain version"):
+        map_n, map_window = 32, (24, 24)
+        map_H = ops.integral_histogram(
+            torch.as_tensor(video_frames(h, w, map_n, seed=1), device=dev),
+            nb)
+        # The cell's target: a 24x24 patch of frame 0, on the host.
+        map_t = rq.region_histogram(map_H[0], [[123, 301, 146, 324]]
+                                    )[0].cpu().numpy()
+        map_t_dev = torch.as_tensor(map_t, device=dev)
+        got = window_map_cuda(map_H, map_t, map_window, 1)
+        want = window_map_plain(map_H, map_t_dev, map_window, 1)
+        check(torch.equal(got, want),
+              f"the map kernel != plain at {map_n}x{h}x{w}x{nb}")
+        map_err = float((got - want).abs().max())
+        per_frame = map_H[:, :, 300, 400].cpu().numpy()
+        check(torch.equal(window_map_cuda(map_H, per_frame, map_window, 1),
+                          window_map_plain(map_H, torch.as_tensor(
+                              per_frame, device=dev), map_window, 1)),
+              "the map kernel != plain with a target a frame")
+        log(f"   {map_n}x{nb}x{h}x{w} H, stride-1 24x24 map "
+            f"{tuple(got.shape)}, one target and a target a frame: equal "
+            f"(map max {float(got.max()):.4f})")
+        del got, want
+        # The video and service paths' call: one frame, a stride-2 map.
+        map_H1 = map_H[:1]
+        check(not window_map_mod.launch_shape(
+            window_map_mod.map_shape(h, w, map_window, 2)[0], map_window, 2,
+            nb, w).rows, "a stride-2 map does not take the walk kernel")
+        got = window_map_cuda(map_H1, map_t, map_window, 2)
+        check(torch.equal(got, window_map_plain(map_H1, map_t_dev, map_window,
+                                                2)),
+              f"the map kernel != plain at 1x{nb}x{h}x{w}, stride 2")
+        log(f"   1x{nb}x{h}x{w} H, stride-2 24x24 map {tuple(got.shape)} "
+            "(the walk kernel): equal")
+        del got
+        for mw in (132, 131):
+            frames3 = torch.as_tensor(np.random.default_rng(21).integers(
+                0, 256, (3, 97, mw), np.uint8), device=dev)
+            for window, stride, bins in MAP_CASES:
+                Hr = ops.integral_histogram(frames3, bins)
+                tr = np.random.default_rng(bins).integers(
+                    0, 300, (bins,)).astype(np.float32)
+                check(torch.equal(window_map_cuda(Hr, tr, window, stride),
+                                  window_map_plain(Hr, torch.as_tensor(
+                                      tr, device=dev), window, stride)),
+                      f"the map kernel != plain at 3x97x{mw}, {window} "
+                      f"stride {stride}, {bins} bins")
+        log("   3x97x132 and 3x97x131 at " + ", ".join(
+            f"{wnd[0]}x{wnd[1]} stride {st} {b} bins"
+            for wnd, st, b in MAP_CASES) + ": equal")
+        del frames3, Hr
+        torch.cuda.empty_cache()
 
     with phase("k4: cw_tis kernels vs the plain cw_tis and K1"):
         hh = cw_tis_hscan_cuda(idx, nb)
@@ -3839,23 +3916,24 @@ def run(torch) -> list[dict]:
                                minlength=vnb).astype(np.float32)
         v_queries = [eng_mod.LikelihoodQuery(v_target, (24, 24), stride=2)]
         v_engine = eng_mod.HistogramEngine(num_bins=vnb)
-        v_plain = eng_mod.HistogramEngine(num_bins=vnb, backend="torch")
+        v_target_dev = torch.as_tensor(v_target, device=dev)
 
         def check_frame(out, frame, what):
             check(torch.equal(out.source.dense(),
                               v_engine.compute_dense(frame)),
                   f"{what}: H != a fresh K1 launch")
-            want = v_plain.run(frame, v_queries).results[0]
-            check(torch.allclose(out.results[0], want, rtol=MAP_RTOL,
-                                 atol=MAP_ATOL),
-                  f"{what}: map != backend='torch'")
+            want = window_map_plain(out.source.dense(), v_target_dev,
+                                    (24, 24), 2)
+            check(torch.equal(out.results[0], want),
+                  f"{what}: map != the plain map of its H")
 
         out, _, counts = counted("video_first",
                                  lambda: v_engine.run(stream[0], v_queries))
         check(out.plan.representation == "dense"
               and len(out.plan.spec.query_rows) == 240,
               f"frame 0 planned {out.plan.representation}")
-        check(counts == only(wf_tis=1), f"frame 0 launched {counts}")
+        check(counts == only(wf_tis=1, window_map=1),
+              f"frame 0 launched {counts}")
         check_frame(out, stream[0], "frame 0")
 
         def step(path, prev_frame, prev_out, frame):
@@ -3869,7 +3947,7 @@ def run(torch) -> list[dict]:
             new, dt, counts = counted(path, lambda: v_engine.run(
                 frame, v_queries, prev=(prev_frame, prev_out)))
             return new, dt, counts, only(wf_tis=len(dirty),
-                                         delta_apply=below)
+                                         delta_apply=below, window_map=1)
 
         k3_frames = 0
         for t in range(1, len(stream)):
@@ -3887,14 +3965,15 @@ def run(torch) -> list[dict]:
         bottom[vh - block:] = rng.integers(0, 256, (block, vw), np.uint8)
         out, _, counts, want = step("video_bottom", stream[-1], out, bottom)
         check(out.plan.incremental and counts == want
-              and counts == only(wf_tis=1),
+              and counts == only(wf_tis=1, window_map=1),
               f"bottom block: incremental={out.plan.incremental}, {counts}")
         check_frame(out, bottom, "bottom block")
         half = bottom.copy()
         half[: vh // 2] = rng.integers(0, 256, (vh // 2, vw), np.uint8)
         fallback, _, counts = counted("video_fallback", lambda: v_engine.run(
             half, v_queries, prev=(bottom, out)))
-        check(not fallback.plan.incremental and counts == only(wf_tis=1),
+        check(not fallback.plan.incremental
+              and counts == only(wf_tis=1, window_map=1),
               f"50% frame: incremental={fallback.plan.incremental}, {counts}")
         check_frame(fallback, half, "50% frame")
         log(f"   bottom block: {paths['video_bottom']}; 50% frame falls "
@@ -4134,7 +4213,8 @@ def run(torch) -> list[dict]:
               f"chain counts {snap}")
         check(counts["wf_tis"] == chain_n and counts["delta_apply"] >= 1
               and counts == only(wf_tis=chain_n,
-                                 delta_apply=counts["delta_apply"]),
+                                 delta_apply=counts["delta_apply"],
+                                 window_map=chain_n),
               f"chain launched {counts}")
         for i in (0, chain_n // 2, chain_n - 1):
             want = v_engine.run(chain[i], c_queries).results[0]
@@ -4389,7 +4469,8 @@ def run(torch) -> list[dict]:
         check(snap["updated"] == chain_n - 1
               and sum(1 for p_ in snap["replicas"] if p_["updated"]) == 1
               and counts == only(wf_tis=chain_n,
-                                 delta_apply=counts["delta_apply"]),
+                                 delta_apply=counts["delta_apply"],
+                                 window_map=chain_n),
               f"chain on 4 replicas: {snap['updated']} updated, {counts}")
         for i in (0, chain_n - 1):
             check(torch.equal(got[i], v_engine.run(chain[i],
@@ -4870,6 +4951,40 @@ def run(torch) -> list[dict]:
         hs_ms = time_ms(lambda: cw_tis_hscan_cuda(idx, nb))
         hs_plain = time_ms(lambda: cw_tis_hscan_plain(idx, nb), runs=5,
                            launches=2)
+        # The map as the dense LikelihoodQuery calls it: a host target.
+        map_ms = time_ms(lambda: window_map_cuda(map_H, map_t, map_window,
+                                                 1))
+        map_plain = time_ms(lambda: window_map_plain(map_H, map_t_dev,
+                                                     map_window, 1),
+                            runs=5, launches=2)
+        map_calls, map_kernel_us = device_kernels(
+            torch, lambda: window_map_cuda(map_H, map_t, map_window, 1))
+        log(f"   window_map profiled: "
+            + (f"{map_calls:g} CUDA launch(es) a call, device µs a call "
+               + ", ".join(f"{k[:48]} {v:.2f}"
+                           for k, v in map_kernel_us.items())
+               if map_calls is not None else "not measured"))
+        # The walk kernel at the video and service paths' shape (one frame,
+        # stride 2; a target on the card), and at 32 frames.  Its corner
+        # rows and columns are the odd ones, so it reads half of H's rows.
+        map_walk = {}
+        for frames_w in (1, map_n):
+            Hw = map_H[:frames_w]
+            walk_bytes = window_map_work(frames_w, nb, h, w, *window_map_mod
+                                         .map_shape(h, w, map_window, 2))[
+                                             "bytes"]
+            map_walk[frames_w] = {
+                "shape": f"{frames_w}x{nb}x{h}x{w}, 24x24 stride 2",
+                "ms": time_ms(lambda: window_map_cuda(Hw, map_t_dev,
+                                                      map_window, 2)),
+                "plain_ms": time_ms(lambda: window_map_plain(
+                    Hw, map_t_dev, map_window, 2), runs=5, launches=2),
+                "h_once_ms": walk_bytes / HBM_BYTES_PER_S * 1e3}
+            t = map_walk[frames_w]
+            log(f"   window_map walk kernel at {t['shape']}: {t['ms']:.4f} "
+                f"ms | H once at 3.35 TB/s {t['h_once_ms']:.4f} ms | plain "
+                f"torch version {t['plain_ms']:.4f} ms")
+        del Hw
         vs_ms = time_ms(lambda: cw_tis_vscan_cuda(hh))
         vs_plain = time_ms(lambda: cw_tis_vscan_plain(hh), runs=5, launches=2)
         # vscan without a carry is one PyTorch call: a cumsum down the rows.
@@ -5066,6 +5181,9 @@ def run(torch) -> list[dict]:
             "cw_tis_vscan": cw_tis_vscan_work(n, nb, h, w),
             "ssd_scan": ssd_scan_work(sb, ss, sh, sp, sn),
             "ssd_scan_bwd": ssd_scan_bwd_work(sb, ss, sh, sp, sn),
+            "window_map": window_map_work(
+                map_n, nb, h, w, *window_map_mod.map_shape(h, w, map_window,
+                                                           1)),
         }.items()}
         ssd_form = {q: ssd_scan_work(sb, ss, sh, sp, sn, chunk=q)[
             "form_flops"] for q in (KERNEL_CHUNK, sq)}
@@ -5101,6 +5219,9 @@ def run(torch) -> list[dict]:
                              "differentiates ssd_chunked through XLA",
                              "ssd_scan_bwd.cu", k5b_ms, k5b_plain, None,
                              k5b_err),
+            "window_map": ("none: the reference's likelihood map is XLA ops "
+                           "(src/repro/core/region_query.py likelihood_map)",
+                           "window_map.cu", map_ms, map_plain, None, map_err),
         }
         library_call = {"delta_apply": "H + delta[..., None, :]",
                         "cw_tis_vscan": "torch.cumsum(hh, dim=-2)"}
@@ -5142,12 +5263,20 @@ def run(torch) -> list[dict]:
                                    shapes=k2_by_shape)
             if name in wide_by_kernel:
                 records[-1]["wide_shapes"] = wide_by_kernel[name]
+            if name == "window_map":
+                records[-1].update(
+                    cuda_launches_per_call=map_calls,
+                    shape=f"{map_n}x{nb}x{h}x{w}, 24x24 stride 1",
+                    device_us=(sum(map_kernel_us.values())
+                               if map_kernel_us else None),
+                    walk_shapes=list(map_walk.values()))
             lib = (f"library_ms {lib_ms:.4f} ({library_call[name]})"
                    if lib_ms is not None else "library_ms: none, no single "
                    "PyTorch call computes the same function")
+            frames_of = map_n if name == "window_map" else n
             achieved = (f"{nops / ms / 1e9:.2f} TFLOP/s of needed work"
                         if by == "operations"
-                        else f"{n / ms * 1e3:.0f} frames/s")
+                        else f"{frames_of / ms * 1e3:.0f} frames/s")
             extra = ""
             if name in op_rate:
                 fp32_bound = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
@@ -5332,6 +5461,9 @@ def run(torch) -> list[dict]:
                  lambda ids=ids: fused_rows_cuda(ids, wnb, wide_rows)),
                 ("cw_tis", f"wide {kw}", KernelGeometry(*ids.shape, wnb),
                  lambda ids=ids: cw_tis_cuda(ids, wnb))]
+        calls += [("window_map", "the vga32-likemap request",
+                   KernelGeometry(map_n, h, w, nb),
+                   lambda: window_map_cuda(map_H, map_t, map_window, 1))]
         tn, th, tw, tnb = TALL_SHAPE
         t_ids, _ = k1_inputs(torch, dev, tn, th, tw, tnb, False, seed=th)
         calls += [("cw_tis", "wide", KernelGeometry(*WIDE_SHAPE),
@@ -5339,8 +5471,10 @@ def run(torch) -> list[dict]:
                   ("cw_tis", "tall", KernelGeometry(*TALL_SHAPE),
                    lambda: cw_tis_cuda(t_ids, tnb))]
         static_read, launch_checks = set(), {}
+        specs_of = {**ops.KERNEL_SPECS, "window_map": lambda g:
+                    window_map_mod.kernel_specs(g, map_window)}
         for method, label, geom, fn in calls:
-            specs = ops.KERNEL_SPECS[method](geom)
+            specs = specs_of[method](geom)
             events = traced_launches(torch, fn, len(specs))
             check(len(events) == len(specs),
                   f"{method} at {label}: {len(events)} traced kernels, "

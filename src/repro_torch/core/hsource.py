@@ -283,6 +283,13 @@ class DenseH(HSource):
         return rq.sliding_window_histograms(self.H, window, stride,
                                             stats=stats)
 
+    def likelihood_map(
+        self, target_hist, window, metric, stride: int = 1,
+        *, stats: dict | None = None,
+    ):
+        return rq.likelihood_map(self.H, target_hist, window, metric,
+                                 stride, stats=stats)
+
     def multi_scale_search(self, target_hist, windows, metric,
                            stride: int = 1):
         return rq.multi_scale_search(self.H, target_hist, windows, metric,

@@ -109,6 +109,14 @@ def _sliding_windows_slice(H, window, stride):
     return torch.movedim(d - b - c + a, -3, -1)       # (..., n_r, n_c, b)
 
 
+def _dense_stats(H: torch.Tensor, stats: dict | None) -> None:
+    """A dense H's memory proxy: one band, the whole H, no slabs."""
+    if stats is not None:
+        nbytes = 4 * H.numel()
+        stats.update(num_bands=1, band_bytes=nbytes, slab_bytes=0,
+                     peak_bytes=nbytes, full_h_bytes=nbytes)
+
+
 def sliding_window_histograms(
     H,
     window: tuple[int, int],
@@ -126,10 +134,7 @@ def sliding_window_histograms(
     src = _maybe_hsource(H)
     if src is not None:
         return src.sliding_window_histograms(window, stride, stats=stats)
-    if stats is not None:
-        nbytes = 4 * H.numel()
-        stats.update(num_bands=1, band_bytes=nbytes, slab_bytes=0,
-                     peak_bytes=nbytes, full_h_bytes=nbytes)
+    _dense_stats(H, stats)
     h, w = H.shape[-2:]
     n_r = (h - window[0]) // stride + 1
     n_c = (w - window[1]) // stride + 1
@@ -153,13 +158,32 @@ def likelihood_map(H, target_hist, window: tuple[int, int], metric,
     """Per-position similarity of the window histogram to the target.
 
     ``target_hist`` is (b,) or carries H's leading frame axes.  Returns
-    (..., n_rows, n_cols).  H may be any ``HSource``."""
+    (..., n_rows, n_cols).  H may be any ``HSource``.  An H on the card
+    scored by ``distances.intersection`` takes the map kernel
+    (kernels/window_map.py), which reads each window's corners and writes
+    only the map, and refuses an H that is not fp32; any other H or metric
+    builds the window histograms and applies ``metric``.  Both give the
+    same bits where H holds counts below 2^24."""
     src = _maybe_hsource(H)
     if src is not None:
         return src.likelihood_map(target_hist, window, metric, stride,
                                   stats=stats)
+    if map_kernel_takes(H, metric):
+        from repro_torch.kernels.window_map import window_map_cuda
+
+        _dense_stats(H, stats)
+        return window_map_cuda(H.contiguous(), target_hist, window, stride)
     hists = sliding_window_histograms(H, window, stride, stats=stats)
     return metric(hists, _target(target_hist, hists))
+
+
+def map_kernel_takes(H: torch.Tensor, metric) -> bool:
+    """Whether ``likelihood_map`` sends a raw H to the map kernel: an H on
+    the card scored by ``distances.intersection`` (the kernel's
+    arithmetic; every other metric keeps the plain path)."""
+    from repro_torch.core import distances
+
+    return H.is_cuda and metric is distances.intersection
 
 
 def reduce_scale_maps(maps, windows, stride: int, lead: tuple):

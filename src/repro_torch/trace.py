@@ -53,6 +53,7 @@ LAUNCH_COUNTERS = {
     "K3": ("delta_apply", "delta_apply_cuda"),
     "K4_hscan": ("cw_tis", "cw_tis_hscan_cuda"),
     "K4_vscan": ("cw_tis", "cw_tis_vscan_cuda"),
+    "map": ("window_map", "window_map_cuda"),
 }
 
 

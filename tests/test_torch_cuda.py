@@ -1207,3 +1207,202 @@ def test_expert_parallel_moe_on_the_card_equals_the_cpu(cuda_device, no_tf32,
     torch.testing.assert_close(got, want, atol=1e-5 * float(
         want.abs().max()), rtol=0)
     assert abs(aux_got - aux_want) <= 1e-5 * abs(aux_want)
+
+
+# The dense likelihood map's kernel (kernels/window_map.py) against the
+# plain path on the card: bit for bit, at the benchmark cell's shape and at
+# the CPU tests' windows, strides and bin counts, 132 columns (whole 16-byte
+# chunks: the rows kernel at stride 1 and up to 32 bins) and 131 (the walk
+# kernel).
+_MAP_CASES = [(window, stride, bins, width)
+              for window in ((24, 24), (23, 17), (1, 1))
+              for stride in (1, 2, 16) for bins in (16, 32, 128)
+              for width in (131, 132)]
+
+
+def _map_target(bins, lead=(), seed=7):
+    return np.random.default_rng(seed).integers(
+        0, 300, lead + (bins,)).astype(np.float32)
+
+
+@pytest.mark.parametrize("window,stride,bins,width", _MAP_CASES, ids=str)
+def test_window_map_kernel_equals_plain(cuda_device, window, stride, bins,
+                                        width):
+    from repro_torch.kernels.window_map import (
+        window_map_cuda,
+        window_map_plain,
+    )
+
+    frames = np.random.default_rng(21).integers(0, 256, (3, 97, width),
+                                                np.uint8)
+    H = ops.integral_histogram(torch.as_tensor(frames, device=cuda_device),
+                               bins)
+    targets = [_map_target(bins), _map_target(bins, (3,)),
+               torch.as_tensor(_map_target(bins, (3,)), device=cuda_device)]
+    for target in targets:
+        before = window_map_cuda.launches
+        got = window_map_cuda(H, target, window, stride)
+        assert window_map_cuda.launches == before + 1
+        want = window_map_plain(H, torch.as_tensor(target).to(cuda_device),
+                                window, stride)
+        assert got.device == H.device and torch.equal(got, want)
+    lone = H[2].contiguous()
+    assert torch.equal(window_map_cuda(lone, targets[0], window, stride),
+                       window_map_plain(lone, targets[0], window, stride))
+    empty = window_map_cuda(H, targets[0], (98, window[1]), stride)
+    assert empty.shape == (3, 0, (width - window[1]) // stride + 1)
+
+
+def test_window_map_kernel_at_the_cells_shape(cuda_device):
+    """32 frames of 480 x 640 at 32 bins, a stride-1 24 x 24 map: the
+    vga32-likemap cell's request."""
+    from repro_torch.data import video_frames
+    from repro_torch.kernels.window_map import (
+        window_map_cuda,
+        window_map_plain,
+    )
+
+    clip = torch.as_tensor(video_frames(480, 640, 32, seed=5),
+                           device=cuda_device)
+    H = ops.integral_histogram(clip, 32)
+    target = H[0, :, 123, 301] - H[0, :, 99, 301] - H[0, :, 123, 277] \
+        + H[0, :, 99, 277]
+    got = window_map_cuda(H, target.cpu().numpy(), (24, 24), 1)
+    want = window_map_plain(H, target, (24, 24), 1)
+    assert got.shape == (32, 457, 617) and torch.equal(got, want)
+    assert float(got.max()) > 0.5
+
+
+def test_window_map_kernel_at_the_video_paths_shape(cuda_device):
+    """One 480 x 640 frame at 32 bins, a stride-2 24 x 24 map (the walk
+    kernel, rows carried 12 steps apart): the shape the video and service
+    paths of ``chip_smoke.py`` give the kernel."""
+    from repro_torch.data import video_frames
+    from repro_torch.kernels.window_map import (
+        launch_shape,
+        window_map_cuda,
+        window_map_plain,
+    )
+
+    assert not launch_shape(229, (24, 24), 2, 32, 640).rows
+    frames = torch.as_tensor(video_frames(480, 640, 1, seed=6),
+                             device=cuda_device)
+    H = ops.integral_histogram(frames, 32)
+    target = _map_target(32)
+    got = window_map_cuda(H, target, (24, 24), 2)
+    want = window_map_plain(H, torch.as_tensor(target, device=cuda_device),
+                            (24, 24), 2)
+    assert got.shape == (1, 229, 309) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("view", ["every other frame", "columns cut"])
+def test_a_strided_h_takes_the_map_kernel_once(cuda_device, view):
+    """A view of H that is not contiguous still takes the kernel, once,
+    through ``likelihood_map``; an H of another dtype is refused."""
+    from repro_torch.core import distances
+    from repro_torch.core import region_query as rq
+    from repro_torch.kernels.window_map import (
+        window_map_cuda,
+        window_map_plain,
+    )
+
+    frames = np.random.default_rng(23).integers(0, 256, (4, 60, 84),
+                                                np.uint8)
+    H = ops.integral_histogram(torch.as_tensor(frames, device=cuda_device),
+                               16)
+    H = H[::2] if view == "every other frame" else H[..., :-3]
+    assert not H.is_contiguous()
+    target = _map_target(16)
+    before = window_map_cuda.launches
+    got = rq.likelihood_map(H, target, (9, 7), distances.intersection, 1)
+    assert window_map_cuda.launches == before + 1
+    assert torch.equal(got, window_map_plain(
+        H.contiguous(), torch.as_tensor(target, device=cuda_device), (9, 7),
+        1))
+    with pytest.raises(ValueError):
+        rq.likelihood_map(H.double(), target, (9, 7),
+                          distances.intersection, 1)
+
+
+@pytest.mark.parametrize("width", [131, 132])
+def test_window_map_kernel_propagates_a_nan_target(cuda_device, width):
+    """A NaN bin of the target makes every normalised bin NaN, so the plain
+    path's map is NaN everywhere; so is the kernel's."""
+    from repro_torch.kernels.window_map import (
+        window_map_cuda,
+        window_map_plain,
+    )
+
+    frames = np.random.default_rng(22).integers(0, 256, (2, 40, width),
+                                                np.uint8)
+    H = ops.integral_histogram(torch.as_tensor(frames, device=cuda_device),
+                               16)
+    target = _map_target(16)
+    target[5] = np.nan
+    got = window_map_cuda(H, target, (8, 8), 1)
+    want = window_map_plain(H, torch.as_tensor(target).to(cuda_device),
+                            (8, 8), 1)
+    assert bool(torch.isnan(want).all()) and bool(torch.isnan(got).all())
+
+
+def test_likelihood_query_launches_the_map_kernel_once(cuda_device,
+                                                       monkeypatch):
+    """One dense LikelihoodQuery through engine.run: the map kernel once,
+    the plain path's bin sums (its cumsum) never, the plain path's map."""
+    from repro_torch.core import distances
+    from repro_torch.data import video_frames
+    from repro_torch.kernels.window_map import (
+        window_map_cuda,
+        window_map_plain,
+    )
+
+    frames = video_frames(120, 160, 4, seed=3)
+    target = _map_target(32)
+    sums = []
+    bin_sum = distances.bin_sum
+    monkeypatch.setattr(distances, "bin_sum",
+                        lambda x: sums.append(x.shape) or bin_sum(x))
+    before = window_map_cuda.launches
+    out = HistogramEngine(num_bins=32).run(
+        frames, [LikelihoodQuery(target, (24, 24))])
+    assert out.plan.representation == "dense"
+    assert window_map_cuda.launches == before + 1 and sums == []
+    monkeypatch.undo()
+    assert torch.equal(out.results[0], window_map_plain(
+        out.source.dense(), target, (24, 24), 1))
+
+
+def test_the_map_launch_waits_on_nothing(cuda_device):
+    """Inside each traced request's query span no host call waits on the
+    card: the NumPy target goes through pinned memory asynchronously.  The
+    root's counter shows the map kernel once a request."""
+    from repro_torch import trace
+    from repro_torch.data import video_frames
+
+    eng = HistogramEngine(num_bins=32)
+    frames = video_frames(120, 160, 4, seed=3)
+    queries = [LikelihoodQuery(_map_target(32), (24, 24))]
+    eng.run(frames, queries)                      # libraries, pinned pool
+    torch.cuda.synchronize()
+    trace.clear()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng.run(frames, queries)
+            torch.cuda.synchronize()
+        recs = trace.records()
+    finally:
+        trace.clear()
+    assert [r.attrs["launches"]["map"] for r in recs if r.parent < 0] == [
+        1, 1, 1]
+    events = list(prof.profiler.kineto_results.events())
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+             if e.name() == "repro_torch.query"]
+    assert len(spans) == 3
+    waits = {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy"}
+    assert [e.name() for e in events if e.name() in waits and any(
+        a <= e.start_ns() < b for a, b in spans)] == []
+    assert any("window_map_rows_kernel" in e.name() for e in events)
