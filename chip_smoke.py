@@ -98,8 +98,15 @@ non-zero before the result line is printed:
           two targets then one, over 32 frames: track, a step loop,
           step_fused (K2, one target) and track(incremental=True) on a
           low-motion stream (K1 on the dirty run, K3 below) give the same
-          boxes, and track equals backend="torch" on the card; the
-          number of distinct plans step_fused asked the gate for
+          boxes, and track equals backend="torch" on the card and the
+          plain torch vote (tracking.vote_plain) frame by frame, the vote
+          kernel launched once a frame; the number of distinct plans
+          step_fused asked the gate for; a fleet's ticks at the cell
+          vga32-track's shape (32 cameras, 4 targets of 120x120, 32
+          bins): init_fleet and step_fleet launch K1 and the vote kernel
+          once a tick, at 8 cameras as at 32, each tick's boxes and
+          scores equal the plain vote on that tick's H (torch.equal),
+          and the boxes equal step_on_h camera by camera
   service AnalyticsService over the clip (4 queries a frame: two region
           queries, a stride-16 likelihood map, a grid of rects; frames 9
           and 14 again, as cache hits) and a 16-frame low-motion chain:
@@ -195,7 +202,8 @@ non-zero before the result line is printed:
           K5-bwd within TRAIN_*32_RTOL, the run's bf16 loss and grad norm
           within TRAIN_*16_RTOL); warm step ms, tokens/s and peak memory
           beside the card line
-  timing  each kernel's median time (CUDA events) beside its bound, K1
+  timing  each kernel's median time (CUDA events) beside its bound (the
+          vote kernel at the vga32-track tick, beside its plain vote), K1
           also at K1_SHAPES and K2 at K2_SHAPES with their launches per
           run; K1, K2, the hscan and the vscan at WIDE_SHAPE with their
           CUDA launches a call and the bound's share, and K1 and the
@@ -333,7 +341,8 @@ non-zero before the result line is printed:
   examples the run's last: examples/quickstart_torch.py and
           examples/video_analytics_torch.py at their defaults on the card
           (paths example_quickstart and example_video: K1, and K2 on the
-          large frame's fused plan and the service's requests), then both
+          large frame's fused plan and the service's requests; the video
+          example's vote kernel once a frame it tracks), then both
           at --frames 8 --hw 96 128 on the card and with --device cpu:
           region sum, best rect and score, track boxes, the likelihood
           maps (EXAMPLE_MAP_RTOL) and the large frame's plan equal; the
@@ -344,7 +353,7 @@ Every request of the main, bands, video, cw_tis, stream, tracker,
 service, mesh, lm, transformer, families, train, sharded, dryrun,
 transformer at scale, families at scale, remat at scale, wide and
 examples phases
-runs with all seven launch counters set to 0 just before it and read
+runs with every launch counter set to 0 just before it and read
 just after; the kernels line carries each kernel's counts per path
 (``launches_by_path``).
 
@@ -645,6 +654,12 @@ TRACE_PAUSE_S = 5.0
 TRACE_DROPS = 2
 # The tracker phase: frames tracked after the first, its bins and radius.
 TRACK_FRAMES, TRACK_BINS, TRACK_RADIUS = 32, 16, 12
+# Its fleet ticks, at the benchmark cell vga32-track's shape: cameras (one
+# 480x640 frame each a tick), targets a camera, the template's side, bins,
+# ticks stepped after the first, and the smaller fleet whose tick must
+# launch K1 and the vote as often.
+FLEET_CAMERAS, FLEET_TARGETS, FLEET_SIDE, FLEET_BINS = 32, 4, 120, 32
+FLEET_TICKS, FLEET_SMALL = 4, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -2544,11 +2559,14 @@ def examples_phase(torch, counted, only) -> None:
         res, secs, counts = counted(path, lambda: mod.main(argv))
         log(f"   {path} at its defaults on the card: {secs:.2f} s, K1-K3 "
             f"launches {({k: counts[k] for k in k123})}, map kernel "
-            f"{counts['window_map']} | card {card}")
+            f"{counts['window_map']}, vote kernel {counts['track_vote']} "
+            f"| card {card}")
         check(counts["wf_tis"] > 0, f"{path} launched no K1: {counts}")
-        check(counts["window_map"] == maps
+        # The video example's tracker votes once a frame it tracks.
+        votes = len(res["boxes"]) if mod is video else 0
+        check(counts["window_map"] == maps and counts["track_vote"] == votes
               and not any(counts[k] for k in counts
-                          if k not in k123 + ("window_map",)),
+                          if k not in k123 + ("window_map", "track_vote")),
               f"{path} launched a kernel off its path: {counts}")
         if mod is video:
             log(f"   example_video: {res['pipeline_s']:.3f} s for the "
@@ -3128,6 +3146,7 @@ def run(torch) -> list[dict]:
         fused_rows_work,
     )
     from repro_torch.kernels.ref import region_histogram_ref
+    from repro_torch.kernels.track_vote import track_vote_cuda, track_vote_work
     from repro_torch.kernels.ssd_scan import (
         KERNEL_CHUNK, bwd_heads_per_cta, bwd_launches, ssd_scan_bwd_cuda,
         ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_cuda,
@@ -3149,7 +3168,7 @@ def run(torch) -> list[dict]:
                 "cw_tis_hscan": cw_tis_hscan_cuda,
                 "cw_tis_vscan": cw_tis_vscan_cuda,
                 "ssd_scan": ssd_scan_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda,
-                "window_map": window_map_cuda}
+                "window_map": window_map_cuda, "track_vote": track_vote_cuda}
     paths: dict[str, dict[str, int]] = {}      # path -> kernel -> launches
 
     def read_counts():
@@ -4071,6 +4090,7 @@ def run(torch) -> list[dict]:
         torch.cuda.empty_cache()
 
     with phase(f"tracker: FragmentTracker over {TRACK_FRAMES} frames"):
+        from repro_torch.core import tracking as tracking_mod
         from repro_torch.core.tracking import FragmentTracker, TrackerConfig
 
         tcfg = TrackerConfig(num_bins=TRACK_BINS, search_radius=TRACK_RADIUS)
@@ -4079,6 +4099,21 @@ def run(torch) -> list[dict]:
                                             seed=9))
         two = [[150, 200, 213, 271], [300, 40, 371, 119]]
         tracker_ms = {}
+
+        def plain_votes(tr, st, clip):
+            """The boxes after each frame of ``clip``, voted by
+            ``tracking.vote_plain`` on each frame's own H."""
+            bbox = st["bbox"].reshape(1, -1, 4)
+            ref = st["ref_hists"].reshape(1, bbox.shape[1],
+                                          *st["ref_hists"].shape[-2:])
+            out = []
+            for f in clip:
+                bbox, _ = tracking_mod.vote_plain(
+                    tr._compute_h(f)[None], bbox, ref, tr.config.fragments,
+                    tr.config.search_radius)
+                out.append(bbox.reshape(st["bbox"].shape))
+            return torch.stack(out)
+
         for targets in (two, two[0]):
             nt = len(targets) if np.ndim(targets) == 2 else 1
             label = f"{nt} target(s)"
@@ -4089,7 +4124,8 @@ def run(torch) -> list[dict]:
             (_, boxes), dt, counts = counted(
                 "tracker_track",
                 lambda: tracker.track(dict(st0), t_clip[1:]))
-            check(counts == only(wf_tis=TRACK_FRAMES),
+            check(counts == only(wf_tis=TRACK_FRAMES,
+                                 track_vote=TRACK_FRAMES),
                   f"track ({label}) launched {counts}")
             tracker_ms[f"track, {label}"] = dt * 1e3 / TRACK_FRAMES
 
@@ -4104,7 +4140,8 @@ def run(torch) -> list[dict]:
 
             got, dt, counts = counted("tracker_step",
                                       lambda: step_loop(tracker.step))
-            check(counts == only(wf_tis=TRACK_FRAMES),
+            check(counts == only(wf_tis=TRACK_FRAMES,
+                                 track_vote=TRACK_FRAMES),
                   f"step loop ({label}) launched {counts}")
             check(torch.equal(got, boxes), f"step != track ({label})")
             tracker_ms[f"step, {label}"] = dt * 1e3 / TRACK_FRAMES
@@ -4113,6 +4150,8 @@ def run(torch) -> list[dict]:
             _, want = plain.track(plain.init(t_clip[0], targets), t_clip[1:])
             check(torch.equal(want, boxes),
                   f"track ({label}) != backend='torch' on the card")
+            check(torch.equal(plain_votes(tracker, st0, t_clip[1:]), boxes),
+                  f"track ({label}) != the plain vote frame by frame")
             if nt == 1:
                 fused_plans = set()
                 got, dt, counts = counted(
@@ -4136,7 +4175,8 @@ def run(torch) -> list[dict]:
             check(counts["wf_tis"] == TRACK_FRAMES + 1
                   and 0 < counts["delta_apply"] <= TRACK_FRAMES
                   and counts == only(wf_tis=counts["wf_tis"],
-                                     delta_apply=counts["delta_apply"]),
+                                     delta_apply=counts["delta_apply"],
+                                     track_vote=TRACK_FRAMES + 1),
                   f"track(incremental=True) launched {counts}")
             check(torch.equal(got, want),
                   f"track(incremental=True) != track ({label})")
@@ -4146,6 +4186,69 @@ def run(torch) -> list[dict]:
                 + (", step_fused" if nt == 1 else "")
                 + f" and track(incremental=True) agree; last boxes "
                 f"{boxes[-1].tolist()}")
+        # A fleet's capture ticks: every camera's targets in one engine.run
+        # a tick (K1 once), equal to step_on_h over the cameras one by one,
+        # with as many kernels a tick at FLEET_SMALL cameras as at all.
+        fleet = FragmentTracker(TrackerConfig(num_bins=FLEET_BINS,
+                                              search_radius=TRACK_RADIUS))
+        f_ticks = [video_frames(h, w, FLEET_CAMERAS, seed=40 + k)
+                   for k in range(FLEET_TICKS + 1)]
+        f_cols = (130 * np.arange(FLEET_TARGETS)
+                  + 17 * np.arange(FLEET_CAMERAS)[:, None]) % (w - FLEET_SIDE)
+        f_rows = np.broadcast_to(np.linspace(
+            4, h - FLEET_SIDE - 4, FLEET_TARGETS).astype(int), f_cols.shape)
+        f_boxes = np.stack([f_rows, f_cols, f_rows + FLEET_SIDE - 1,
+                            f_cols + FLEET_SIDE - 1], -1)   # (cameras, t, 4)
+        fst0, _, counts = counted(
+            "tracker_fleet", lambda: fleet.init_fleet(f_ticks[0], f_boxes))
+        check(counts == only(wf_tis=1), f"init_fleet launched {counts}")
+
+        def fleet_loop(st):
+            out, scores = [], []
+            for tick in f_ticks[1:]:
+                st = fleet.step_fleet(st, tick)
+                out.append(st["bbox"])
+                scores.append(st["score"])
+            return st, torch.stack(out), torch.stack(scores)
+
+        fleet_loop(fst0)                                   # the gate, warm
+        (fst, f_got, f_scores), dt, counts = counted(
+            "tracker_fleet", lambda: fleet_loop(fst0))
+        check(counts == only(wf_tis=FLEET_TICKS, track_vote=FLEET_TICKS),
+              f"{FLEET_TICKS} fleet ticks launched {counts}")
+        check(fleet._step_engine.last_plan.representation == "dense",
+              "a fleet tick did not plan dense")
+        tracker_ms[f"fleet tick, {FLEET_CAMERAS} cameras"] = dt * 1e3 / FLEET_TICKS
+        # Each tick against the plain torch vote on that tick's own H.
+        f_bbox = fst0["bbox"]
+        for k, tick in enumerate(f_ticks[1:]):
+            want_box, want_score = tracking_mod.vote_plain(
+                fleet._compute_h(tick), f_bbox, fst0["ref_hists"],
+                fleet.config.fragments, fleet.config.search_radius)
+            check(torch.equal(f_got[k], want_box)
+                  and torch.equal(f_scores[k], want_score),
+                  f"fleet tick {k}: the vote kernel != the plain vote")
+            f_bbox = want_box
+        for cam in range(FLEET_CAMERAS):
+            st = {k: v[cam] for k, v in fst0.items()}
+            for k, tick in enumerate(f_ticks[1:]):
+                st = fleet.step_on_h(st, fleet._compute_h(tick[cam]))
+                check(torch.equal(st["bbox"], f_got[k, cam]),
+                      f"fleet tick {k}, camera {cam} != step_on_h")
+        small = {k: v[:FLEET_SMALL] for k, v in fst0.items()}
+        for cams, st, frames in ((FLEET_CAMERAS, fst0, f_ticks[1]),
+                                 (FLEET_SMALL, small,
+                                  f_ticks[1][:FLEET_SMALL])):
+            _, _, counts = counted(
+                "tracker_fleet", lambda: fleet.step_fleet(st, frames))
+            check(counts == only(wf_tis=1, track_vote=1),
+                  f"a tick of {cams} cameras launched {counts}")
+        log(f"   fleet: {FLEET_CAMERAS} cameras x {FLEET_TARGETS} targets "
+            f"of {FLEET_SIDE}x{FLEET_SIDE}, {FLEET_BINS} bins: "
+            f"{FLEET_TICKS} ticks equal the plain vote on each tick's H "
+            f"and step_on_h camera by camera; K1 and "
+            f"the vote kernel once a tick at {FLEET_CAMERAS} cameras and at "
+            f"{FLEET_SMALL}; last score {fst['score'][0].tolist()}")
         log(f"   step_fused: {t_rows} corner rows a frame (fuse bound "
             f"{h // 4}), {len(fused_plans)} distinct plans over "
             f"{TRACK_FRAMES} frames (each new one misses the gate's plan "
@@ -4985,6 +5088,24 @@ def run(torch) -> list[dict]:
                 f"ms | H once at 3.35 TB/s {t['h_once_ms']:.4f} ms | plain "
                 f"torch version {t['plain_ms']:.4f} ms")
         del Hw
+        # The vote at the vga32-track tick's shape: the map's H is the
+        # tick's (32 frames of 480 x 640 at 32 bins), the fleet's boxes
+        # and reference fragments from the tracker phase.
+        vote_in = (map_H, torch.as_tensor(f_boxes, device=dev),
+                   fst0["ref_hists"], fleet.config.fragments,
+                   fleet.config.search_radius)
+        vote_got = track_vote_cuda(*vote_in)
+        vote_want = tracking_mod.vote_plain(*vote_in)
+        check(all(torch.equal(a, b) for a, b in zip(vote_got, vote_want)),
+              "the vote kernel != plain at the vga32-track tick's shape")
+        vote_err = float((vote_got[1] - vote_want[1]).abs().max())
+        vote_ms = time_ms(lambda: track_vote_cuda(*vote_in))
+        vote_plain = time_ms(lambda: tracking_mod.vote_plain(*vote_in),
+                             runs=5, launches=2)
+        vote_work = track_vote_work(map_n, FLEET_TARGETS, nb,
+                                    fleet.config.fragments,
+                                    fleet.config.search_radius)
+        del vote_got, vote_want
         vs_ms = time_ms(lambda: cw_tis_vscan_cuda(hh))
         vs_plain = time_ms(lambda: cw_tis_vscan_plain(hh), runs=5, launches=2)
         # vscan without a carry is one PyTorch call: a cumsum down the rows.
@@ -5184,6 +5305,8 @@ def run(torch) -> list[dict]:
             "window_map": window_map_work(
                 map_n, nb, h, w, *window_map_mod.map_shape(h, w, map_window,
                                                            1)),
+            "track_vote": {"bytes": vote_work["bytes"],
+                           "flops": vote_work["ops"]},
         }.items()}
         ssd_form = {q: ssd_scan_work(sb, ss, sh, sp, sn, chunk=q)[
             "form_flops"] for q in (KERNEL_CHUNK, sq)}
@@ -5222,6 +5345,10 @@ def run(torch) -> list[dict]:
             "window_map": ("none: the reference's likelihood map is XLA ops "
                            "(src/repro/core/region_query.py likelihood_map)",
                            "window_map.cu", map_ms, map_plain, None, map_err),
+            "track_vote": ("none: the reference votes with XLA ops "
+                           "(src/repro/core/tracking.py FragmentTracker._vote)",
+                           "track_vote.cu", vote_ms, vote_plain, None,
+                           vote_err),
         }
         library_call = {"delta_apply": "H + delta[..., None, :]",
                         "cw_tis_vscan": "torch.cumsum(hh, dim=-2)"}
@@ -5270,10 +5397,16 @@ def run(torch) -> list[dict]:
                     device_us=(sum(map_kernel_us.values())
                                if map_kernel_us else None),
                     walk_shapes=list(map_walk.values()))
+            if name == "track_vote":
+                records[-1].update(
+                    shape=f"{map_n}x{nb}x{h}x{w}, {FLEET_TARGETS} targets "
+                          f"of {FLEET_SIDE}x{FLEET_SIDE}, "
+                          f"{fleet.config.fragments} fragments, radius "
+                          f"{fleet.config.search_radius}")
             lib = (f"library_ms {lib_ms:.4f} ({library_call[name]})"
                    if lib_ms is not None else "library_ms: none, no single "
                    "PyTorch call computes the same function")
-            frames_of = map_n if name == "window_map" else n
+            frames_of = map_n if name in ("window_map", "track_vote") else n
             achieved = (f"{nops / ms / 1e9:.2f} TFLOP/s of needed work"
                         if by == "operations"
                         else f"{frames_of / ms * 1e3:.0f} frames/s")

@@ -23,16 +23,19 @@ through the runtime (core/runtime.py) with the planner's microbatch,
 fixed or adaptive.  Every ``run`` and ``map_frames`` validates its plan
 before the first launch (``validate(..., deep=True)``: analysis/plancheck.py
 and the kernels' proofs in analysis/kernelcheck.py) and raises
-``PlanValidationError`` on a rejected plan.
+``PlanValidationError`` on a rejected plan; a ``run`` that repeats the
+engine's last request takes that request's plan and verdict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Iterable, Iterator
 
 import numpy as np
+import torch
 
 from repro_torch import trace
 from repro_torch.core import autotune
@@ -52,7 +55,12 @@ from repro_torch.core.hsource import (
     PrefetchedRowsH,
     ShardedH,
 )
-from repro_torch.device import dtype_name, resolve_device
+from repro_torch.device import (
+    as_tensor,
+    dtype_name,
+    resolve_device,
+    stage_async,
+)
 
 REPRESENTATIONS = ("dense", "banded", "spilled", "sharded", "fused")
 
@@ -343,9 +351,9 @@ def plan(spec: WorkloadSpec) -> ExecutionPlan:
     if spec.query_rows is not None and not incremental:
         rows = spec.query_rows
         k = len(rows)
-        if not all(
-            0 <= r < spec.height for r in rows
-        ) or list(rows) != sorted(set(rows)):
+        r = np.asarray(rows)
+        if k and (r.ndim != 1 or r[0] < 0 or r[-1] >= spec.height
+                  or not bool(np.all(r[1:] > r[:-1]))):
             raise ValueError(
                 f"query_rows must be sorted unique within "
                 f"[0, {spec.height}), got {rows[:8]}")
@@ -456,8 +464,8 @@ class _GeomView:
     _window_lattices = HSource._window_lattices
 
 
-def _declared_rows(queries, height: int, width: int) -> tuple[int, ...] | None:
-    """The corner-row union the request will read, or ``None`` when a
+def _row_needs(queries, height: int, width: int) -> list | None:
+    """Each query's declared corner rows as an array, or ``None`` when a
     query cannot declare its rows up front."""
     view = _GeomView(height, width)
     needs = []
@@ -469,13 +477,25 @@ def _declared_rows(queries, height: int, width: int) -> tuple[int, ...] | None:
         if rows is None:
             return None
         needs.append(np.asarray(rows))
+    return needs
+
+
+def _union_rows(needs, height: int) -> tuple[int, ...] | None:
+    """The sorted union within [0, ``height``) of ``_row_needs``, or
+    ``None`` when it is empty or a query declared nothing."""
     if not needs:
         return None
     rows = np.unique(np.concatenate(needs))
     rows = rows[(rows >= 0) & (rows < height)]
     if rows.size == 0:
         return None
-    return tuple(int(r) for r in rows)
+    return tuple(rows.tolist())
+
+
+def _declared_rows(queries, height: int, width: int) -> tuple[int, ...] | None:
+    """The corner-row union the request will read, or ``None`` when a
+    query cannot declare its rows up front."""
+    return _union_rows(_row_needs(queries, height, width), height)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -548,6 +568,124 @@ class MultiScaleQuery:
                 for wnd in self.windows]
         return (np.unique(np.concatenate(rows))
                 if rows else np.zeros((0,), np.int64))
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``, a host array as ``as_tensor`` makes it; a host
+    tensor bound for the card goes through pinned memory and an
+    asynchronous copy, so the host does not wait on the card's queue."""
+    t = x if isinstance(x, torch.Tensor) else as_tensor(x, "cpu")
+    if t.device == device:
+        return t
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TrackQuery:
+    """One step of the fragments tracker (core/tracking.py, Adam et al.
+    CVPR'06) for every target of every frame of the request, each target
+    searched on its own frame: a fleet's capture tick, one frame a camera.
+
+    ``boxes`` (n, t, 4) int [r0, c0, r1, c1], inside the frame as
+    ``FragmentTracker.init`` clamps them; ``ref_hists`` (n, t, f, b), or a
+    shape that broadcasts to it, the reference histogram of each of the
+    f = gr * gc fragments of a box's ``fragments`` grid; ``radius`` the
+    candidate offsets per axis.  ``apply`` returns (the new boxes (n, t, 4)
+    int32, their scores (n, t) fp32): every candidate of every target
+    scored by the median of its fragments' intersections with the
+    reference, the first maximal candidate winning, equal bit for bit to
+    ``FragmentTracker.step_on_h`` frame by frame.
+
+    A dense H goes to ``kernels.track_vote`` (one CUDA launch on the card,
+    the plain torch vote elsewhere), which clamps the candidates and
+    reads their fragments' corners from the boxes on the device.  Any
+    other representation is voted on its rows at ``needed_rows``.
+    ``needed_rows`` reads the boxes on the host once (the query's one wait
+    on the card when they live there) into ``tracking.vote_geometry``, the
+    candidates' fragment corner lattices, targets x (2 R + 1) x (grid + 1)
+    numbers: no fragment rect is built.  Host boxes and histograms reach
+    the card through pinned memory, with no wait.  A query reads its host
+    inputs once: its rows a frame size and its copies a device are made
+    at their first use and kept, so a query run on tick after tick plans
+    and launches from them.  Traced, the vote is a
+    ``repro_torch.track`` span under its query's, and the root counts
+    ``track_targets`` and ``track_rects`` (fragment histograms scored)."""
+
+    boxes: object
+    ref_hists: object
+    fragments: tuple[int, int] = (2, 2)
+    radius: int = 12
+
+    @functools.cached_property
+    def _host_boxes(self) -> np.ndarray:
+        b = self.boxes
+        return np.asarray(b.cpu() if hasattr(b, "cpu") else b, np.int64)
+
+    def _geometry(self, h: int, w: int):
+        """``tracking.vote_geometry`` of the boxes on the host, in (h, w)
+        frames, made once: the planner's rows and the bound check read
+        it."""
+        from repro_torch.core import tracking
+
+        made = self.__dict__.setdefault("_geometries", {})
+        if (h, w) not in made:
+            made[h, w] = tracking.vote_geometry(
+                torch.from_numpy(self._host_boxes), self.fragments,
+                self.radius, h, w)
+        return made[h, w]
+
+    def _on(self, name: str, device: torch.device) -> torch.Tensor:
+        """The input ``name`` on ``device``: a tensor already there as it
+        stands, anything else copied there once (``_to_device``)."""
+        x = getattr(self, name)
+        if isinstance(x, torch.Tensor) and x.device == device:
+            return x
+        made = self.__dict__.setdefault("_copies", {})
+        if (name, device) not in made:
+            made[name, device] = _to_device(x, device)
+        return made[name, device]
+
+    def apply(self, source: HSource):
+        from repro_torch.core import tracking
+        from repro_torch.kernels.track_vote import track_vote_cuda
+
+        h, w = source.height, source.width
+        gr, gc = self.fragments
+        with trace.span("repro_torch.track"):
+            boxes = self._on("boxes", source.device)
+            n, t = boxes.shape[:2]
+            trace.count(track_targets=n * t, track_rects=n * t * gr * gc
+                        * (2 * self.radius + 1) ** 2)
+            ref = self._on("ref_hists", source.device)
+            if isinstance(source, DenseH):
+                return track_vote_cuda(source.H, boxes, ref, self.fragments,
+                                       self.radius)
+            # Any other representation: its rows at the rows declared up
+            # front, which the lattice's rows index through ``slot``.
+            needed = self.needed_rows(source)
+            g = self._geometry(h, w)
+            cell = (torch.div(g.height + 1, gr, rounding_mode="floor")
+                    * torch.div(g.width + 1, gc, rounding_mode="floor"))
+            source._check_region_bound(int(cell.max()) if cell.numel() else 0)
+            R = source.rows(needed)
+            slot = torch.as_tensor(np.searchsorted(needed, np.arange(h)),
+                                   device=R.device).clamp(max=len(needed) - 1)
+            return tracking.vote_plain(R, boxes.to(R.device), ref,
+                                       self.fragments, self.radius, height=h,
+                                       slot=slot, reduce=source._reduce)
+
+    def needed_rows(self, source) -> np.ndarray:
+        from repro_torch.core import tracking
+
+        made = self.__dict__.setdefault("_rows", {})
+        hw = (source.height, source.width)
+        if hw not in made:
+            rows = tracking.candidate_rows(self._geometry(*hw), hw[0])
+            rows.flags.writeable = False
+            made[hw] = rows
+        return made[hw]
 
 
 @dataclasses.dataclass
@@ -643,6 +781,7 @@ class HistogramEngine:
         self.last_plan: ExecutionPlan | None = None
         self.last_runtime = None        # FrameRuntime from map_frames
         self.last_verdict = None        # PlanVerdict from validate()
+        self._kept = None               # the last request's, _repeat
 
     # -- planning -----------------------------------------------------------
     def spec_for(
@@ -657,16 +796,18 @@ class HistogramEngine:
         else:
             raise ValueError(f"expected (h, w) or (n, h, w), got {shape}")
         return WorkloadSpec(
-            height=shape[-2], width=shape[-1], num_bins=self.num_bins,
-            num_frames=nf, dtype=dtype_name(dtype),
-            value_range=self.value_range, method=self.method,
-            backend=self.backend, tile=self.tile, bin_block=self.bin_block,
-            memory_budget_bytes=self.memory_budget_bytes,
-            storage=self.storage,
-            adaptive_microbatch=self.adaptive_microbatch, mesh=self.mesh,
-            sharding=self.sharding, bin_axis=self.bin_axis,
-            row_axis=self.row_axis, device=self.device,
-        )
+            height=shape[-2], width=shape[-1], num_frames=nf,
+            dtype=dtype_name(dtype),
+            **dict(zip(self._SETTINGS, self._settings())))
+
+    #: The engine's settings that every request's spec takes.
+    _SETTINGS = ("num_bins", "value_range", "method", "backend", "tile",
+                 "bin_block", "memory_budget_bytes", "storage",
+                 "adaptive_microbatch", "mesh", "sharding", "bin_axis",
+                 "row_axis", "device")
+
+    def _settings(self) -> tuple:
+        return tuple(getattr(self, k) for k in self._SETTINGS)
 
     def plan_for(self, frames) -> ExecutionPlan:
         p = plan(self.spec_for(np.shape(frames),
@@ -898,44 +1039,125 @@ class HistogramEngine:
         >>> [float(v) for v in out.results[0].ravel()]
         [16.0, 16.0, 16.0, 16.0]
 
+        On a card, with no ``prev``, budget, storage or mesh, the host
+        frames' copy to the card is queued first, so it runs while the host
+        plans; ``run`` waits for the copy, not for the computation, before
+        it returns, and the caller may then reuse the host buffer.  A request
+        that repeats the engine's last one (frame shape and dtype, settings,
+        tuned priors, and queries that keep their rows, as ``TrackQuery``)
+        takes that one's plan and gate verdict (``_repeat``).
+
         Under ``torch.profiler`` each step is a span of
         ``repro_torch.trace`` (``repro_torch.run`` over ``plan``, ``gate``,
-        ``compute`` and one ``query`` a query), with the request's counters
-        on the root.
+        ``compute`` and one ``query`` a query; on a card that stages first,
+        a ``stage`` before ``plan``), with the request's counters on the
+        root.
         """
         with trace.request():
             return self._run(frames, list(queries), prev)
 
+    def _stages_first(self, prev) -> bool:
+        """Do the frames go to the card before the plan?  Only where every
+        plan the engine can make stages them whole there first: on a card,
+        with no predecessor, budget, storage or mesh."""
+        if (prev is not None or self.mesh is not None
+                or self.memory_budget_bytes is not None
+                or self.storage is not None):
+            return False
+        if self.device is None:
+            return torch.cuda.is_available()
+        return torch.device(self.device).type == "cuda"
+
     def _run(self, frames, queries: list, prev) -> EngineResult:
+        shape, dtype = np.shape(frames), getattr(frames, "dtype", "uint8")
+        staged = None
+        if self._stages_first(prev):
+            # The copy runs on the card while the host plans; the host
+            # frames are waited on before run() hands them back.
+            with trace.span("repro_torch.stage"):
+                frames, staged = stage_async(frames, self.device)
+        try:
+            return self._plan_and_compute(frames, shape, dtype, queries, prev)
+        finally:
+            if staged is not None:
+                staged.synchronize()
+
+    def _repeat(self, shape, dtype, queries):
+        """(plan, verdict) of the engine's last request when this one
+        repeats it, else ``None``.  A repeat has the last one's frame shape
+        and dtype, engine settings and tuned priors, and queries that hand
+        over the very read-only row arrays they handed over then: such a
+        query keeps its rows and reads its inputs once (``TrackQuery``), so
+        the spec, the plan and the gate's verdict would come out as they
+        did."""
+        kept = self._kept
+        if kept is None or kept[0] != (shape, dtype_name(dtype),
+                                       self._settings()):
+            return None
+        needs = _row_needs(queries, shape[-2], shape[-1])
+        if (not needs or len(needs) != len(kept[1])
+                or not all(a is b and not a.flags.writeable
+                           for a, b in zip(needs, kept[1]))):
+            return None
+        p, verdict = kept[2], kept[3]
+        if autotune.prior_for(p.spec) != kept[4]:
+            return None
+        return p, verdict
+
+    def _keep(self, shape, dtype, needs, p: ExecutionPlan) -> None:
+        """Keep the request just gated for ``_repeat`` when each of its
+        queries declared a read-only array of rows."""
+        self._kept = None
+        if needs and all(not a.flags.writeable for a in needs):
+            self._kept = ((shape, dtype_name(dtype), self._settings()),
+                          needs, p, self.last_verdict,
+                          autotune.prior_for(p.spec))
+
+    def _plan_and_compute(self, frames, shape, dtype, queries: list,
+                          prev) -> EngineResult:
         with trace.span("repro_torch.plan"):
-            spec = self.spec_for(np.shape(frames),
-                                 getattr(frames, "dtype", "uint8"))
-            rows = _declared_rows(queries, spec.height, spec.width)
-            if rows is not None:
-                spec = dataclasses.replace(spec, query_rows=rows)
-
+            repeat = None if prev is not None else self._repeat(
+                shape, dtype, queries)
             prev_source = report = None
-            if prev is not None:
-                prev_frame, prev_source = prev
-                if isinstance(prev_source, EngineResult):
-                    prev_source = prev_source.source
-                report = self._delta_report(frames, prev_frame, prev_source,
-                                            spec)
-                if report is not None:
-                    spec = dataclasses.replace(
-                        spec, dirty_fraction=report.dirty_fraction)
-
-            p = plan(spec)
-            if p.incremental and not self._updatable(prev_source, p):
-                # The cached representation cannot take the update (policy
-                # mismatch, single-shot stream, ...): re-plan for a full
-                # recompute rather than fail.
-                spec = dataclasses.replace(spec, dirty_fraction=None)
+            if repeat is not None:
+                p, verdict = repeat
+            else:
+                spec = self.spec_for(shape, dtype)
+                needs = _row_needs(queries, spec.height, spec.width)
+                rows = _union_rows(needs, spec.height)
+                if rows is not None:
+                    spec = dataclasses.replace(spec, query_rows=rows)
+                if prev is not None:
+                    prev_frame, prev_source = prev
+                    if isinstance(prev_source, EngineResult):
+                        prev_source = prev_source.source
+                    report = self._delta_report(frames, prev_frame,
+                                                prev_source, spec)
+                    if report is not None:
+                        spec = dataclasses.replace(
+                            spec, dirty_fraction=report.dirty_fraction)
                 p = plan(spec)
+                if p.incremental and not self._updatable(prev_source, p):
+                    # The cached representation cannot take the update
+                    # (policy mismatch, single-shot stream, ...): re-plan
+                    # for a full recompute rather than fail.
+                    spec = dataclasses.replace(spec, dirty_fraction=None)
+                    p = plan(spec)
+        rows = p.spec.query_rows
         trace.count(representation=p.representation,
                     corner_rows=0 if rows is None else len(rows))
         self.last_plan = p
-        self._validate_or_raise(p, queries)
+        if repeat is None:
+            self._validate_or_raise(p, queries)
+            if prev is None:
+                self._keep(shape, dtype, needs, p)
+        else:
+            # The gate's verdict on this very plan and these queries.
+            self.last_verdict = verdict
+            with trace.leaf("repro_torch.gate"):
+                pass
+            if trace.enabled():
+                trace.count(gate_computed=0)
         with trace.span("repro_torch.compute"):
             if p.incremental:
                 source = self._update(prev_source, frames, report, p)

@@ -101,8 +101,14 @@ class HSource(abc.ABC):
                 f"storage policy's exact-count bound {bound}; spill with a "
                 "wider policy")
 
-    def region_histogram(self, rects) -> torch.Tensor:
-        """``region_query.region_histogram`` semantics; returns fp32."""
+    def region_histogram(self, rects, *, paired: bool = False
+                         ) -> torch.Tensor:
+        """``region_query.region_histogram`` semantics; returns fp32.  The
+        paired mode wants a dense H (``DenseH``) and is refused here."""
+        if paired:
+            raise ValueError(
+                f"paired region queries read a dense H; this "
+                f"{type(self).__name__} holds rows or shards of it")
         rects = np.asarray(rects)
         area = (rects[..., 2] - rects[..., 0] + 1) * (
             rects[..., 3] - rects[..., 1] + 1)
@@ -274,8 +280,9 @@ class DenseH(HSource):
             self.H, next_frame, report, recompute=recompute,
             apply_fn=apply_fn))
 
-    def region_histogram(self, rects) -> torch.Tensor:
-        return rq.region_histogram(self.H, rects)
+    def region_histogram(self, rects, *, paired: bool = False
+                         ) -> torch.Tensor:
+        return rq.region_histogram(self.H, rects, paired=paired)
 
     def sliding_window_histograms(
         self, window, stride: int = 1, *, stats: dict | None = None
@@ -571,9 +578,10 @@ class ShardedH(HSource):
         return torch.cat([torch.cat([s.to(self.device) for s in strip],
                                     dim=-3) for strip in self.grid], dim=-2)
 
-    def region_histogram(self, rects) -> torch.Tensor:
-        if self.kind != "bin":
-            return super().region_histogram(rects)
+    def region_histogram(self, rects, *, paired: bool = False
+                         ) -> torch.Tensor:
+        if self.kind != "bin" or paired:
+            return super().region_histogram(rects, paired=paired)
         return torch.cat([rq.region_histogram(s, rects).to(self.device)
                           for s in self.grid[0]], dim=-1)
 

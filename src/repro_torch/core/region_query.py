@@ -48,20 +48,57 @@ def _corner(H: torch.Tensor, r, c) -> torch.Tensor:
     return vals * valid[..., None]
 
 
-def region_histogram(H, rects) -> torch.Tensor:
+def _paired(H: torch.Tensor, rects) -> torch.Tensor:
+    """The paired mode of Eq. 2: rect [i, ...] (H's leading frame axes
+    first) reads frame i of H alone.  Its four corners (r1, c1), (r0 - 1,
+    c1), (r1, c0 - 1), (r0 - 1, c0 - 1) come in one gather, each as
+    ``_corner`` reads it, and combine in ``region_histogram``'s order, so
+    a frame's results equal those of its slice of H."""
+    rects = _index(rects, H.device)
+    lead = tuple(H.shape[:-3])
+    if not lead or tuple(rects.shape[:len(lead)]) != lead:
+        raise ValueError(
+            f"paired rects {tuple(rects.shape)} must lead with H's frame "
+            f"axes {lead}: rect [i, ...] reads frame i alone")
+    n = int(np.prod(lead))
+    H = H.reshape((n,) + tuple(H.shape[-3:]))
+    rects = rects.reshape((n,) + tuple(rects.shape[len(lead):]))
+    r0, c0, r1, c1 = rects.unbind(-1)
+    rows = torch.stack([r1, r0 - 1, r1, r0 - 1], dim=-1)
+    cols = torch.stack([c1, c1, c0 - 1, c0 - 1], dim=-1)
+    h, w = H.shape[-2:]
+    frame = torch.arange(n, device=H.device).view((n,) + (1,) * (rows.ndim
+                                                                 - 1))
+    vals = H[frame, :, rows.clamp(0, h - 1), cols.clamp(0, w - 1)]
+    vals = vals * ((rows >= 0) & (cols >= 0)).to(H.dtype)[..., None]
+    out = (vals[..., 0, :] - vals[..., 1, :] - vals[..., 2, :]
+           + vals[..., 3, :])                           # (n, ..., b)
+    return out.reshape(lead + tuple(out.shape[1:]))
+
+
+def region_histogram(H, rects, *, paired: bool = False) -> torch.Tensor:
     """Histograms of inclusive regions.
 
     Args:
       H: (b, h, w) integral histogram, a stack (..., b, h, w), or an
         ``HSource``.
       rects: (..., 4) int [r0, c0, r1, c1], inclusive coordinates.
+      paired: rects (*H_lead, ..., 4) pair with H's frames: rect
+        [i, ...] reads frame i alone (each camera's boxes on its own
+        frame), where the default reads every rect on every frame.  A
+        dense H only (a tensor or ``DenseH``); other sources refuse it.
 
     Returns:
-      (*H_lead, *rects_lead, b) region histograms.
+      (*H_lead, *rects_lead, b) region histograms; paired,
+      (*rects_lead, b).
     """
     src = _maybe_hsource(H)
     if src is not None:
+        if paired:
+            return src.region_histogram(rects, paired=True)
         return src.region_histogram(rects)
+    if paired:
+        return _paired(H, rects)
     rects = _index(rects, H.device)
     r0, c0, r1, c1 = (rects[..., i] for i in range(4))
     return (

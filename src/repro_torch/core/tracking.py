@@ -7,7 +7,7 @@ matching its histogram against candidate windows.  Every candidate
 histogram comes from the frame's integral histogram in O(1), which is
 what makes exhaustive local search real-time.
 
-The tracker is batched along two axes:
+The tracker is batched along three axes:
 
   * **targets**: ``init`` accepts a single ``(4,)`` bbox or a ``(t, 4)``
     stack; every step scores the (t, candidates, fragments) rects of all
@@ -17,6 +17,19 @@ The tracker is batched along two axes:
     one K1 launch and a loop over the chunk's H threads the tracker state
     (the reference's ``lax.scan``), the state riding between dispatches
     as the runtime's carry.
+  * **cameras**: ``init_fleet`` and ``step_fleet`` take a fleet's capture
+    tick, one frame a camera, ``(n, h, w)``, and ``(n, t, 4)`` boxes.  A
+    tick is ONE ``HistogramEngine.run(frames, [TrackQuery])``: one K1
+    launch for every camera's frame, then one vote for every target, each
+    reading only its own camera's H, so the launches of a tick do not grow
+    with the cameras.  ``init_fleet`` reads the reference fragments by
+    paired region queries (``region_histogram(..., paired=True)``).
+
+Every vote goes through ``engine.TrackQuery`` (``step_on_h`` and
+``track`` with a leading axis of one frame): on a dense H on the card it
+is one launch of the vote kernel (``kernels/track_vote.py``); elsewhere
+``vote_plain``, torch ops over each candidate's fragment corner lattice
+(``vote_geometry``) scored by ``distances.intersection``.
 
 The vote takes the median of the fragments' similarities the way
 ``jnp.median`` does (the mean of the two middle values of an even count)
@@ -30,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -93,6 +107,124 @@ def _offsets(rad: int, device) -> torch.Tensor:
     d = torch.arange(-rad, rad + 1, device=device, dtype=torch.int64)
     drr, dcc = torch.meshgrid(d, d, indexing="ij")
     return torch.stack([drr, dcc, drr, dcc], dim=-1).reshape(-1, 4)
+
+
+class VoteGeometry(NamedTuple):
+    """Where the vote of t targets in each of n frames reads H, from the
+    boxes alone: each target's 2 R + 1 clamped candidate tops and lefts
+    (the candidates are their cross product, rows outer, the reference's
+    meshgrid order) and each candidate's fragment corner lattice,
+    ``top + k * hh - 1`` for k = 0..gr and ``left + j * ww - 1`` for
+    j = 0..gc (-1 is the virtual zero row or column).  Fragment (i, j) of a
+    candidate has its corners at lattice points (i, j) to (i + 1, j + 1).
+    Its size is targets x (2 R + 1) x (grid + 1): no fragment rect is
+    built.  int64 tensors on the boxes' device."""
+
+    top: torch.Tensor        # (n, t, 2R + 1)
+    left: torch.Tensor       # (n, t, 2R + 1)
+    rows: torch.Tensor       # (n, t, 2R + 1, gr + 1)
+    cols: torch.Tensor       # (n, t, 2R + 1, gc + 1)
+    height: torch.Tensor     # (n, t): r1 - r0 of every candidate
+    width: torch.Tensor      # (n, t): c1 - c0
+
+
+def vote_geometry(bbox: torch.Tensor, grid: tuple[int, int], radius: int,
+                  h: int, w: int) -> VoteGeometry:
+    """The ``VoteGeometry`` of boxes (n, t, 4) in (h, w) frames.  A
+    candidate is its box moved by an offset of the search square and
+    clamped fully inside the frame; the upper bound is floored at 0 so a
+    template as large as the frame pins to the origin."""
+    b = bbox.to(torch.int64)
+    gr, gc = (int(g) for g in grid)
+    d = torch.arange(-radius, radius + 1, device=b.device)
+    bh = b[..., 2] - b[..., 0]
+    bw = b[..., 3] - b[..., 1]
+    top = torch.minimum((b[..., :1] + d).clamp(min=0),
+                        (h - 1 - bh).clamp(min=0)[..., None])
+    left = torch.minimum((b[..., 1:2] + d).clamp(min=0),
+                         (w - 1 - bw).clamp(min=0)[..., None])
+    hh = torch.div(bh + 1, gr, rounding_mode="floor")[..., None, None]
+    ww = torch.div(bw + 1, gc, rounding_mode="floor")[..., None, None]
+    return VoteGeometry(
+        top, left,
+        top[..., None] + torch.arange(gr + 1, device=b.device) * hh - 1,
+        left[..., None] + torch.arange(gc + 1, device=b.device) * ww - 1,
+        bh, bw)
+
+
+def candidate_rows(geom: VoteGeometry, h: int) -> np.ndarray:
+    """The sorted H rows the vote reads, within [0, h)."""
+    seen = np.zeros(h, bool)
+    rows = np.minimum(geom.rows.cpu().numpy().ravel(), h - 1)  # as clamped
+    seen[rows[rows >= 0]] = True
+    return np.flatnonzero(seen)
+
+
+def fragment_hists(H: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """Every candidate's fragment histograms: (n, t, C_r, C_c, gr, gc, b)
+    from H (n, b, k, w), each target reading only its own frame.  ``rows``
+    (n, t, C_r, gr + 1) and ``cols`` (n, t, C_c, gc + 1) index H's rows
+    and columns (clamped in range), ``valid`` (n, t, C_r, C_c, gr + 1,
+    gc + 1) is 1 where neither is virtual, else 0.  The lattice is read in
+    one gather, each point as ``region_query._corner`` reads it, and each
+    fragment combines its four corners in ``region_histogram``'s order,
+    so it equals that fragment's region histogram bit for bit."""
+    n = H.shape[0]
+    frame = torch.arange(n, device=H.device).view(n, 1, 1, 1, 1, 1)
+    L = H[frame, :, rows[:, :, :, None, :, None],
+          cols[:, :, None, :, None, :]] * valid[..., None]
+    return (L[..., 1:, 1:, :] - L[..., :-1, 1:, :] - L[..., 1:, :-1, :]
+            + L[..., :-1, :-1, :])
+
+
+def pick(sims: torch.Tensor, top: torch.Tensor, left: torch.Tensor,
+         height: torch.Tensor, width: torch.Tensor):
+    """The vote over ``sims`` (n, t, C_r, C_c, f), each candidate's
+    fragment similarities: the median of the fragments, the first maximal
+    candidate (rows outer).  Returns (its box (n, t, 4) int32, its score
+    (n, t))."""
+    n, t, c_r, c_c, f = sims.shape
+    score = _median(sims.reshape(n, t, c_r * c_c, f))      # (n, t, C)
+    best = torch.argmax(score, dim=-1, keepdim=True)         # (n, t, 1)
+    r0 = torch.take_along_dim(top, torch.div(best, c_c,
+                                             rounding_mode="floor"), -1)
+    c0 = torch.take_along_dim(left, best % c_c, -1)
+    box = torch.cat([r0, c0, r0 + height[..., None], c0 + width[..., None]],
+                    dim=-1)
+    return (box.to(torch.int32),
+            torch.take_along_dim(score, best, dim=-1)[..., 0])
+
+
+def vote_plain(H: torch.Tensor, bbox: torch.Tensor, ref: torch.Tensor,
+               grid: tuple[int, int], radius: int, *, height: int | None = None,
+               slot=None, reduce=None):
+    """The vote in plain torch ops: (boxes (n, t, 4) int32, scores (n, t))
+    for boxes ``bbox`` (n, t, 4) on H (n, b, k, w) against ``ref``
+    ((n, t, gr gc, b) or broadcast).  A row slab of H gives the frame's
+    ``height`` and ``slot``, the slab row of each frame row the lattice
+    reads; ``reduce`` brings a slab's corner differences back to counts
+    (``HSource._reduce``)."""
+    from repro_torch.core import distances
+
+    n, nb, k, w = H.shape
+    h = k if height is None else height
+    gr, gc = grid
+    g = vote_geometry(bbox, grid, radius, h, w)
+    rows = g.rows.clamp(0, h - 1)
+    if slot is not None:
+        rows = slot[rows]
+    t, c = g.top.shape[1:]
+    valid = ((g.rows >= 0)[:, :, :, None, :, None]
+             & (g.cols >= 0)[:, :, None, :, None, :]).to(H.dtype)
+    hists = fragment_hists(H, rows, g.cols.clamp(0, w - 1), valid)
+    if reduce is not None:
+        hists = reduce(hists).to(torch.float32)
+    hists = hists.reshape(n, t, c * c, gr * gc, nb)
+    ref = ref.to(H.device).broadcast_to((n, t, gr * gc, nb))
+    sims = distances.intersection(hists, ref[:, :, None])
+    return pick(sims.reshape(n, t, c, c, gr * gc), g.top, g.left, g.height,
+                g.width)
 
 
 class FragmentTracker:
@@ -198,6 +330,53 @@ class FragmentTracker:
         best = torch.argmax(_median(sims))
         new_bbox = as_tensor(cand, hists.device).to(torch.int32)[best]
         return {"bbox": new_bbox, "ref_hists": state["ref_hists"],
+                "frag_offsets": state["frag_offsets"]}
+
+    def init_fleet(self, frames, bbox) -> dict:
+        """A fleet's first capture tick: ``frames`` (n, h, w), one frame a
+        camera, and ``bbox`` (n, t, 4), t targets a camera, each clamped
+        fully inside the frame.  One K1 launch for the tick; each target's
+        fragment histograms are read from its own camera's H.  The state
+        is ``init``'s with leading (n, t) axes, on the tracker's device."""
+        cfg = self.config
+        shape = tuple(np.shape(frames))
+        if len(shape) != 3:
+            raise ValueError(
+                f"init_fleet wants (n, h, w) frames, one a camera, got "
+                f"{shape}")
+        bbox = as_tensor(bbox, self._dev).to(torch.int32)
+        if bbox.ndim != 3 or bbox.shape[0] != shape[0] or bbox.shape[-1] != 4:
+            raise ValueError(
+                f"init_fleet wants (n, t, 4) boxes for {shape[0]} cameras, "
+                f"got {tuple(bbox.shape)}")
+        bbox = _clamp_bbox(bbox, *shape[-2:])
+        H = self._compute_h(frames)                          # (n, b, h, w)
+        frag_rects = _fragment_rects(bbox, cfg.fragments)    # (n, t, f, 4)
+        ref_hists = region_histogram(H, frag_rects, paired=True)
+        return {"bbox": bbox, "ref_hists": ref_hists,
+                "frag_offsets": frag_rects - bbox[..., None, :]}
+
+    def fleet_query(self, state: dict):
+        """The ``engine.TrackQuery`` that steps every target of a fleet
+        state once."""
+        from repro_torch.core.engine import TrackQuery
+
+        cfg = self.config
+        return TrackQuery(state["bbox"], state["ref_hists"],
+                          fragments=cfg.fragments, radius=cfg.search_radius)
+
+    def step_fleet(self, state: dict, frames) -> dict:
+        """Step every camera's targets through one capture tick: ``frames``
+        (n, h, w), one frame a camera, in ONE ``HistogramEngine.run(frames,
+        [fleet_query(state)])`` of the tracker's engine.  The boxes stay on
+        the device; the host reads them once, for the plan's corner rows.
+        The new state carries ``"score"`` (n, t), each winner's median
+        fragment intersection, beside ``init_fleet``'s fields; it equals a
+        loop of ``step_on_h`` over the cameras, bit for bit."""
+        out = self._default_engine().run(frames, [self.fleet_query(state)])
+        bbox, score = out.results[0]
+        return {"bbox": bbox, "score": score,
+                "ref_hists": state["ref_hists"],
                 "frag_offsets": state["frag_offsets"]}
 
     def step_on_h(self, state: dict, H) -> dict:
@@ -317,36 +496,20 @@ class FragmentTracker:
     def _step_state(self, state: dict, H: torch.Tensor) -> dict:
         single = state["bbox"].ndim == 1
         new_bbox = self._vote(
-            H, state["bbox"].reshape(-1, 4),
-            state["ref_hists"].reshape(-1, *state["ref_hists"].shape[-2:]),
-            state["frag_offsets"].reshape(
-                -1, *state["frag_offsets"].shape[-2:]))
+            H[None], state["bbox"].reshape(1, -1, 4),
+            state["ref_hists"].reshape(1, -1,
+                                       *state["ref_hists"].shape[-2:]))[0]
         return {"bbox": new_bbox[0] if single else new_bbox,
                 "ref_hists": state["ref_hists"],
                 "frag_offsets": state["frag_offsets"]}
 
-    def _vote(self, H, bbox, ref_hists, frag_offsets) -> torch.Tensor:
-        """Candidate search on one frame's H for t targets at once:
-        bbox (t, 4), ref_hists (t, f, b), frag_offsets (t, f, 4)."""
-        h, w = H.shape[-2:]
-        bbox = bbox.to(torch.int64)
-        cand = bbox[:, None, :] + _offsets(self.config.search_radius,
-                                           bbox.device)   # (t, n_cand, 4)
-        # clamp candidates fully inside the frame; the upper bound is
-        # floored at 0 so a template as large as the frame pins to the
-        # origin instead of producing negative rects
-        bh = (bbox[:, 2] - bbox[:, 0])[:, None]
-        bw = (bbox[:, 3] - bbox[:, 1])[:, None]
-        r0 = torch.minimum(cand[..., 0].clamp(min=0),
-                           (h - 1 - bh).clamp(min=0))
-        c0 = torch.minimum(cand[..., 1].clamp(min=0),
-                           (w - 1 - bw).clamp(min=0))
-        cand = torch.stack([r0, c0, r0 + bh, c0 + bw], dim=-1)
+    def _vote(self, H, bbox, ref_hists) -> torch.Tensor:
+        """Candidate search for n frames' t targets at once, each on its
+        own frame, through ``engine.TrackQuery``: H (n, b, h, w), bbox
+        (n, t, 4), ref_hists (n, t, f, b).  Returns the new (n, t, 4)
+        boxes."""
+        from repro_torch.core.hsource import DenseH
 
-        # score every candidate by median fragment similarity (robust vote)
-        frag = cand[:, :, None, :] + frag_offsets[:, None].to(torch.int64)
-        hists = region_histogram(H, frag)                 # (t, n, f, b)
-        sims = distances.intersection(hists, ref_hists[:, None])
-        best = torch.argmax(_median(sims), dim=-1)        # (t,)
-        return torch.take_along_dim(
-            cand, best[:, None, None], dim=1)[:, 0].to(torch.int32)
+        boxes, _ = self.fleet_query({"bbox": bbox, "ref_hists": ref_hists}
+                                    ).apply(DenseH(H))
+        return boxes

@@ -79,10 +79,8 @@ class Mesh:
                 f"{[str(d) for d in self.devices.ravel()]})")
 
 
-def as_tensor(x, device=None) -> torch.Tensor:
-    """``x`` (numpy array, tensor or nested list) as a tensor on
-    ``resolve_device(device)``, 64-bit types narrowed to 32 bits."""
-    dev = resolve_device(device)
+def _narrowed(x) -> torch.Tensor:
+    """``x`` as a tensor where it lies, 64-bit types narrowed to 32 bits."""
     if isinstance(x, torch.Tensor):
         t = x
     else:
@@ -90,8 +88,33 @@ def as_tensor(x, device=None) -> torch.Tensor:
         if not arr.flags.writeable:     # e.g. numpy views of JAX arrays
             arr = arr.copy()
         t = torch.as_tensor(arr)
-    t = t.to(_NARROW.get(t.dtype, t.dtype))
-    return t.to(dev)
+    return t.to(_NARROW[t.dtype]) if t.dtype in _NARROW else t
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """``x`` (numpy array, tensor or nested list) as a tensor on
+    ``resolve_device(device)``, 64-bit types narrowed to 32 bits."""
+    dev = resolve_device(device)
+    return _narrowed(x).to(dev)
+
+
+def stage_async(x, device=None):
+    """``as_tensor(x, device)`` whose copy from the host to the card is
+    queued on the card's current stream and not waited for.
+
+    Returns (the tensor, a CUDA event recorded after the copy), or (the
+    tensor, ``None``) when nothing went from the host to the card.  Work
+    queued after it on that stream reads the copy; the host buffer must
+    stay as it is until the event has completed (``event.synchronize()``),
+    since a buffer in pinned memory is read while the host goes on."""
+    dev = resolve_device(device)
+    t = _narrowed(x)
+    if dev.type != "cuda" or t.device.type != "cpu":
+        return t.to(dev), None
+    out = t.to(dev, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+    return out, done
 
 
 def dtype_name(x) -> str:

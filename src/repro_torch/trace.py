@@ -54,6 +54,7 @@ LAUNCH_COUNTERS = {
     "K4_hscan": ("cw_tis", "cw_tis_hscan_cuda"),
     "K4_vscan": ("cw_tis", "cw_tis_vscan_cuda"),
     "map": ("window_map", "window_map_cuda"),
+    "vote": ("track_vote", "track_vote_cuda"),
 }
 
 

@@ -451,7 +451,10 @@ def test_traced_requests_count_their_launches(cuda_device):
         dict(zero, K4_hscan=1, K4_vscan=1)]
     assert [r.attrs["kernel"] for r in recs
             if r.name == "repro_torch.scan"] == ["K1", "K2", "K4"]
-    assert [r.name for r in recs if r.parent == 3].count(
+    # The first request's compute span holds its binning (its frames'
+    # copy is a stage span of its own before plan).
+    compute = [r.name for r in recs].index("repro_torch.compute")
+    assert [r.name for r in recs if r.parent == compute].count(
         "repro_torch.bin") == 1
     names = {e.name() for e in prof.profiler.kineto_results.events()}
     assert {"repro_torch.run", "repro_torch.bin", "repro_torch.scan"} <= names
@@ -1406,3 +1409,172 @@ def test_the_map_launch_waits_on_nothing(cuda_device):
     assert [e.name() for e in events if e.name() in waits and any(
         a <= e.start_ns() < b for a, b in spans)] == []
     assert any("window_map_rows_kernel" in e.name() for e in events)
+
+
+# a camera fleet's tracker tick (engine.TrackQuery) on the card
+def _fleet(cameras, seed=41, h=480, w=640, targets=4, side=120):
+    """One tick of ``cameras`` VGA frames and seeded boxes, as the cell
+    vga32-track sends: (frames (n, h, w) uint8, boxes (n, t, 4))."""
+    from repro_torch.data import video_frames
+
+    rng = np.random.default_rng(seed)
+    r0 = rng.integers(0, h - side + 1, (cameras, targets))
+    c0 = rng.integers(0, w - side + 1, (cameras, targets))
+    boxes = np.stack([r0, c0, r0 + side - 1, c0 + side - 1], -1)
+    return video_frames(h, w, cameras, seed=seed), boxes
+
+
+def test_a_fleet_tick_at_the_cells_shape_equals_the_cpu(cuda_device):
+    """32 cameras of 480 x 640 at 32 bins, 4 targets of 120 x 120 at radius
+    12: one engine.run on the card, bit for bit the CPU's plain path."""
+    from repro_torch.core.engine import TrackQuery
+
+    frames, boxes = _fleet(32)
+    target = np.bincount(frames[0, 100:160, 200:260].ravel() // 8,
+                         minlength=32).astype(np.float32)
+    q = TrackQuery(boxes, target, fragments=(2, 2), radius=12)
+    got = HistogramEngine(32).run(frames, [q])
+    assert got.plan.representation == "dense"
+    want = HistogramEngine(32, device="cpu").run(frames, [TrackQuery(
+        boxes, target, fragments=(2, 2), radius=12)]).results[0]
+    boxes_got, scores_got = got.results[0]
+    assert boxes_got.shape == (32, 4, 4) and scores_got.shape == (32, 4)
+    assert torch.equal(boxes_got.cpu(), want[0])
+    assert torch.equal(scores_got.cpu(), want[1])
+
+
+def test_a_fleet_tick_launches_as_many_kernels_at_any_fleet_size(
+        cuda_device):
+    """K1 once a tick (its own launch shape follows the frames), and as
+    many vote launches a tick at 4 cameras as at 32: no loop over the
+    cameras.  Inside each traced tick's track span no host call waits on
+    the card; the root counts the targets and rects."""
+    from repro_torch import trace
+    from repro_torch.core.tracking import FragmentTracker, TrackerConfig
+
+    tracker = FragmentTracker(TrackerConfig(num_bins=32, search_radius=12))
+    frames, boxes = _fleet(32)
+    nxt, _ = _fleet(32, seed=42)
+    states = {n: tracker.init_fleet(frames[:n], boxes[:n]) for n in (4, 32)}
+    waits = {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy"}
+    launch_calls = {"cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx"}
+    kernels = {}
+    for n, st in states.items():
+        tracker.step_fleet(st, nxt[:n])                 # the gate, warm
+        torch.cuda.synchronize()
+        before = wf_tis_cuda.launches
+        trace.clear()
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    tracker.step_fleet(st, nxt[:n])
+                torch.cuda.synchronize()
+            recs = trace.records()
+        finally:
+            trace.clear()
+        assert wf_tis_cuda.launches - before == 3
+        roots = [r for r in recs if r.parent < 0]
+        assert [r.attrs["track_targets"] for r in roots] == [4 * n] * 3
+        assert [r.attrs["track_rects"] for r in roots] == [4 * n * 625 * 4
+                                                           ] * 3
+        events = list(prof.profiler.kineto_results.events())
+        spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                 for e in events if e.name() == "repro_torch.track"]
+        assert len(spans) == 3
+        assert [e.name() for e in events if e.name() in waits and any(
+            a <= e.start_ns() < b for a, b in spans)] == []
+        # The host's launch calls inside the last tick's vote (a profile
+        # can lose the first device records it takes, never its host
+        # calls).
+        a, b = max(spans)
+        kernels[n] = sum(1 for e in events if e.name() in launch_calls
+                         and a <= e.start_ns() < b)
+    assert kernels[4] == kernels[32] > 0
+
+
+@pytest.mark.parametrize("n,h,w,bins,grid,radius,targets", [
+    (2, 97, 131, 8, (2, 2), 3, 3), (3, 240, 320, 16, (3, 3), 12, 2),
+    (1, 64, 80, 32, (1, 1), 0, 5), (2, 60, 70, 128, (4, 2), 30, 2),
+    (32, 480, 640, 32, (2, 2), 12, 4)])
+def test_the_vote_kernel_equals_the_plain_vote(cuda_device, n, h, w, bins,
+                                               grid, radius, targets):
+    """One launch, bit for bit the plain torch vote on the card and on the
+    CPU; boxes at the frame's edges and taller than the search square
+    clamp their candidates."""
+    from repro_torch.core import tracking
+    from repro_torch.data import video_frames
+    from repro_torch.kernels.track_vote import track_vote_cuda
+
+    frames = video_frames(h, w, n, seed=h + w)
+    H = HistogramEngine(bins).compute_dense(frames)
+    rng = np.random.default_rng(bins)
+    th, tw = min(h, 2 * grid[0] + 7), min(w, 3 * grid[1] + 11)
+    r0 = rng.integers(0, h - th + 1, (n, targets))
+    c0 = rng.integers(0, w - tw + 1, (n, targets))
+    boxes = np.stack([r0, c0, r0 + th - 1, c0 + tw - 1], -1)
+    boxes[0, 0] = [0, w - tw, h - 1, w - 1]
+    ref = rng.integers(0, 40, (n, targets, grid[0] * grid[1], bins))
+    boxes_d = torch.as_tensor(boxes, device=cuda_device)
+    ref_d = torch.as_tensor(ref, dtype=torch.float32, device=cuda_device)
+    before = track_vote_cuda.launches
+    got = track_vote_cuda(H, boxes_d, ref_d, grid, radius)
+    assert track_vote_cuda.launches == before + 1
+    on_card = tracking.vote_plain(H, boxes_d, ref_d, grid, radius)
+    on_cpu = tracking.vote_plain(H.cpu(), boxes_d.cpu(), ref_d.cpu(), grid,
+                                 radius)
+    for g, a, b in zip(got, on_card, on_cpu):
+        assert torch.equal(g, a) and torch.equal(g.cpu(), b)
+
+
+
+@pytest.mark.parametrize("queries", ["track", "map", "none"])
+def test_the_frames_copy_is_queued_before_the_plan(cuda_device, queries):
+    """On the card the engine queues the host frames' copy before it plans
+    (a stage span ahead of plan under the root, and no wait for the copy
+    there) and waits for the copy, not for the computation, before run()
+    returns: pinned host frames overwritten the moment run() returns leave
+    the answers and H those of the frames handed over, equal to a run on
+    frames already on the card."""
+    from repro_torch import trace
+    from repro_torch.core.engine import TrackQuery
+
+    frames, boxes = _fleet(8)
+    target = np.bincount(frames[0, 100:160, 200:260].ravel() // 8,
+                         minlength=32).astype(np.float32)
+    qs = {"track": [TrackQuery(boxes, target, fragments=(2, 2), radius=12)],
+          "map": [LikelihoodQuery(target, (24, 24))], "none": []}[queries]
+    eng = HistogramEngine(32)
+    want = eng.run(torch.as_tensor(frames, device=cuda_device), qs)
+    pinned = torch.from_numpy(frames.copy()).pin_memory()
+    view = pinned.numpy()
+    eng.run(view, qs)                                     # warm
+    torch.cuda.synchronize()
+    trace.clear()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = eng.run(view, qs)
+            view[:] = 255 - frames                        # reused at once
+            torch.cuda.synchronize()
+        recs = trace.records()
+    finally:
+        trace.clear()
+    assert torch.equal(got.source.dense(), want.source.dense())
+    for g, w in zip(got.results, want.results):
+        for a, b in zip(*((g, w) if isinstance(g, tuple) else ((g,), (w,)))):
+            assert torch.equal(a, b)
+    kids = [r.name.removeprefix("repro_torch.") for r in recs
+            if r.parent == 0]
+    assert kids[:3] == ["stage", "plan", "gate"]
+    events = list(prof.profiler.kineto_results.events())
+    stage = min((e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in events if e.name() == "repro_torch.stage")
+    waits = {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy"}
+    assert [e.name() for e in events if e.name() in waits
+            and stage[0] <= e.start_ns() < stage[1]] == []

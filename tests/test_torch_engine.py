@@ -20,6 +20,7 @@ from repro_torch.core import engine
 from repro_torch.core.hsource import DenseH, FusedRowsH
 from repro_torch.core.integral_histogram import IntegralHistogram
 from repro_torch.data import video_frames
+from repro_torch.device import Mesh, as_tensor, stage_async
 
 torch.set_num_threads(1)
 
@@ -225,3 +226,106 @@ def test_port_imports_neither_jax_nor_the_reference():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+# Which engines queue the frames' copy to the card before they plan: those
+# whose every plan stages the whole frames there first.
+@pytest.mark.parametrize("options,prev,first", [
+    ({"device": "cpu"}, None, False),
+    ({"device": "meta"}, None, False),
+    ({"device": "cuda"}, None, True),
+    ({"device": "cuda:0"}, None, True),
+    ({"device": "cuda"}, ("frame", "source"), False),
+    ({"device": "cuda", "memory_budget_bytes": 1 << 20}, None, False),
+    ({"device": "cuda", "storage": "float32"}, None, False),
+    ({"mesh": Mesh([torch.device("cuda")], ("model",))}, None, False),
+])
+def test_which_engines_stage_the_frames_before_they_plan(options, prev,
+                                                         first):
+    eng = engine.HistogramEngine(num_bins=8, **options)
+    assert eng._stages_first(prev) is first
+    # With no device named, the card decides.
+    assert engine.HistogramEngine(num_bins=8)._stages_first(None) is \
+        torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("x", [
+    np.arange(12, dtype=np.int64).reshape(3, 4),
+    [[1.5, 2.0], [0.25, 3.0]],
+    torch.arange(5, dtype=torch.float64),
+    torch.arange(6, dtype=torch.uint8).reshape(2, 3),
+])
+def test_staging_off_the_card_is_as_tensor_with_nothing_to_wait_for(x):
+    t, done = stage_async(x, "cpu")
+    want = as_tensor(x, "cpu")
+    assert done is None
+    assert t.dtype == want.dtype and torch.equal(t, want)
+
+
+def _kept_track_query():
+    return engine.TrackQuery(np.array([[[4, 6, 23, 29]], [[10, 0, 29, 19]]]),
+                             np.ones(8, np.float32), radius=3)
+
+
+def test_a_repeated_request_takes_the_last_ones_plan_and_verdict():
+    """A request that repeats the last one (its frame shape, settings and
+    a query that keeps its rows) takes that one's plan and gate verdict;
+    another frame count, other settings, or queries that do not keep
+    their rows, plan anew.  The answers are those of a fresh engine."""
+    frames = video_frames(48, 64, 2, seed=1)
+    eng = engine.HistogramEngine(num_bins=8, device="cpu")
+    q = _kept_track_query()
+    a = eng.run(frames, [q])
+    verdict = eng.last_verdict
+    b = eng.run(frames, [q])
+    assert b.plan is a.plan and eng.last_verdict is verdict
+    want = engine.HistogramEngine(num_bins=8, device="cpu").run(
+        frames, [_kept_track_query()])
+    for got in (a, b):
+        assert got.plan == want.plan
+        assert all(torch.equal(x, y) for x, y in zip(got.results[0],
+                                                      want.results[0]))
+    eng.tile = 64
+    c = eng.run(frames, [q])
+    assert c.plan is not a.plan and c.plan.tile == 64
+    assert eng.run(frames, [q]).plan is c.plan
+    d = eng.run(frames)
+    assert eng.run(frames).plan is not d.plan
+    rects = engine.RegionQuery(np.array([[0, 0, 5, 5]]))
+    e = eng.run(frames, [rects])
+    assert eng.run(frames, [rects]).plan is not e.plan
+
+
+def test_priors_that_change_plan_a_repeated_request_anew(tmp_path,
+                                                         monkeypatch):
+    from repro_torch.core import autotune
+
+    frames = video_frames(48, 64, 2, seed=1)
+    eng = engine.HistogramEngine(num_bins=8, device="cpu")
+    q = _kept_track_query()
+    first = eng.run(frames, [q]).plan
+    assert eng.run(frames, [q]).plan is first
+    path = tmp_path / "priors.json"
+    path.write_text('{"configs": {"%s": {"bin_block": 2}}}'
+                    % autotune.config_key(48, 64, 8))
+    monkeypatch.setenv(autotune.ENV_VAR, str(path))
+    tuned = eng.run(frames, [q]).plan
+    assert tuned is not first and tuned.bin_block == 2
+    assert tuned.tuned == autotune.config_key(48, 64, 8)
+
+
+def test_a_query_array_changed_in_place_is_declared_anew():
+    """The rows of a query that does not keep them are declared on every
+    request: a caller's array changed between requests moves the plan."""
+    rects = np.array([[0, 0, 5, 5]])
+    q = engine.RegionQuery(rects)
+    eng = engine.HistogramEngine(num_bins=8, device="cpu")
+    frames = video_frames(48, 64, 1, seed=2)
+    first = eng.run(frames, [q])
+    rects[0] = [10, 10, 40, 40]
+    second = eng.run(frames, [q])
+    assert second.plan.spec.query_rows == (9, 40)
+    assert first.plan.spec.query_rows == (5,)
+    want = engine.HistogramEngine(num_bins=8, device="cpu").run(
+        frames, [engine.RegionQuery(rects.copy())])
+    assert torch.equal(second.results[0], want.results[0])

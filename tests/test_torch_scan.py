@@ -417,3 +417,16 @@ def test_backend_errors_and_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.integral_histogram(img, 4)
+
+
+@pytest.mark.parametrize("bins", [2, 3, 8, 32, 100, 128, 256])
+def test_every_byte_bins_as_the_reference(bins):
+    """Each of the 256 byte values lands in the reference's bin, at bin
+    counts that are powers of two (the two-pass shift) and others."""
+    img = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    want = ref_binning.bin_indices(jnp.asarray(img), bins, 256)
+    got = binning.bin_indices(torch.as_tensor(img), bins, 256)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    np.testing.assert_array_equal(_np(got), img.astype(np.int64) * bins
+                                  // 256)

@@ -15,6 +15,7 @@ from repro_torch.core.engine import (
     LikelihoodQuery,
     RegionQuery,
     SlidingWindowQuery,
+    TrackQuery,
 )
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -34,6 +35,12 @@ def _empty_buffer():
 def _frames(shape, seed=0):
     return np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
 
+
+# A fleet tick's query: two cameras, two targets each, 2 x 2 fragments,
+# radius 3 (49 candidates).
+TRACK = TrackQuery(np.array([[[4, 6, 23, 29], [20, 30, 43, 61]],
+                             [[10, 0, 29, 19], [0, 40, 17, 59]]]),
+                   np.full(BINS, 1.0, np.float32), radius=3)
 
 # name: (engine options, frame shape, queries, representation,
 #        the root's children in order, {span: the names under it})
@@ -57,6 +64,11 @@ CASES = {
         [SlidingWindowQuery((8, 8), 4)], "banded",
         ["plan", "gate", "compute", "query"],
         {"compute": set(), "query": {"stage", "scan"}}),
+    # The tracker's vote is a span of its own under its query.
+    "track": (
+        {}, (2, H, W), [TRACK], "dense",
+        ["plan", "gate", "compute", "query"],
+        {"compute": {"stage", "scan"}, "query": {"track"}, "track": set()}),
     # The CUDA path on meta tensors: the wrappers run their launch checks
     # and launch nothing, so binning is a step of its own here.
     "cuda_dense_on_meta": (
@@ -165,7 +177,29 @@ def test_the_root_carries_the_requests_counters(case):
         assert a["launches"] == dict.fromkeys(trace.LAUNCH_COUNTERS, 0)
 
 
-@pytest.mark.parametrize("case", ["dense", "fused", "banded_two_queries"])
+def test_a_track_query_counts_its_targets_and_rects_on_the_root():
+    outs, recs, _ = _run_case("track")
+    roots = [r for r in recs if r.parent < 0]
+    assert len(roots) == 2
+    for root in roots:
+        # 2 cameras x 2 targets; each target 49 candidates x 4 fragments
+        assert root.attrs["track_targets"] == 4
+        assert root.attrs["track_rects"] == 4 * 49 * 4
+    for i, r in enumerate(recs):
+        if _short(r) == "track":
+            assert _short(recs[r.parent]) == "query"
+            assert recs[r.parent].attrs["kind"] == "TrackQuery"
+    boxes, scores = outs[0].results[0]
+    assert boxes.shape == (2, 2, 4) and scores.shape == (2, 2)
+    # Without the profiler the same request records nothing.
+    trace.clear()
+    HistogramEngine(num_bins=BINS, device="cpu").run(_frames((2, H, W)),
+                                                     [TRACK])
+    assert trace.records() == [] and not trace.enabled()
+
+
+@pytest.mark.parametrize("case", ["dense", "fused", "banded_two_queries",
+                                  "track"])
 def test_spans_sit_on_the_profilers_clock(case):
     _, recs, prof = _run_case(case)
     events = {}
